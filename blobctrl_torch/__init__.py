@@ -1,0 +1,36 @@
+"""blobctrl_torch — the BlobCtrl element-level editing stack in PyTorch, for
+NVIDIA Hopper (H100).
+
+Mirrors the subpackages of the JAX package (``blobctrl_tpu/``) module by
+module (``nn``, ``ops``, ``models``, ``schedulers``, ``blob``, ``pipeline``,
+``params``, ``apps``) so each function has an obvious counterpart:
+
+  * NHWC activations and HWIO conv kernels at every public function;
+  * params are plain dicts / lists of tensors with the JAX package's key
+    names (``params.from_jax`` carries a JAX pytree across unchanged);
+  * the two hot kernels (flash attention, the 3x3 conv with its fused
+    GroupNorm+SiLU prologue) are hand-written CUDA C++ in ``csrc/``, built
+    with nvcc at first use and bound through ctypes (``ops``).
+
+Entry points run on the card: they default to ``device="cuda"`` and raise
+``RuntimeError`` when CUDA is unavailable, unless the caller asks for
+``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. Never falls back to the CPU on its
+    own: asking for CUDA on a machine without it raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    return dev
+

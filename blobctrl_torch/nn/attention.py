@@ -1,0 +1,135 @@
+"""Attention, GEGLU feed-forward and the basic transformer block.
+
+Counterpart of ``blobctrl_tpu/nn/attention.py`` (diffusers ``Attention`` +
+``BasicTransformerBlock``, SD-1.5 flavour: no qkv bias, bias on to_out,
+pre-LayerNorm blocks, GEGLU feed-forward).
+
+The inner attention takes the flash kernel (``ops.flash_attention``) for the
+long self-attention of the double-width layout, and the plain fp32-softmax
+path everywhere else (cross-attention over the text tokens, short maps).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from blobctrl_torch.nn import layers
+from blobctrl_torch.ops import flash_attention as flash_op
+
+# Sequence length at or above which q and kv take the flash kernel.
+FLASH_MIN_SEQ = 1024
+
+
+def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """q, k, v: (B, H, S, D). fp32 scores and softmax, probabilities cast to
+    the input dtype before P @ V (the JAX package's ``sdpa_xla``)."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs.to(q.dtype), v)
+
+
+def use_flash(q: torch.Tensor, q_seq: int, kv_seq: int) -> bool:
+    """The JAX package's ``_use_flash`` routing: the kernel on the card for
+    kv % 128 == 0 and both sequences >= 1024 (no attention here is
+    masked)."""
+    return (q.is_cuda and kv_seq % 128 == 0
+            and q_seq >= FLASH_MIN_SEQ and kv_seq >= FLASH_MIN_SEQ)
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         heads: int, return_heads: bool = False
+                         ) -> torch.Tensor:
+    """q: (B, Sq, C), k/v: (B, Sk, C) -> (B, Sq, C), or (B, H, Sq, D) when
+    return_heads."""
+    b, sq, c = q.shape
+    sk = k.shape[1]
+    d = c // heads
+    scale = 1.0 / (d ** 0.5)
+
+    def split(x, s):
+        return x.reshape(b, s, heads, d).transpose(1, 2)
+
+    if use_flash(q, sq, sk):
+        def flat(x, s):
+            return split(x, s).reshape(b * heads, s, d).contiguous()
+        out = flash_op.flash_attention(flat(q, sq), flat(k, sk), flat(v, sk),
+                                       scale).reshape(b, heads, sq, d)
+    else:
+        out = sdpa_plain(split(q, sq), split(k, sk), split(v, sk), scale)
+    if return_heads:
+        return out
+    return out.transpose(1, 2).reshape(b, sq, c)
+
+
+def init_attention(init: layers.ParamInit, query_dim: int,
+                   cross_dim: Optional[int] = None):
+    kv_dim = cross_dim if cross_dim is not None else query_dim
+    return {
+        "to_q": layers.init_linear(init, query_dim, query_dim, use_bias=False),
+        "to_k": layers.init_linear(init, kv_dim, query_dim, use_bias=False),
+        "to_v": layers.init_linear(init, kv_dim, query_dim, use_bias=False),
+        "to_out": layers.init_linear(init, query_dim, query_dim),
+    }
+
+
+def attention(params, x: torch.Tensor, heads: int,
+              context: Optional[torch.Tensor] = None,
+              norm=None) -> torch.Tensor:
+    """norm: optional pre-LayerNorm params, applied to x first."""
+    if norm is not None:
+        x = layers.layer_norm(norm, x)
+    if context is None and "bias" not in params["to_q"]:
+        # self-attention: the three projections as one matmul
+        w_qkv = torch.cat([params[n]["kernel"] for n in ("to_q", "to_k",
+                                                         "to_v")], dim=1)
+        q, k, v = torch.matmul(x, w_qkv.to(x.dtype)).chunk(3, dim=-1)
+    else:
+        q = layers.linear(params["to_q"], x)
+        src = context if context is not None else x
+        k = layers.linear(params["to_k"], src)
+        v = layers.linear(params["to_v"], src)
+    out_h = multi_head_attention(q, k, v, heads, return_heads=True)
+    # output projection over (head, d): the head merge folds into the matmul
+    b, h, sq, d = out_h.shape
+    return layers.linear(params["to_out"],
+                         out_h.transpose(1, 2).reshape(b, sq, h * d))
+
+
+def init_feed_forward(init: layers.ParamInit, dim: int):
+    inner = dim * 4
+    return {"proj_in": layers.init_linear(init, dim, inner * 2),
+            "proj_out": layers.init_linear(init, inner, dim)}
+
+
+def feed_forward(params, x: torch.Tensor, norm=None) -> torch.Tensor:
+    """GEGLU: proj_in to 2x inner, h * gelu(gate), proj_out."""
+    if norm is not None:
+        x = layers.layer_norm(norm, x)
+    h, gate = layers.linear(params["proj_in"], x).chunk(2, dim=-1)
+    return layers.linear(params["proj_out"], h * layers.gelu(gate))
+
+
+def init_transformer_block(init: layers.ParamInit, dim: int,
+                           cross_dim: Optional[int]):
+    """cross_dim=None builds no cross-attention at all (the BlobNet
+    configuration)."""
+    p = {"norm1": layers.init_norm(init, dim),
+         "attn1": init_attention(init, dim),
+         "norm3": layers.init_norm(init, dim),
+         "ff": init_feed_forward(init, dim)}
+    if cross_dim is not None:
+        p["norm2"] = layers.init_norm(init, dim)
+        p["attn2"] = init_attention(init, dim, cross_dim=cross_dim)
+    return p
+
+
+def transformer_block(params, x: torch.Tensor, heads: int,
+                      context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = x + attention(params["attn1"], x, heads, norm=params["norm1"])
+    if "attn2" in params:
+        x = x + attention(params["attn2"], x, heads, context=context,
+                          norm=params["norm2"])
+    return x + feed_forward(params["ff"], x, norm=params["norm3"])

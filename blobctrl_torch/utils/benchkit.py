@@ -1,0 +1,53 @@
+"""The production pipeline and the standard 512^2 edit inputs (counterpart of
+``blobctrl_tpu/utils/benchkit.py``): one place that defines the edit the
+port is driven and timed with."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from blobctrl_torch.apps import flagship
+from blobctrl_torch.blob import math as blob_math
+from blobctrl_torch.pipeline import BlobNetPipeline
+
+
+def make_flagship_pipe(seed: int = 0, device="cuda", dtype=torch.bfloat16):
+    """Production-geometry pipeline with random weights drawn on the
+    device (see ``flagship.production_params``)."""
+    unet_p, blob_p, vae_p = flagship.production_params(seed, device, dtype)
+    return BlobNetPipeline(
+        unet_cfg=flagship.sd15_unet_config(), unet_params=unet_p,
+        blobnet_cfg=flagship.blobctrl_blobnet_config(), blobnet_params=blob_p,
+        vae_cfg=flagship.sd15_vae_config(), vae_params=vae_p, dtype=dtype,
+        device=device)
+
+
+def make_edit_inputs(size: int = 512, seed: int = 0, ellipse=None):
+    """Random fg/bg images, one blob score, CLIP-shaped prompt embeds,
+    DINOv2-shaped appearance feats and fixed initial latents; the same
+    numbers as the JAX package's ``make_edit_inputs`` for the same seed."""
+    rng = np.random.RandomState(seed)
+    if ellipse is None:
+        ellipse = ((size * 0.55, size * 0.5), (size * 0.25, size * 0.4), 30.0)
+    return dict(
+        fg_image=rng.randint(0, 255, (size, size, 3)).astype(np.uint8),
+        bg_image=rng.randint(0, 255, (size, size, 3)).astype(np.uint8),
+        gs_score=blob_math.blob_score_from_ellipse(
+            ellipse, size, size, (size // 8, size // 8)).numpy(),
+        prompt_embeds=rng.randn(1, 77, 768).astype(np.float32) * 0.02,
+        negative_prompt_embeds=rng.randn(1, 77, 768).astype(np.float32) * 0.02,
+        fg_dino_feats=rng.randn(1, 1024).astype(np.float32) * 0.1,
+        latents=rng.randn(1, size // 8, size // 8, 4).astype(np.float32),
+    )
+
+
+def standard_edit_kwargs(size: int = 512, steps: int = 50, seed: int = 0,
+                         ellipse=None):
+    """Full kwargs for one production edit (unipc, CFG 7.5, control
+    strength 1.6, control window end 0.9)."""
+    kw = make_edit_inputs(size, seed, ellipse)
+    kw.update(height=size, width=size, num_inference_steps=steps,
+              guidance_scale=7.5, blobnet_conditioning_scale=1.6,
+              blobnet_control_guidance_end=0.9, scheduler="unipc")
+    return kw

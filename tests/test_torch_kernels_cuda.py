@@ -1,0 +1,85 @@
+"""The CUDA kernels against their plain versions on the card, and the
+wrappers' refusals. Marked ``cuda``; the ``cuda_device`` fixture skips them
+where there is no GPU, deciding when the test runs (never at import, so
+every pytest worker collects the same tests). This file imports no JAX, so
+it runs on a machine with only the port's dependencies:
+``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
+"""
+
+import pytest
+import torch
+
+from blobctrl_torch.ops import conv3x3 as tconv
+from blobctrl_torch.ops import flash_attention as tfa
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: runs a CUDA kernel, which has no "
+                    "CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fixed_max", [20.0, None])
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                            fixed_max):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    # ragged q and kv tails, head dims that are not powers of two
+    for bh, sq, skv, d in [(3, 200, 333, 40), (2, 130, 1024, 80),
+                           (1, 64, 70, 160), (2, 100, 256, 16)]:
+        q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+                   .to(dtype) for s in (sq, skv, skv))
+        got = tfa.flash_attention(q, k, v, d ** -0.5, fixed_max=fixed_max)
+        ref = tfa.flash_attention_reference(q, k, v, d ** -0.5)
+        err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err.item() <= tol, (bh, sq, skv, d, err.item())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_cannot_take(cuda_device):
+    q = torch.zeros(2, 64, 40, device=cuda_device)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q.half(), q.half(), 1.0)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q[:, :, :20], q[:, :, :20], q[:, :, :20], 1.0)
+    big = torch.zeros(1, 64, 192, device=cuda_device)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(big, big, big, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_conv3x3_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                              prologue):
+    torch.backends.cudnn.allow_tf32 = False  # the plain version in full fp32
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, h, w, c, co in [(2, 8, 16, 1029, 320), (1, 16, 8, 37, 40),
+                           (2, 24, 40, 64, 130)]:
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * s
+        x = rnd(b, h, w, c).to(dtype)
+        k = rnd(3, 3, c, co, s=(9 * c) ** -0.5).to(dtype)
+        bias = rnd(co)
+        pro = (1 + 0.3 * rnd(b, c), rnd(b, c)) if prologue else (None, None)
+        got = tconv.conv3x3(x, k, bias, *pro)
+        ref = tconv.conv3x3_reference(x, k, bias, *pro)
+        err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err.item() <= tol, (b, h, w, c, co, err.item())
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_rejects_what_it_cannot_take(cuda_device):
+    x = torch.zeros(1, 8, 8, 32, device=cuda_device)
+    k = torch.zeros(3, 3, 32, 16, device=cuda_device)
+    with pytest.raises(ValueError):
+        tconv.conv3x3(x, k.bfloat16())
+    with pytest.raises(ValueError):
+        tconv.conv3x3(x.permute(0, 2, 1, 3), k)
+    with pytest.raises(ValueError):
+        tconv.conv3x3(x, k[:, :, :16])
