@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library with
 a plain C interface (no PyTorch headers: seconds per file, not minutes) and
 is loaded through ctypes. Builds happen at first use, never at import, into
 ``csrc/build/`` (git-ignored); all sources compile in parallel, one nvcc
-process each. A library is named by a digest of its source and flags, so an
-edited source rebuilds and an unchanged one loads as is.
+process each, so the build takes as long as the slowest file. A library is
+named by a digest of its source and flags, so an edited source rebuilds and
+an unchanged one loads as is.
 """
 
 from __future__ import annotations
@@ -16,13 +17,12 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,8 +37,6 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _entry = {}
-build_seconds = None   # wall time of the last build_all() that compiled
-ptxas_log = {}         # name -> nvcc/ptxas report of the last compile
 
 
 def _nvcc() -> str:
@@ -57,27 +55,23 @@ def _target(name: str) -> str:
 def build_all():
     """Compile every kernel library that is missing (all nvcc processes
     started together), then load them all. Raises on any failure."""
-    global build_seconds
     with _lock:
         if len(_entry) == len(SIGNATURES):
             return
         os.makedirs(BUILD_DIR, exist_ok=True)
-        t0 = time.perf_counter()
         procs = {}
         for name in SIGNATURES:
             so = _target(name)
-            if os.path.exists(so):
-                continue
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True), tmp, so)
+            if not os.path.exists(so):
+                tmp = f"{so}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                       os.path.join(CSRC, f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp, so)
         failed = []
         for name, (proc, tmp, so) in procs.items():
             out, _ = proc.communicate()
-            ptxas_log[name] = out
             if proc.returncode != 0:
                 failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
                               f"{out}")
@@ -86,8 +80,6 @@ def build_all():
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))
-        if procs:
-            build_seconds = time.perf_counter() - t0
         for name, (fn_name, argtypes) in SIGNATURES.items():
             fn = getattr(ctypes.CDLL(_target(name)), fn_name)
             fn.argtypes = argtypes

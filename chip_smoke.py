@@ -1,6 +1,6 @@
 """Drive the PyTorch port (``blobctrl_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps 50]
+    python3 chip_smoke.py
 
 Run from the repository root. Phases, in order; any failure raises and the
 script exits non-zero:
@@ -17,7 +17,7 @@ script exits non-zero:
      fp32) on the card with the kernels and on the CPU with the plain
      route; PSNR of card against CPU >= 40 dB; both kernels launched.
   4. Full width: SD-1.5 UNet (5-ch) + BlobNet (1029-ch) + VAE, random
-     weights drawn on the card, bf16; three requests through
+     weights drawn on the card, bf16; three STEPS-step requests through
      ``BlobNetPipeline.__call__`` (the standard edit, a second edit with
      another ellipse and seed, a remove-mode edit). Launch counters are
      zeroed just before and read just after.
@@ -34,7 +34,6 @@ sheet).
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -49,6 +48,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+STEPS = 50  # UniPC steps of each full-width request
 
 
 def log(*args):
@@ -302,11 +302,7 @@ def run_request(pipe, kw):
         torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--steps", type=int, default=50,
-                    help="UniPC steps of each full-width request")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -324,12 +320,7 @@ def main(argv=None) -> int:
         f", cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"  kernel build {time.perf_counter() - t0:.2f} s "
-        f"(nvcc wall {_build.build_seconds})")
-    for name, text in _build.ptxas_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    log(f"  kernel build {time.perf_counter() - t0:.2f} s")
     torch.backends.cudnn.allow_tf32 = False  # fp32 references in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -353,8 +344,8 @@ def main(argv=None) -> int:
     toy_phase()
 
     # -- phase 4 ------------------------------------------------------------
-    log(f"phase 4: full width, bf16, {args.steps} steps per request")
-    requests = full_width_requests(args.steps)
+    log(f"phase 4: full width, bf16, {STEPS} steps per request")
+    requests = full_width_requests(STEPS)
     ops.reset_counts()
     for name, kw in requests:
         _, secs, (nf, nc), mem = run_request(pipe, kw)

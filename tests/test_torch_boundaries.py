@@ -36,7 +36,7 @@ def test_import_without_jax_or_nvcc():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from blobctrl_torch.ops import _build\n"
-        "assert not _build._entry and _build.build_seconds is None\n"
+        "assert not _build._entry\n"
         "bad = [m for m in sys.modules if m == 'blobctrl_tpu'"
         " or m.startswith(('blobctrl_tpu.', 'jax.'))]\n"
         "assert not bad, bad\n"
