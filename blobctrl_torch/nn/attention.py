@@ -4,9 +4,12 @@ Counterpart of ``blobctrl_tpu/nn/attention.py`` (diffusers ``Attention`` +
 ``BasicTransformerBlock``, SD-1.5 flavour: no qkv bias, bias on to_out,
 pre-LayerNorm blocks, GEGLU feed-forward).
 
-The inner attention takes the flash kernel (``ops.flash_attention``) for the
+The inner attention takes flash attention (``ops.flash_attention``) for the
 long self-attention of the double-width layout, and the plain fp32-softmax
 path everywhere else (cross-attention over the text tokens, short maps).
+``set_attention_backend(..., qk_int8=True)`` sends the flash calls to the
+int8 q.k^T kernel instead, with one global k scale under
+``int8_global_k=True`` (the int8-everything mode).
 """
 
 from __future__ import annotations
@@ -20,6 +23,31 @@ from blobctrl_torch.ops import flash_attention as flash_op
 
 # Sequence length at or above which q and kv take the flash kernel.
 FLASH_MIN_SEQ = 1024
+# Opt-in int8 q.k^T in the flash calls, and with it one global k scale
+# instead of per-row k scales (the int8-everything mode uses both).
+_ATTENTION_INT8 = False
+_ATTENTION_INT8_GLOBAL_K = False
+
+
+def set_attention_backend(backend: str = "auto",
+                          qk_int8: Optional[bool] = None,
+                          int8_global_k: Optional[bool] = None):
+    """The JAX package's switch, with its names. The port has one backend,
+    "auto" (routing by shape, kernel or plain version by device); qk_int8
+    and int8_global_k set the int8 flash mode, None leaves each as it is."""
+    global _ATTENTION_INT8, _ATTENTION_INT8_GLOBAL_K
+    if backend != "auto":
+        raise ValueError(f"attention backend {backend!r}: the port has only "
+                         f"'auto'")
+    if qk_int8 is not None:
+        _ATTENTION_INT8 = bool(qk_int8)
+    if int8_global_k is not None:
+        _ATTENTION_INT8_GLOBAL_K = bool(int8_global_k)
+
+
+def attention_int8_mode() -> tuple:
+    """-> (qk_int8, int8_global_k) as set."""
+    return _ATTENTION_INT8, _ATTENTION_INT8_GLOBAL_K
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,11 +59,12 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.to(q.dtype), v)
 
 
-def use_flash(q: torch.Tensor, q_seq: int, kv_seq: int) -> bool:
-    """The JAX package's ``_use_flash`` routing: the kernel on the card for
-    kv % 128 == 0 and both sequences >= 1024 (no attention here is
-    masked)."""
-    return (q.is_cuda and kv_seq % 128 == 0
+def use_flash(q_seq: int, kv_seq: int) -> bool:
+    """The JAX package's ``_use_flash`` routing on its card: flash attention
+    for kv % 128 == 0 and both sequences >= 1024 (no attention here is
+    masked). The shape alone decides; the op picks kernel or plain version
+    by device."""
+    return (kv_seq % 128 == 0
             and q_seq >= FLASH_MIN_SEQ and kv_seq >= FLASH_MIN_SEQ)
 
 
@@ -52,11 +81,16 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def split(x, s):
         return x.reshape(b, s, heads, d).transpose(1, 2)
 
-    if use_flash(q, sq, sk):
+    if use_flash(sq, sk):
         def flat(x, s):
             return split(x, s).reshape(b * heads, s, d).contiguous()
-        out = flash_op.flash_attention(flat(q, sq), flat(k, sk), flat(v, sk),
-                                       scale).reshape(b, heads, sq, d)
+        args = (flat(q, sq), flat(k, sk), flat(v, sk), scale)
+        if _ATTENTION_INT8:
+            out = flash_op.flash_attention_int8(
+                *args, global_k=_ATTENTION_INT8_GLOBAL_K)
+        else:
+            out = flash_op.flash_attention(*args)
+        out = out.reshape(b, heads, sq, d)
     else:
         out = sdpa_plain(split(q, sq), split(k, sk), split(v, sk), scale)
     if return_heads:

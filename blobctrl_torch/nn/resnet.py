@@ -1,10 +1,12 @@
 """ResnetBlock2D and Down/Upsample in NHWC (counterpart of
 ``blobctrl_tpu/nn/resnet.py``).
 
-Stride-1 3x3 convs take the conv3x3 kernel on the card wherever the shape
-qualifies; inside a resnet block the GroupNorm statistics are folded into a
-per-(batch, channel) affine and the normalize+SiLU runs in the kernel's
-prologue instead of as separate passes over device memory.
+Stride-1 3x3 convs go through ``ops.conv3x3`` wherever the shape qualifies
+(its kernel on the card, its plain version on the CPU); inside a resnet
+block the GroupNorm statistics are folded into a per-(batch, channel) affine
+and the normalize+SiLU runs in the conv's prologue instead of as separate
+passes over device memory. With the int8 conv mode on, the routed convs
+take the tree's pre-quantized ``kernel_q``/``w_scale`` where present.
 """
 
 from __future__ import annotations
@@ -18,15 +20,18 @@ from blobctrl_torch.ops import conv3x3 as conv3x3_op
 
 
 def route_conv(x: torch.Tensor) -> bool:
-    """The JAX package's ``_route_conv``: the kernel on the card when
-    h % 8 == 0, w >= 8 and C >= 32; plain ``F.conv2d`` otherwise."""
+    """The JAX package's ``_route_conv`` on its card: ``ops.conv3x3`` when
+    h % 8 == 0, w >= 8 and C >= 32; plain ``F.conv2d`` otherwise. The shape
+    alone decides; the op picks kernel or plain version by device."""
     _, h, w, c = x.shape
-    return x.is_cuda and h % 8 == 0 and w >= 8 and c >= 32
+    return h % 8 == 0 and w >= 8 and c >= 32
 
 
 def _conv3x3_kernel(conv_params, x, scale=None, shift=None):
     return conv3x3_op.conv3x3(x, conv_params["kernel"].to(x.dtype),
-                              conv_params.get("bias"), scale, shift)
+                              conv_params.get("bias"), scale, shift,
+                              kernel_q=conv_params.get("kernel_q"),
+                              w_scale=conv_params.get("w_scale"))
 
 
 def conv3x3_routed(conv_params, x: torch.Tensor) -> torch.Tensor:

@@ -10,5 +10,6 @@ from blobctrl_torch.ops import conv3x3, flash_attention
 def reset_counts():
     """Zero every kernel's launch counter and shape log."""
     for mod in (flash_attention, conv3x3):
-        mod.launches = 0
+        mod.launches = mod.int8_launches = 0
         mod.launch_shapes.clear()
+        mod.int8_launch_shapes.clear()

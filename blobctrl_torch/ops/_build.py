@@ -33,6 +33,12 @@ SIGNATURES = {
                         (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P)),
     "conv3x3": ("conv3x3_fwd",
                 (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "flash_attention_int8": ("flash_attention_int8_fwd",
+                             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                              _I, _P)),
+    "conv3x3_int8": ("conv3x3_int8_fwd",
+                     (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P)),
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,18 @@
-"""3x3 stride-1 same conv with an optional fused GroupNorm+SiLU prologue.
+"""3x3 stride-1 same conv with an optional fused GroupNorm+SiLU prologue,
+exact or int8.
 
-Counterpart of ``blobctrl_tpu/ops/conv3x3.py``. The CUDA kernel
-(``csrc/conv3x3.cu``) replaces the Pallas ``_conv3x3_kernel_halo`` (and its
-"views3" twin ``_conv3x3_kernel``, the same function): an implicit GEMM with
-M = B*H*W, N = Co, K = 9*C, fp32 accumulation, bias in the epilogue, and
-``silu(x * scale[b, c] + shift[b, c])`` applied as x is loaded, before the
-zero padding (taps outside the image contribute 0, not silu(shift)).
+Counterpart of ``blobctrl_tpu/ops/conv3x3.py``. Two CUDA kernels:
+
+  * ``csrc/conv3x3.cu`` replaces the Pallas ``_conv3x3_kernel_halo`` (and its
+    "views3" twin ``_conv3x3_kernel``, the same function): an implicit GEMM
+    with M = B*H*W, N = Co, K = 9*C, fp32 accumulation, bias in the
+    epilogue, and ``silu(x * scale[b, c] + shift[b, c])`` applied as x is
+    loaded, before the zero padding (taps outside the image contribute 0,
+    not silu(shift));
+  * ``csrc/conv3x3_int8.cu`` replaces ``_conv3x3_kernel_halo_i8``, the
+    opt-in int8 mode (``set_conv_int8``): the same GEMM over int8
+    activations under ONE activation scale and int8 weights under
+    per-output-channel scales, int32 accumulation, one fp32 rescale.
 """
 
 from __future__ import annotations
@@ -20,13 +27,94 @@ from blobctrl_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# fp32(1/127): XLA compiles the quantizers' `amax / 127.0` as a multiply by
+# this reciprocal, so the port's scales multiply by it too and come out
+# bit-equal to the JAX package's
+INV127 = float(torch.tensor(1.0) / 127.0)
+
+# The int8 mode, off by default as in the JAX package. A static activation
+# amax (activations assumed in [-amax, amax], beyond it they saturate) or
+# None for a dynamic max-abs over each call's activations.
+_CONV_INT8 = False
+_CONV_INT8_ACT_AMAX: Optional[float] = 12.0
+
 launches = 0                               # kernel launches (plain calls excluded)
 launch_shapes = collections.Counter()      # (b, h, w, c, co, dtype, prologue) -> launches
+int8_launches = 0                          # the same for the int8 kernel
+int8_launch_shapes = collections.Counter()  # (b, h, w, c, co, dtype, prologue, act_amax) -> launches
+
+# 2-D transformer projections (and 1x1 proj convs) that quantize_conv_tree
+# also pre-quantizes, as the JAX package does for its int8 linear path
+_LINEAR_INT8_NAMES = frozenset(
+    {"to_q", "to_k", "to_v", "to_out", "proj_in", "proj_out"})
+
+
+def set_conv_int8(flag: bool, act_amax: Optional[float] = "unset"):
+    """Toggle the int8 conv mode; optionally set the static activation amax
+    (None = dynamic per-call max-abs)."""
+    global _CONV_INT8, _CONV_INT8_ACT_AMAX
+    _CONV_INT8 = bool(flag)
+    if act_amax != "unset":
+        _CONV_INT8_ACT_AMAX = act_amax
+
+
+def conv_int8_enabled() -> bool:
+    return _CONV_INT8
+
+
+def quantize_kernel_i8(kern: torch.Tensor):
+    """(3, 3, C, Co) conv or (K, N) linear kernel -> (int8 kernel, per-
+    output-channel fp32 scales): ws = max(amax, 1e-20) / 127 over every axis
+    but the last, wq = clip(round(w / ws), +-127), a true division rounded
+    half to even (the JAX package's ``_quantize_kernel_i8``)."""
+    wf = kern.float()
+    ws = torch.clamp_min(wf.abs().amax(dim=tuple(range(wf.dim() - 1))),
+                         1e-20) * INV127
+    return torch.clamp(torch.round(wf / ws), -127, 127).to(torch.int8), ws
+
+
+def _hot_kernel(k, name) -> bool:
+    if not isinstance(k, torch.Tensor):
+        return False
+    conv33 = k.dim() == 4 and tuple(k.shape[:2]) == (3, 3)
+    hot_linear = name in _LINEAR_INT8_NAMES and (
+        k.dim() == 2 or (k.dim() == 4 and tuple(k.shape[:2]) == (1, 1)))
+    return conv33 or hot_linear
+
+
+def quantize_conv_tree(params):
+    """Pre-quantize a param tree for the int8 mode: ``kernel_q`` (int8) and
+    ``w_scale`` (per-output-channel fp32) beside every (3, 3, C, Co) conv
+    ``kernel`` and every transformer projection kernel named in
+    ``_LINEAR_INT8_NAMES`` (the JAX package's leaf filter). Idempotent; every
+    other leaf is passed through as the same object."""
+    def walk(p, name):
+        if isinstance(p, dict):
+            out = {k: walk(v, k) for k, v in p.items()}
+            if "kernel_q" not in p and _hot_kernel(p.get("kernel"), name):
+                out["kernel_q"], out["w_scale"] = quantize_kernel_i8(
+                    p["kernel"])
+            return out
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v, None) for v in p)
+        return p
+
+    return walk(params, None)
 
 
 def _per_batch(t: torch.Tensor, b: int, c: int) -> torch.Tensor:
     """(C,) or (B, C) -> contiguous fp32 (B, C)."""
     return t.float().expand(b, c).contiguous()
+
+
+def _prologue(x: torch.Tensor, scale: torch.Tensor,
+              shift: Optional[torch.Tensor]) -> torch.Tensor:
+    """silu(x * scale + shift) in fp32, rounded to x's dtype."""
+    b, c = x.shape[0], x.shape[3]
+    xf = x.float() * _per_batch(scale, b, c)[:, None, None, :]
+    if shift is not None:
+        xf = xf + _per_batch(shift, b, c)[:, None, None, :]
+    return F.silu(xf).to(x.dtype)
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
@@ -36,13 +124,9 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
     """The plain version (the JAX package's ``_xla_reference``): the
     prologue in fp32, cast to x's dtype, zero padding, then the conv in fp32
     plus bias, cast back. x: (B, H, W, C) NHWC; w: (3, 3, C, Co) HWIO."""
-    b, _, _, c = x.shape
     dtype = x.dtype
     if scale is not None:
-        xf = x.float() * _per_batch(scale, b, c)[:, None, None, :]
-        if shift is not None:
-            xf = xf + _per_batch(shift, b, c)[:, None, None, :]
-        x = F.silu(xf).to(dtype)
+        x = _prologue(x, scale, shift)
     out = F.conv2d(x.float().permute(0, 3, 1, 2),
                    w.float().permute(3, 2, 0, 1), padding=1)
     out = out.permute(0, 2, 3, 1)
@@ -51,49 +135,156 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
     return out.to(dtype).contiguous()
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor,
-            bias: Optional[torch.Tensor] = None,
-            scale: Optional[torch.Tensor] = None,
-            shift: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (B, H, W, C) NHWC, w: (3, 3, C, Co) HWIO, both contiguous and of
-    one dtype (bf16 or fp32); bias (Co,); scale/shift (B, C) or (C,) ->
-    (B, H, W, Co). CPU tensors take the plain version."""
-    global launches
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv3x3_reference(x, w, bias, scale, shift)
-    if not (x.is_cuda and w.device == x.device):
-        raise ValueError("conv3x3: x and w must share one CUDA device")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise ValueError(f"conv3x3: dtypes x {x.dtype}, w {w.dtype}; the "
-                         f"kernel takes matching bf16 or fp32")
+def act_scale(act: torch.Tensor, act_amax: Optional[float]) -> torch.Tensor:
+    """The int8 mode's ONE activation scale, a (1,) fp32 tensor on act's
+    device: act_amax / 127, or max(max |act|, 1e-20) / 127 when act_amax is
+    None (one max over the whole call, every batch row together)."""
+    if act_amax is not None:
+        return torch.full((1,), act_amax / 127.0, dtype=torch.float32,
+                          device=act.device)
+    return (torch.clamp_min(act.abs().amax().float(), 1e-20)
+            * INV127).reshape(1)
+
+
+def conv3x3_int8_reference(x: torch.Tensor, kernel_q: torch.Tensor,
+                           w_scale: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None,
+                           scale: Optional[torch.Tensor] = None,
+                           shift: Optional[torch.Tensor] = None,
+                           act_amax: Optional[float] = 12.0) -> torch.Tensor:
+    """The plain version of the int8 mode (the JAX package's int8 branch of
+    ``_conv3x3``): the prologue rounded to x's dtype, the activation
+    quantized as clip(round(a / xs), +-127) with a true division, zero
+    padding, the integer conv, then float(acc) * (xs * w_scale) + bias in
+    fp32, cast back to x's dtype."""
+    if scale is not None:
+        x = _prologue(x, scale, shift)
+    xs = act_scale(x, act_amax)
+    xq = torch.clamp(torch.round(x.float() / xs), -127, 127)
+    # the integer sum exactly: |acc| <= 9 * C * 127^2 < 2^53 in fp64
+    acc = F.conv2d(xq.double().permute(0, 3, 1, 2),
+                   kernel_q.double().permute(3, 2, 0, 1), padding=1)
+    out = acc.permute(0, 2, 3, 1).float() * (xs * w_scale.float())
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype).contiguous()
+
+
+def _check_args(name, x, w, scale, shift, device_tensors):
+    """The checks both kernels share. -> (b, h, w, c, co)."""
+    if not (x.is_cuda and all(t.device == x.device for t in device_tensors)):
+        raise ValueError(f"{name}: x and the weights must share one CUDA "
+                         f"device")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{name}: x dtype {x.dtype}; the kernel takes bf16 "
+                         f"or fp32")
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3,
                                                                x.shape[3]):
-        raise ValueError(f"conv3x3: shapes x {tuple(x.shape)}, "
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
     if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("conv3x3: x and w must be contiguous")
+        raise ValueError(f"{name}: x and w must be contiguous")
     if shift is not None and scale is None:
-        raise ValueError("conv3x3: shift needs scale")
+        raise ValueError(f"{name}: shift needs scale")
     b, h, wd, c = x.shape
     co = w.shape[3]
     if min(b, h, wd, c, co) < 1:
-        raise ValueError(f"conv3x3: empty shape x {tuple(x.shape)}, "
+        raise ValueError(f"{name}: empty shape x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
+    return b, h, wd, c, co
+
+
+def _epilogue_args(x, co, bias, scale, shift):
+    """fp32 bias (Co,) and fp32 (B, C) scale/shift (or None) on x's device."""
+    b, c = x.shape[0], x.shape[3]
     aux = {"device": x.device, "dtype": torch.float32}
     bias32 = (torch.zeros(co, **aux) if bias is None
               else bias.to(**aux).reshape(co).contiguous())
-    if scale is not None:
-        scale32 = _per_batch(scale.to(x.device), b, c)
-        shift32 = (torch.zeros(b, c, **aux) if shift is None
-                   else _per_batch(shift.to(x.device), b, c))
+    if scale is None:
+        return bias32, None, None
+    shift32 = (torch.zeros(b, c, **aux) if shift is None
+               else _per_batch(shift.to(x.device), b, c))
+    return bias32, _per_batch(scale.to(x.device), b, c), shift32
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor] = None,
+            scale: Optional[torch.Tensor] = None,
+            shift: Optional[torch.Tensor] = None,
+            kernel_q: Optional[torch.Tensor] = None,
+            w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, H, W, C) NHWC, w: (3, 3, C, Co) HWIO, both contiguous and of
+    one dtype (bf16 or fp32); bias (Co,); scale/shift (B, C) or (C,) ->
+    (B, H, W, Co). CPU tensors take the plain version.
+
+    With the int8 mode on (``set_conv_int8``) the call goes to
+    ``conv3x3_int8``, with the pre-quantized ``kernel_q``/``w_scale`` from
+    ``quantize_conv_tree`` or, without them, w quantized here."""
+    global launches
+    if _CONV_INT8:
+        if kernel_q is None:
+            kernel_q, w_scale = quantize_kernel_i8(w)
+        return conv3x3_int8(x, kernel_q, w_scale, bias, scale, shift,
+                            _CONV_INT8_ACT_AMAX)
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return conv3x3_reference(x, w, bias, scale, shift)
+    b, h, wd, c, co = _check_args("conv3x3", x, w, scale, shift, (w,))
+    if w.dtype != x.dtype:
+        raise ValueError(f"conv3x3: dtypes x {x.dtype}, w {w.dtype}; the "
+                         f"kernel takes matching bf16 or fp32")
+    bias32, scale32, shift32 = _epilogue_args(x, co, bias, scale, shift)
     fn = _build.entry("conv3x3")
     out = torch.empty((b, h, wd, co), device=x.device, dtype=x.dtype)
-    rc = fn(x.data_ptr(), w.data_ptr(), bias32.data_ptr(),
-            scale32.data_ptr() if scale is not None else None,
-            shift32.data_ptr() if scale is not None else None,
-            out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype],
+    rc = fn(x.data_ptr(), w.data_ptr(), bias32.data_ptr(), _ptr(scale32),
+            _ptr(shift32), out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("conv3x3", rc)
     launches += 1
     launch_shapes[(b, h, wd, c, co, str(x.dtype), scale is not None)] += 1
+    return out
+
+
+def conv3x3_int8(x: torch.Tensor, kernel_q: torch.Tensor,
+                 w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                 scale: Optional[torch.Tensor] = None,
+                 shift: Optional[torch.Tensor] = None,
+                 act_amax: Optional[float] = 12.0) -> torch.Tensor:
+    """The int8 conv. x: (B, H, W, C) NHWC bf16 or fp32; kernel_q: (3, 3, C,
+    Co) int8 HWIO; w_scale: (Co,) fp32 -> (B, H, W, Co) in x's dtype. CPU
+    tensors take the plain version.
+
+    With a static act_amax the kernel applies the prologue, rounds it to x's
+    dtype and quantizes as it loads x. With act_amax=None the prologue runs
+    here in plain torch first, since its max-abs sets the scale, and the
+    kernel takes the activations without a prologue."""
+    global int8_launches
+    if x.device.type == "cpu" and kernel_q.device.type == "cpu":
+        return conv3x3_int8_reference(x, kernel_q, w_scale, bias, scale,
+                                      shift, act_amax)
+    b, h, wd, c, co = _check_args("conv3x3_int8", x, kernel_q, scale, shift,
+                                  (kernel_q, w_scale))
+    if kernel_q.dtype != torch.int8 or w_scale.shape != (co,):
+        raise ValueError(f"conv3x3_int8: kernel_q {kernel_q.dtype}, w_scale "
+                         f"{tuple(w_scale.shape)}; the kernel takes int8 "
+                         f"weights and ({co},) scales")
+    prologue = scale is not None
+    if act_amax is None and prologue:
+        x, scale, shift = _prologue(x, scale, shift), None, None
+    xs = act_scale(x, act_amax)
+    bias32, scale32, shift32 = _epilogue_args(x, co, bias, scale, shift)
+    ws32 = w_scale.float().contiguous()
+    fn = _build.entry("conv3x3_int8")
+    out = torch.empty((b, h, wd, co), device=x.device, dtype=x.dtype)
+    rc = fn(x.data_ptr(), kernel_q.data_ptr(), ws32.data_ptr(),
+            bias32.data_ptr(), _ptr(scale32), _ptr(shift32), xs.data_ptr(),
+            out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("conv3x3_int8", rc)
+    int8_launches += 1
+    int8_launch_shapes[(b, h, wd, c, co, str(x.dtype), prologue,
+                        act_amax)] += 1
     return out

@@ -1,11 +1,18 @@
-"""Flash attention: non-causal, unmasked softmax(q k^T * scale) v.
+"""Flash attention: non-causal, unmasked softmax(q k^T * scale) v, exact or
+with int8 q k^T.
 
-Counterpart of ``blobctrl_tpu/ops/flash_attention.py``. The CUDA kernel
-(``csrc/flash_attention.cu``) replaces the Pallas ``_flash_kernel_fixed_max``
-and, with ``fixed_max=None``, the running-max ``_flash_kernel``. It serves
-the long self-attention of the double-width latent layout (8192 tokens at
-the top level of a 512^2 edit), where the plain version materializes an
-S x S fp32 score matrix in device memory.
+Counterpart of ``blobctrl_tpu/ops/flash_attention.py``. Two CUDA kernels
+serve the long self-attention of the double-width latent layout (8192
+tokens at the top level of a 512^2 edit), where the plain version
+materializes an S x S fp32 score matrix in device memory:
+
+  * ``csrc/flash_attention.cu`` replaces the Pallas ``_flash_kernel_fixed_max``
+    and, with ``fixed_max=None``, the running-max ``_flash_kernel``;
+  * ``csrc/flash_attention_int8.cu`` replaces ``_flash_kernel_int8g`` (one
+    global k scale, the int8-everything mode) and, with ``global_k=False``,
+    ``_flash_kernel_int8`` (per-row k scales). q and k are quantized here in
+    plain torch, as the JAX package quantizes them with XLA ops outside its
+    kernels.
 """
 
 from __future__ import annotations
@@ -17,12 +24,16 @@ from typing import Optional
 import torch
 
 from blobctrl_torch.ops import _build
+from blobctrl_torch.ops.conv3x3 import INV127
 
 MAX_HEAD_DIM = 160
+LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0                               # kernel launches (plain calls excluded)
 launch_shapes = collections.Counter()      # (bh, sq, skv, d, dtype, fixed) -> launches
+int8_launches = 0                          # the same for the int8 kernel
+int8_launch_shapes = collections.Counter()  # (bh, sq, skv, d, dtype, global_k) -> launches
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -49,23 +60,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention: q, k, v must share one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; the kernel takes matching bf16 or fp32")
-    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    bh, sq, d = q.shape
-    skv = k.shape[1]
-    if not 1 <= d <= MAX_HEAD_DIM or sq < 1 or skv < 1 or bh > 65535:
-        raise ValueError(f"flash_attention: bh={bh}, sq={sq}, skv={skv}, "
-                         f"d={d} outside the kernel's range "
-                         f"(d <= {MAX_HEAD_DIM}, bh <= 65535)")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
+    bh, sq, skv, d = _check_args("flash_attention", q, k, v)
     fn = _build.entry("flash_attention")
     out = torch.empty_like(q)
     fixed = fixed_max is not None
@@ -76,4 +71,113 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check("flash_attention", rc)
     launches += 1
     launch_shapes[(bh, sq, skv, d, str(q.dtype), fixed)] += 1
+    return out
+
+
+def _check_args(name, q, k, v):
+    """The checks both kernels share. -> (bh, sq, skv, d)."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{name}: q, k, v must share one CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                         f"the kernel takes matching bf16 or fp32")
+    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    if not 1 <= d <= MAX_HEAD_DIM or sq < 1 or skv < 1 or bh > 65535:
+        raise ValueError(f"{name}: bh={bh}, sq={sq}, skv={skv}, d={d} "
+                         f"outside the kernel's range (d <= {MAX_HEAD_DIM}, "
+                         f"bh <= 65535)")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: q, k, v must be contiguous")
+    return bh, sq, skv, d
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 (the JAX package's ``_quantize_rows``):
+    (..., S, D) -> (int8 values, (..., S, 1) fp32 scales), scale =
+    max(max |row|, 1e-20) / 127, values clip(round(x / scale), +-127)."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-20) * INV127
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def int8_operands(q: torch.Tensor, k: torch.Tensor, scale: float,
+                  global_k: bool):
+    """The int8 kernels' pre-pass (XLA ops outside the Pallas kernels in the
+    JAX package) -> (q8, rq, k8, ks):
+
+      * global_k: k under ONE scale ka = max(max |k|, 1e-20) / 127 over the
+        whole tensor (every batch row and head of the call); rq = rm =
+        qs * fp32(scale * log2 e) * ka per query row; ks None;
+      * per row: rq = qs * scale per query row, ks per key row.
+    rq and ks have a trailing unit dim."""
+    q8, qs = quantize_rows(q)
+    if not global_k:
+        k8, ks = quantize_rows(k)
+        return q8, qs * scale, k8, ks
+    kf = k.float()
+    ka = torch.clamp_min(kf.abs().amax(), 1e-20) * INV127
+    k8 = torch.clamp(torch.round(kf / ka), -127, 127).to(torch.int8)
+    return q8, qs * (scale * LOG2E) * ka, k8, None
+
+
+def _require_fixed_max(fixed_max):
+    if fixed_max is None:
+        raise ValueError(
+            "the int8 flash attention has no running-max mode; pass a "
+            "numeric fixed_max (the int8 path always uses the fixed-max "
+            "softmax)")
+
+
+def flash_attention_int8_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, scale: float,
+                                   fixed_max: float = 20.0,
+                                   global_k: bool = True) -> torch.Tensor:
+    """The plain version of the int8 kernels (``_flash_kernel_int8g`` and
+    ``_flash_kernel_int8``): integer scores, p = exp2(s * rm - fixed_max *
+    log2 e) or exp(s * qs * ks - fixed_max) in fp32, p rounded to v's dtype
+    for P @ V in fp32, divided by the fp32 row sum of p."""
+    _require_fixed_max(fixed_max)
+    q8, rq, k8, ks = int8_operands(q, k, scale, global_k)
+    # integer scores, exact in fp32: |s| <= D * 127^2 < 2^24
+    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2))
+    if global_k:
+        p = torch.exp2(s * rq - fixed_max * LOG2E)
+    else:
+        p = torch.exp(s * rq * ks.transpose(-1, -2) - fixed_max)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, fixed_max: float = 20.0,
+                         global_k: bool = True) -> torch.Tensor:
+    """int8 q k^T flash attention. q: (BH, Sq, D); k, v: (BH, Skv, D),
+    contiguous, bf16 or fp32 -> (BH, Sq, D) in q's dtype. q and k are
+    quantized here; the kernel takes the int8 values and their fp32
+    multipliers. global_k selects one k scale for the whole call (the
+    int8-everything mode) over per-row k scales. There is no running-max
+    mode: fixed_max=None raises. CPU tensors take the plain version."""
+    global int8_launches
+    _require_fixed_max(fixed_max)
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return flash_attention_int8_reference(q, k, v, scale, fixed_max,
+                                              global_k)
+    bh, sq, skv, d = _check_args("flash_attention_int8", q, k, v)
+    q8, rq, k8, ks = int8_operands(q, k, scale, global_k)
+    fm = fixed_max * LOG2E if global_k else fixed_max
+    fn = _build.entry("flash_attention_int8")
+    out = torch.empty_like(q)
+    rc = fn(q8.data_ptr(), k8.data_ptr(), v.data_ptr(), rq.data_ptr(),
+            None if ks is None else ks.data_ptr(), out.data_ptr(), bh, sq,
+            skv, d, ctypes.c_float(fm), int(global_k), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attention_int8", rc)
+    int8_launches += 1
+    int8_launch_shapes[(bh, sq, skv, d, str(q.dtype), global_k)] += 1
     return out

@@ -28,17 +28,21 @@ _ST_DTYPES = {"F16": np.float16, "F32": np.float32}
 def from_jax(tree, device="cuda", dtype=torch.float32):
     """JAX param pytree (numpy or JAX arrays at the leaves) -> the same
     structure with torch tensors on ``device``; floating leaves in
-    ``dtype``."""
+    ``dtype``, except ``w_scale`` (fp32); integer leaves (``kernel_q``)
+    keep their integer type."""
     dev = resolve_device(device)
 
-    def conv(node):
+    def conv(node, name=None):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
         arr = np.asarray(node)
         if np.issubdtype(arr.dtype, np.floating):
-            return torch.from_numpy(np.array(arr, np.float32)).to(dev, dtype)
+            # the int8 weights' per-output-channel scales stay fp32, as the
+            # JAX package applies them
+            t = torch.from_numpy(np.array(arr, np.float32))
+            return t.to(dev, torch.float32 if name == "w_scale" else dtype)
         return torch.from_numpy(np.array(arr)).to(dev)
 
     return conv(tree)

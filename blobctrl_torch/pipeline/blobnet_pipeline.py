@@ -24,6 +24,7 @@ from blobctrl_torch import resolve_device
 from blobctrl_torch.models import blobnet as blobnet_lib
 from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.models import vae as vae_lib
+from blobctrl_torch.ops import conv3x3 as conv3x3_op
 from blobctrl_torch.schedulers import unipc as unipc_lib
 
 
@@ -96,6 +97,25 @@ class BlobNetPipeline:
         self.blobnet_cfg, self.blobnet_params = blobnet_cfg, blobnet_params
         self.vae_cfg, self.vae_params = vae_cfg, vae_params
         self.dtype = dtype
+        self._int8_param_cache = {}
+
+    def _conv_params(self, name: str):
+        """The param tree ``name``, with the pre-quantized int8 weights
+        (``kernel_q``/``w_scale``, ``ops.conv3x3.quantize_conv_tree``) beside
+        its hot kernels while the int8 conv mode is on. Quantized once per
+        tree and cached by identity, so a 50-step edit quantizes no weight
+        inside its loop; ``self.*_params`` stay unquantized. With the mode
+        off the quantized copies are dropped, so the exact edit holds no
+        int8 weights in device memory."""
+        p = getattr(self, name)
+        if not conv3x3_op.conv_int8_enabled():
+            self._int8_param_cache.clear()
+            return p
+        ent = self._int8_param_cache.get(name)
+        if ent is None or ent[0] is not p:
+            ent = self._int8_param_cache[name] = (
+                p, conv3x3_op.quantize_conv_tree(p))
+        return ent[1]
 
     @torch.inference_mode()
     def __call__(self, prompt=None, fg_image=None, bg_image=None,
@@ -158,8 +178,9 @@ class BlobNetPipeline:
         fgbg = np.concatenate([image_transport(fg_image, height, width),
                                image_transport(bg_image, height, width)])
         img = torch.as_tensor(fgbg, device=dev).float() / 255.0 * 2.0 - 1.0
+        vae_params = self._conv_params("vae_params")
         lat2 = vae_lib.encode_to_scaled_latents(
-            self.vae_params, self.vae_cfg, img.to(dtype)).float()
+            vae_params, self.vae_cfg, img.to(dtype)).float()
 
         def tile(x):
             return x.repeat(cfg_batch, 1, 1, 1)
@@ -188,8 +209,7 @@ class BlobNetPipeline:
         final = self._denoise(latents, pe, fg_lat, bg_lat, fg_score, bg_score,
                               fg_feats, cond_scales, float(guidance_scale),
                               num_inference_steps, do_cfg)
-        img = vae_lib.decode_from_scaled_latents(self.vae_params,
-                                                 self.vae_cfg,
+        img = vae_lib.decode_from_scaled_latents(vae_params, self.vae_cfg,
                                                  final.to(dtype))
         img = torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
         # uint8 transport to the host; the public contract is float32 [0, 1]
@@ -200,6 +220,8 @@ class BlobNetPipeline:
                  fg_feats, cond_scales, guidance_scale, num_steps, do_cfg):
         dtype = self.dtype
         ucfg, bcfg = self.unet_cfg, self.blobnet_cfg
+        unet_params = self._conv_params("unet_params")
+        blobnet_params = self._conv_params("blobnet_params")
         n = latents.shape[0]
         sched = unipc_lib.make(num_steps)
         blob_cond_left = torch.cat([fg_lat[:n], fg_score[:n], fg_feats[:n]],
@@ -233,7 +255,7 @@ class BlobNetPipeline:
                 # the scale is rounded to the compute dtype, as the nets see it
                 scale = torch.tensor(float(cond_scales[i]), dtype=dtype).item()
                 d_res, m_res, u_res = blobnet_lib.blobnet_apply(
-                    self.blobnet_params, bcfg, blob_in, t,
+                    blobnet_params, bcfg, blob_in, t,
                     conditioning_scale=scale)
                 down = [bcast(r) for r in d_res]
                 mid = bcast(m_res)
@@ -241,10 +263,10 @@ class BlobNetPipeline:
             # outside the control window BlobNet is skipped: its residuals
             # would be zeros, and adding zeros changes nothing
             x_mid, skips = unet_lib.unet_encode(
-                self.unet_params, ucfg, unet_in, t, pe,
+                unet_params, ucfg, unet_in, t, pe,
                 down_block_add_samples=down, mid_block_add_sample=mid)
             noise_pred = unet_lib.unet_decode(
-                self.unet_params, ucfg, x_mid, skips, t, pe,
+                unet_params, ucfg, x_mid, skips, t, pe,
                 up_block_add_samples=up)
             noise_pred = noise_pred[:, :, noise_pred.shape[2] // 2:, :].float()
             if do_cfg:

@@ -4,11 +4,15 @@ port is driven and timed with."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from blobctrl_torch.apps import flagship
 from blobctrl_torch.blob import math as blob_math
+from blobctrl_torch.nn import attention
+from blobctrl_torch.ops import conv3x3
 from blobctrl_torch.pipeline import BlobNetPipeline
 
 
@@ -51,3 +55,21 @@ def standard_edit_kwargs(size: int = 512, steps: int = 50, seed: int = 0,
               guidance_scale=7.5, blobnet_conditioning_scale=1.6,
               blobnet_control_guidance_end=0.9, scheduler="unipc")
     return kw
+
+
+@contextlib.contextmanager
+def int8_everything():
+    """The int8-everything bundle of the JAX package's bench (int8 convs
+    with the static activation amax, and int8 q.k^T flash attention with one
+    global k scale; the int8 linears stay off) around a block, restoring
+    the previous switches after it."""
+    conv_before = conv3x3.conv_int8_enabled()
+    qk_before, gk_before = attention.attention_int8_mode()
+    conv3x3.set_conv_int8(True)
+    attention.set_attention_backend("auto", qk_int8=True, int8_global_k=True)
+    try:
+        yield
+    finally:
+        conv3x3.set_conv_int8(conv_before)
+        attention.set_attention_backend("auto", qk_int8=qk_before,
+                                        int8_global_k=gk_before)

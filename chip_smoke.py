@@ -9,31 +9,39 @@ script exits non-zero:
      of every CUDA kernel from ``blobctrl_torch/csrc`` (nvcc, in parallel).
   2. Kernels against their plain versions on the card, at every shape a
      512^2 edit launches (recorded through the wrappers by a one-step
-     full-width edit), in bf16 and fp32, flash attention in both softmax
-     modes. bf16 within 2e-2 of max |plain|, fp32 (TF32 off) within 1e-4.
-     Times (CUDA events, median of 10 after warm-up): the kernel, its plain
-     version, and one PyTorch library call computing the same function.
+     full-width edit, once exact and once in the int8-everything mode), in
+     bf16 and fp32, flash attention in both softmax modes, int8 flash
+     attention in both k-scale modes. bf16 within 2e-2 of max |plain|, fp32
+     (TF32 off) within 1e-4. Times (CUDA events, median of 10 after
+     warm-up), in bf16, of each mode: the kernel, its plain version, and
+     one PyTorch library call computing the same function where there is
+     one (none computes either int8 function).
   3. The trained 256^2 toy checkpoint: a move and a remove edit (20 steps,
-     fp32) on the card with the kernels and on the CPU with the plain
-     route; PSNR of card against CPU >= 40 dB; both kernels launched.
+     fp32), exact and in the int8-everything mode, on the card with the
+     kernels and on the CPU with the plain route; PSNR of card against CPU
+     >= 40 dB; the mode's kernels launched.
   4. Full width: SD-1.5 UNet (5-ch) + BlobNet (1029-ch) + VAE, random
-     weights drawn on the card, bf16; three STEPS-step requests through
-     ``BlobNetPipeline.__call__`` (the standard edit, a second edit with
-     another ellipse and seed, a remove-mode edit). Launch counters are
-     zeroed just before and read just after.
+     weights drawn on the card, bf16; three exact STEPS-step requests
+     through ``BlobNetPipeline.__call__`` (the standard edit, a second edit
+     with another ellipse and seed, a remove-mode edit), then the standard
+     edit in the int8-everything mode (its PSNR against the exact one is
+     printed for information). Launch counters are zeroed just before each
+     of the two paths and read just after it.
   5. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
 
-Per-kernel numbers in the JSON line: ``launches`` are phase 4's; ``ms``,
-``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of phase
-4's launches, from the per-shape medians of phase 2 weighted by phase 4's
+Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
+kernels' from the exact requests, the int8 kernels' from the int8 one);
+``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
+those launches, from the per-shape medians of phase 2 weighted by phase 4's
 per-shape launch counts. ``bound_ms`` is the larger of bytes (each input
-read once, each output written once) over 3.35 TB/s and the products'
-operations over the bf16 tensor-core peak of 989 TFLOP/s (H100 SXM data
-sheet).
+read once, each output written once) over 3.35 TB/s and the operations
+over the card's peak for their type: 989 TFLOP/s for bf16 products,
+1979 TOP/s for int8 products (H100 SXM data sheet).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -46,6 +54,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 STEPS = 50  # UniPC steps of each full-width request
@@ -80,100 +89,165 @@ def rel_err(got, ref):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def flash_case(key, dtype, gen):
-    """key: (bh, sq, skv, d, dtype-name, fixed) as the wrapper logs it."""
-    from blobctrl_torch.ops import flash_attention as fa
-    bh, sq, skv, d, _, _ = key
-    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype)
-               for s in (sq, skv, skv))
-    scale = d ** -0.5
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    flops = 4.0 * bh * sq * skv * d
+def _rnd(gen, *shape, s=1.0):
+    return torch.randn(*shape, device="cuda", generator=gen) * s
+
+
+def _flash_inputs(key, dtype, gen):
+    bh, sq, skv, d = key[:4]
+    q, k, v = (_rnd(gen, bh, n, d).to(dtype) for n in (sq, skv, skv))
+    itemsize = q.element_size()
+    # one product's operations; bytes: q, k, v read once, o written once
+    prod = 2.0 * bh * sq * skv * d
     nbytes = (2 * bh * sq * d + 2 * bh * skv * d) * itemsize
+    return q, k, v, d ** -0.5, prod, nbytes
+
+
+def flash_case(key, dtype, gen):
+    """key: (bh, sq, skv, d, dtype-name, fixed) as the wrapper logs it;
+    modes: the fixed-max shift (main path), the running max."""
+    from blobctrl_torch.ops import flash_attention as fa
+    q, k, v, scale, prod, nbytes = _flash_inputs(key, dtype, gen)
     return dict(
-        kernel=lambda fixed=20.0: fa.flash_attention(q, k, v, scale, fixed),
-        plain=lambda: fa.flash_attention_reference(q, k, v, scale),
+        modes=(20.0, None), labels=("fixed-max", "running-max"),
+        kernel=lambda fixed: fa.flash_attention(q, k, v, scale, fixed),
+        plain=lambda fixed: fa.flash_attention_reference(q, k, v, scale),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             q[None], k[None], v[None], scale=scale),
-        flops=flops, nbytes=nbytes)
+        ops_ms=1e3 * 2 * prod / PEAK_BF16_FLOPS, nbytes=nbytes)
+
+
+def flash_int8_case(key, dtype, gen):
+    """key: (bh, sq, skv, d, dtype-name, global_k); modes: one global k
+    scale (main path), per-row k scales. The q.k^T product is int8, P.V
+    bf16; no PyTorch call computes the function, so no library time."""
+    from blobctrl_torch.ops import flash_attention as fa
+    q, k, v, scale, prod, nbytes = _flash_inputs(key, dtype, gen)
+    return dict(
+        modes=(True, False), labels=("global-k", "per-row-k"),
+        kernel=lambda gk: fa.flash_attention_int8(q, k, v, scale,
+                                                  global_k=gk),
+        plain=lambda gk: fa.flash_attention_int8_reference(q, k, v, scale,
+                                                           global_k=gk),
+        library=None,
+        ops_ms=1e3 * (prod / PEAK_INT8_OPS + prod / PEAK_BF16_FLOPS),
+        nbytes=nbytes)
+
+
+def _conv_inputs(key, dtype, gen):
+    b, h, w, c, co = key[:5]
+    prologue = key[6]
+    x = _rnd(gen, b, h, w, c).to(dtype)
+    k = _rnd(gen, 3, 3, c, co, s=(9 * c) ** -0.5).to(dtype)
+    bias = _rnd(gen, co)
+    pro = ((1.0 + 0.3 * _rnd(gen, b, c), _rnd(gen, b, c)) if prologue
+           else (None, None))
+    # bytes of everything but the weights: x, bias, scale/shift, y
+    nbytes = ((b * h * w * c + b * h * w * co) * x.element_size() + 4 * co
+              + (8 * b * c if prologue else 0))
+    return x, k, bias, pro, 2.0 * b * h * w * co * 9 * c, nbytes
 
 
 def conv_case(key, dtype, gen):
     """key: (b, h, w, c, co, dtype-name, prologue) as the wrapper logs it."""
     from blobctrl_torch.ops import conv3x3 as cv
-    b, h, w, c, co, _, prologue = key
-
-    def rnd(*shape, s=1.0):
-        return torch.randn(*shape, device="cuda", generator=gen) * s
-    x = rnd(b, h, w, c).to(dtype)
-    k = rnd(3, 3, c, co, s=(9 * c) ** -0.5).to(dtype)
-    bias = rnd(co)
-    pro = (1.0 + 0.3 * rnd(b, c), rnd(b, c)) if prologue else (None, None)
+    x, k, bias, pro, ops, nbytes = _conv_inputs(key, dtype, gen)
     xn = x.permute(0, 3, 1, 2)
     wn = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     bias_d = bias.to(dtype)
-    itemsize = x.element_size()
-    nbytes = ((b * h * w * c + 9 * c * co + b * h * w * co) * itemsize
-              + 4 * co + (8 * b * c if prologue else 0))
     return dict(
-        kernel=lambda fixed=None: cv.conv3x3(x, k, bias, *pro),
-        plain=lambda: cv.conv3x3_reference(x, k, bias, *pro),
+        modes=(None,), labels=("",),
+        kernel=lambda _: cv.conv3x3(x, k, bias, *pro),
+        plain=lambda _: cv.conv3x3_reference(x, k, bias, *pro),
         # cuDNN's conv, without the prologue: no one library call fuses it
         library=lambda: torch.nn.functional.conv2d(xn, wn, bias_d, padding=1),
-        flops=2.0 * b * h * w * co * 9 * c, nbytes=nbytes)
+        ops_ms=1e3 * ops / PEAK_BF16_FLOPS,
+        nbytes=nbytes + k.numel() * k.element_size())
+
+
+def conv_int8_case(key, dtype, gen):
+    """key: (b, h, w, c, co, dtype-name, prologue, act_amax): int8 weights
+    with per-output-channel scales, as ``quantize_conv_tree`` makes them;
+    no PyTorch call computes the function, so no library time."""
+    from blobctrl_torch.ops import conv3x3 as cv
+    x, k, bias, pro, ops, nbytes = _conv_inputs(key, dtype, gen)
+    kq, ws = cv.quantize_kernel_i8(k)
+    amax = key[7]
+    return dict(
+        modes=(None,), labels=("",),
+        kernel=lambda _: cv.conv3x3_int8(x, kq, ws, bias, *pro,
+                                         act_amax=amax),
+        plain=lambda _: cv.conv3x3_int8_reference(x, kq, ws, bias, *pro,
+                                                  act_amax=amax),
+        library=None,
+        ops_ms=1e3 * ops / PEAK_INT8_OPS,
+        nbytes=nbytes + kq.numel() + 4 * ws.numel())
+
+
+CASES = {"flash_attention": flash_case, "conv3x3": conv_case,
+         "flash_attention_int8": flash_int8_case,
+         "conv3x3_int8": conv_int8_case}
 
 
 def shape_label(name, key) -> str:
-    if name == "flash_attention":
+    if name.startswith("flash_attention"):
         bh, sq, skv, d = key[:4]
-        return f"flash_attention bh={bh} sq={sq} skv={skv} d={d}"
+        return f"{name} bh={bh} sq={sq} skv={skv} d={d}"
     b, h, w, c, co = key[:5]
-    return (f"conv3x3 b={b} h={h} w={w} c={c} co={co}"
-            f"{' +gn-silu' if key[-1] else ''}")
+    label = (f"{name} b={b} h={h} w={w} c={c} co={co}"
+             f"{' +gn-silu' if key[6] else ''}")
+    return label + (f" amax={key[7]}" if name == "conv3x3_int8" else "")
 
 
-def check_kernels(flash_shapes, conv_shapes):
-    """Every recorded shape, in bf16 and fp32 (flash in both modes), kernel
-    against plain; bf16 timings. -> per-kernel {shape: numbers}."""
+def check_kernels(shapes):
+    """shapes: {kernel name: recorded keys}. Every key in bf16 and fp32, in
+    every mode, kernel against plain; bf16 timings of each mode (the first
+    mode is the main path's; ``alt_*`` the other's). -> per-kernel {key:
+    numbers}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"flash_attention": {}, "conv3x3": {}}
-    for name, shapes, make in (("flash_attention", flash_shapes, flash_case),
-                               ("conv3x3", conv_shapes, conv_case)):
-        for key in sorted(shapes):
-            row = {}
+    results = {name: {} for name in shapes}
+    for name, keys in shapes.items():
+        for key in sorted(keys, key=repr):
+            row = {"max_abs_err": 0.0}
             for dtype in (torch.bfloat16, torch.float32):
-                case = make(key, dtype, gen)
-                ref = case["plain"]()
-                modes = (20.0, None) if name == "flash_attention" else (None,)
-                for fixed in modes:
-                    got = case["kernel"](fixed)
+                case = CASES[name](key, dtype, gen)
+                for i, mode in enumerate(case["modes"]):
+                    ref = case["plain"](mode)
+                    got = case["kernel"](mode)
                     torch.cuda.synchronize()
                     abs_err, rel = rel_err(got, ref)
-                    tag = f"{shape_label(name, key)} {str(dtype)[6:]}"
-                    if name == "flash_attention":
-                        tag += " fixed-max" if fixed else " running-max"
+                    del ref, got
+                    tag = (f"{shape_label(name, key)} {str(dtype)[6:]} "
+                           f"{case['labels'][i]}").rstrip()
                     ok = rel <= TOL[dtype]
                     log(f"  {tag}: max_abs {abs_err:.3e} rel {rel:.3e} "
                         f"(tol {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
                     if not ok:
                         raise AssertionError(f"{tag}: rel {rel}")
-                    row["max_abs_err"] = max(row.get("max_abs_err", 0.0),
-                                             abs_err)
-                del ref
+                    row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+                    if dtype == torch.bfloat16:
+                        pre = "alt_" if i else ""
+                        row[pre + "ms"] = time_ms(
+                            lambda: case["kernel"](mode))
+                        row[pre + "plain_ms"] = time_ms(
+                            lambda: case["plain"](mode))
                 if dtype == torch.bfloat16:
-                    row["ms"] = time_ms(case["kernel"])
-                    row["plain_ms"] = time_ms(case["plain"])
-                    row["library_ms"] = time_ms(case["library"])
-                    row["flops_ms"] = 1e3 * case["flops"] / PEAK_BF16_FLOPS
+                    row["library_ms"] = (time_ms(case["library"])
+                                         if case["library"] else None)
+                    row["ops_ms"] = case["ops_ms"]
                     row["bytes_ms"] = 1e3 * case["nbytes"] / PEAK_BYTES
-                    row["bound_ms"] = max(row["flops_ms"], row["bytes_ms"])
-                    row["tflops"] = case["flops"] / row["ms"] / 1e9
-                    log(f"    bf16 ms {row['ms']:.4f} plain {row['plain_ms']:.4f}"
-                        f" library {row['library_ms']:.4f} bound "
-                        f"{row['bound_ms']:.4f} ({row['tflops']:.1f} TFLOP/s)")
+                    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+                    lib = row["library_ms"]
+                    log(f"    bf16 ms {row['ms']:.4f} plain "
+                        f"{row['plain_ms']:.4f}"
+                        + (f" (other mode {row['alt_ms']:.4f}, plain "
+                           f"{row['alt_plain_ms']:.4f})" if "alt_ms" in row
+                           else "")
+                        + f" library {'none' if lib is None else f'{lib:.4f}'}"
+                        f" bound {row['bound_ms']:.4f}")
                 del case
             results[name][key] = row
-    torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
     return results
 
 
@@ -242,28 +316,58 @@ def psnr(a, b) -> float:
     return 10.0 * np.log10(1.0 / max(mse, 1e-12))
 
 
+def launch_counts():
+    """-> {kernel name: launches since the last ``ops.reset_counts()``}."""
+    from blobctrl_torch.ops import conv3x3, flash_attention
+    return {"flash_attention": flash_attention.launches,
+            "conv3x3": conv3x3.launches,
+            "flash_attention_int8": flash_attention.int8_launches,
+            "conv3x3_int8": conv3x3.int8_launches}
+
+
+def launch_shapes():
+    """-> {kernel name: {shape key: launches}} since the last reset."""
+    from blobctrl_torch.ops import conv3x3, flash_attention
+    return {"flash_attention": dict(flash_attention.launch_shapes),
+            "conv3x3": dict(conv3x3.launch_shapes),
+            "flash_attention_int8": dict(flash_attention.int8_launch_shapes),
+            "conv3x3_int8": dict(conv3x3.int8_launch_shapes)}
+
+
+EXACT = ("flash_attention", "conv3x3")
+INT8 = ("flash_attention_int8", "conv3x3_int8")
+# the second mode of a kernel, checked and timed in phase 2 only
+OTHER_MODE = {"flash_attention": "running-max mode (K2)",
+              "flash_attention_int8": "per-row-k mode (K4)"}
+
+
 def toy_phase():
     from blobctrl_torch import ops
-    from blobctrl_torch.ops import conv3x3, flash_attention
     from blobctrl_torch.train import toy
+    from blobctrl_torch.utils import benchkit
     ckpt = os.path.join(ROOT, "assets", "toy_ckpt_256")
     card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.float32)
     cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.float32)
-    for name, kw in toy_edits(256, 20).items():
-        ops.reset_counts()
-        t0 = time.perf_counter()
-        got = card(**kw).images
-        t_card = time.perf_counter() - t0
-        counts = (flash_attention.launches, conv3x3.launches)
-        t0 = time.perf_counter()
-        want = cpu(**kw).images
-        t_cpu = time.perf_counter() - t0
-        p = psnr(got, want)
-        log(f"  toy 256^2 {name}: card {t_card:.2f} s, cpu {t_cpu:.2f} s, "
-            f"PSNR card vs cpu {p:.2f} dB, launches flash {counts[0]} "
-            f"conv3x3 {counts[1]}")
-        if not (p >= 40.0 and min(counts) > 0 and np.isfinite(got).all()):
-            raise AssertionError(f"toy {name}: PSNR {p}, launches {counts}")
+    for mode, kernels in (("exact", EXACT), ("int8", INT8)):
+        for name, kw in toy_edits(256, 20).items():
+            with (benchkit.int8_everything() if mode == "int8"
+                  else contextlib.nullcontext()):
+                ops.reset_counts()
+                t0 = time.perf_counter()
+                got = card(**kw).images
+                t_card = time.perf_counter() - t0
+                counts = launch_counts()
+                t0 = time.perf_counter()
+                want = cpu(**kw).images
+                t_cpu = time.perf_counter() - t0
+            p = psnr(got, want)
+            ran = {k: counts[k] for k in kernels}
+            log(f"  toy 256^2 {mode} {name}: card {t_card:.2f} s, cpu "
+                f"{t_cpu:.2f} s, PSNR card vs cpu {p:.2f} dB, launches {ran}")
+            if not (p >= 40.0 and min(ran.values()) > 0
+                    and np.isfinite(got).all()):
+                raise AssertionError(f"toy {mode} {name}: PSNR {p}, "
+                                     f"launches {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -287,8 +391,7 @@ def full_width_requests(steps: int):
 
 
 def run_request(pipe, kw):
-    from blobctrl_torch.ops import conv3x3, flash_attention
-    f0, c0 = flash_attention.launches, conv3x3.launches
+    before = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -297,9 +400,8 @@ def run_request(pipe, kw):
     secs = time.perf_counter() - t0
     if out.shape != (1, 512, 512, 3) or not np.isfinite(out).all():
         raise AssertionError(f"bad output {out.shape}")
-    return out, secs, (flash_attention.launches - f0,
-                       conv3x3.launches - c0), \
-        torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
+    return out, secs, launches, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
 def main() -> int:
@@ -308,7 +410,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from blobctrl_torch import ops
-    from blobctrl_torch.ops import _build, conv3x3, flash_attention
+    from blobctrl_torch.ops import _build, conv3x3
     from blobctrl_torch.utils import benchkit
 
     # -- phase 1 ------------------------------------------------------------
@@ -328,16 +430,18 @@ def main() -> int:
     log("phase 2: kernels against their plain versions at the 512^2 shapes")
     pipe = benchkit.make_flagship_pipe(seed=0, device="cuda",
                                        dtype=torch.bfloat16)
-    ops.reset_counts()
     # one step, inside the control window, so BlobNet runs too
-    pipe(**dict(benchkit.standard_edit_kwargs(512, 1),
-                blobnet_control_guidance_end=1.0))
+    one_step = dict(benchkit.standard_edit_kwargs(512, 1),
+                    blobnet_control_guidance_end=1.0)
+    ops.reset_counts()
+    pipe(**one_step)
+    with benchkit.int8_everything():
+        pipe(**one_step)
     torch.cuda.synchronize()
-    flash_shapes = set(flash_attention.launch_shapes)
-    conv_shapes = set(conv3x3.launch_shapes)
-    log(f"  recorded {len(flash_shapes)} flash and {len(conv_shapes)} conv "
-        f"shapes from a one-step edit")
-    results = check_kernels(flash_shapes, conv_shapes)
+    shapes = {name: set(keys) for name, keys in launch_shapes().items()}
+    log("  recorded shapes from a one-step edit, exact and int8: "
+        + ", ".join(f"{name} {len(keys)}" for name, keys in shapes.items()))
+    results = check_kernels(shapes)
 
     # -- phase 3 ------------------------------------------------------------
     log("phase 3: trained toy checkpoint, card against CPU")
@@ -348,52 +452,78 @@ def main() -> int:
     requests = full_width_requests(STEPS)
     ops.reset_counts()
     for name, kw in requests:
-        _, secs, (nf, nc), mem = run_request(pipe, kw)
-        log(f"  {name}: {secs:.3f} s, launches flash {nf} conv3x3 {nc}, "
-            f"peak memory {mem:.2f} GiB")
-    counts = {"flash_attention": dict(flash_attention.launch_shapes),
-              "conv3x3": dict(conv3x3.launch_shapes)}
+        out, secs, launches, mem = run_request(pipe, kw)
+        if name == "edit":
+            exact_edit = out
+        log(f"  {name}: {secs:.3f} s, launches {launches}, peak memory "
+            f"{mem:.2f} GiB")
+    counts, totals = launch_shapes(), launch_counts()
+    t0 = time.perf_counter()
+    for tree in (pipe.unet_params, pipe.blobnet_params, pipe.vae_params):
+        conv3x3.quantize_conv_tree(tree)
+    torch.cuda.synchronize()
+    log(f"  quantize_conv_tree of the UNet, BlobNet and VAE weights: "
+        f"{time.perf_counter() - t0:.3f} s (the int8 edit below pays it once)")
+    ops.reset_counts()
+    with benchkit.int8_everything():
+        out, secs, launches, mem = run_request(pipe, requests[0][1])
+    log(f"  edit, int8-everything: {secs:.3f} s, launches {launches}, peak "
+        f"memory {mem:.2f} GiB, PSNR against the exact edit "
+        f"{psnr(out, exact_edit):.2f} dB (for information)")
+    int8_counts, int8_totals = launch_shapes(), launch_counts()
+    for name in INT8:  # the int8 kernels' counts come from the int8 request
+        counts[name], totals[name] = int8_counts[name], int8_totals[name]
     for name, per_shape in counts.items():
-        for key, n in sorted(per_shape.items()):
+        for key, n in sorted(per_shape.items(), key=repr):
             log(f"  launches {shape_label(name, key)}: {n}")
-    totals = {"flash_attention": flash_attention.launches,
-              "conv3x3": conv3x3.launches}
-    if min(totals.values()) == 0:
-        raise AssertionError(f"a kernel never ran on the main path: {totals}")
+    if min(totals.values()) == 0 or any(int8_totals[k] for k in EXACT):
+        raise AssertionError(f"a kernel never ran on its path, or the int8 "
+                             f"path ran an exact kernel: {totals}, "
+                             f"{int8_totals}")
 
     # -- phase 5 ------------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
                                 "blobctrl_tpu/ops/flash_attention.py:80"),
             "conv3x3": ("blobctrl_torch/csrc/conv3x3.cu",
-                        "blobctrl_tpu/ops/conv3x3.py:176")}
+                        "blobctrl_tpu/ops/conv3x3.py:176"),
+            "flash_attention_int8": (
+                "blobctrl_torch/csrc/flash_attention_int8.cu",
+                "blobctrl_tpu/ops/flash_attention.py:179"),
+            "conv3x3_int8": ("blobctrl_torch/csrc/conv3x3_int8.cu",
+                             "blobctrl_tpu/ops/conv3x3.py:195")}
     kernels = []
     for name, (source, replaces) in meta.items():
         missing = set(counts[name]) - set(results[name])
         if missing:
             raise AssertionError(f"{name}: shapes not checked {missing}")
+
+        def weighted(field):
+            vals = [results[name][k][field] for k in counts[name]]
+            if any(v is None for v in vals):
+                return None
+            return sum(results[name][k][field] * n
+                       for k, n in counts[name].items())
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": totals[name],
                  "max_abs_err": max(r["max_abs_err"]
                                     for r in results[name].values())}
         for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            entry[field] = sum(results[name][k][field] * n
-                               for k, n in counts[name].items())
-        entry["bound_by"] = _bound_by(name, results, counts)
+            entry[field] = weighted(field)
+        entry["bound_by"] = ("operations" if weighted("ops_ms")
+                             >= weighted("bytes_ms") else "bytes")
         kernels.append(entry)
+        if name in OTHER_MODE:
+            lib = weighted("library_ms")
+            log(f"  {name}, {OTHER_MODE[name]} (on no main path), weighted by"
+                f" the main mode's launches: ms {weighted('alt_ms'):.1f} plain"
+                f" {weighted('alt_plain_ms'):.1f} bound "
+                f"{weighted('bound_ms'):.2f} library "
+                f"{'none' if lib is None else f'{lib:.1f}'}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _bound_by(name, results, counts) -> str:
-    """Whichever of bytes or operations sets the summed bound."""
-    ops_ms = sum(results[name][k]["flops_ms"] * n
-                 for k, n in counts[name].items())
-    bytes_ms = sum(results[name][k]["bytes_ms"] * n
-                   for k, n in counts[name].items())
-    return "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 if __name__ == "__main__":

@@ -83,3 +83,78 @@ def test_conv3x3_kernel_rejects_what_it_cannot_take(cuda_device):
         tconv.conv3x3(x.permute(0, 2, 1, 3), k)
     with pytest.raises(ValueError):
         tconv.conv3x3(x, k[:, :, :16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("global_k", [True, False])
+def test_flash_int8_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                                 global_k):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    # ragged q and kv tails, head dims that are not powers of two
+    for bh, sq, skv, d in [(3, 200, 333, 40), (2, 130, 1024, 80),
+                           (1, 64, 70, 160), (2, 100, 256, 16)]:
+        q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+                   .to(dtype) for s in (sq, skv, skv))
+        before = tfa.int8_launches
+        got = tfa.flash_attention_int8(q, k, v, d ** -0.5, global_k=global_k)
+        assert tfa.int8_launches == before + 1
+        ref = tfa.flash_attention_int8_reference(q, k, v, d ** -0.5,
+                                                 global_k=global_k)
+        err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err.item() <= tol, (bh, sq, skv, d, err.item())
+
+
+@pytest.mark.cuda
+def test_flash_int8_kernel_rejects_what_it_cannot_take(cuda_device):
+    q = torch.zeros(2, 64, 40, device=cuda_device)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_int8(q, q, q, 1.0, fixed_max=None)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_int8(q, q.cpu(), q, 1.0)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_int8(q, q.half(), q.half(), 1.0)
+    big = torch.zeros(1, 64, 192, device=cuda_device)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_int8(big, big, big, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("act_amax", [12.0, None])
+def test_conv3x3_int8_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                                   prologue, act_amax):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, h, w, c, co in [(2, 8, 16, 1029, 320), (1, 16, 8, 37, 40),
+                           (2, 24, 40, 64, 130), (1, 8, 8, 37, 320)]:
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * s
+        x = rnd(b, h, w, c).to(dtype)
+        kq, ws = tconv.quantize_kernel_i8(rnd(3, 3, c, co, s=(9 * c) ** -0.5))
+        bias = rnd(co)
+        pro = (1 + 0.3 * rnd(b, c), rnd(b, c)) if prologue else (None, None)
+        before = tconv.int8_launches
+        got = tconv.conv3x3_int8(x, kq, ws, bias, *pro, act_amax=act_amax)
+        assert tconv.int8_launches == before + 1
+        ref = tconv.conv3x3_int8_reference(x, kq, ws, bias, *pro,
+                                           act_amax=act_amax)
+        err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err.item() <= tol, (b, h, w, c, co, err.item())
+
+
+@pytest.mark.cuda
+def test_conv3x3_int8_kernel_rejects_what_it_cannot_take(cuda_device):
+    x = torch.zeros(1, 8, 8, 32, device=cuda_device)
+    kq = torch.zeros(3, 3, 32, 16, dtype=torch.int8, device=cuda_device)
+    ws = torch.ones(16, device=cuda_device)
+    with pytest.raises(ValueError):  # weights that are not int8
+        tconv.conv3x3_int8(x, kq.float(), ws)
+    with pytest.raises(ValueError):  # weights on another device
+        tconv.conv3x3_int8(x, kq.cpu(), ws.cpu())
+    with pytest.raises(ValueError):
+        tconv.conv3x3_int8(x, kq, ws[:8])
+    with pytest.raises(ValueError):
+        tconv.conv3x3_int8(x.half(), kq, ws)
