@@ -5,8 +5,15 @@
 // Replaces: blobctrl_tpu/ops/flash_attention.py `_flash_kernel_fixed_max`
 // (the static softmax shift p = exp(s - FM) in place of the running max,
 // exact while the logits stay within (FM - 87, FM + 88)) and, with the
-// running-max mode, `_flash_kernel` (alpha-rescaled online softmax). One
-// kernel covers both, selected by a template flag.
+// running-max mode, `_flash_kernel` (alpha-rescaled online softmax), and,
+// with the exp2-folded mode, `_flash_kernel_fixed_max2` (`:55`): q arrives
+// pre-scaled by scale * log2(e) and the shift -fixed_max * log2(e) comes as
+// one scalar, so each score takes one add and one exp2 (p = 2^(q'.k +
+// shift)). The TPU kernel carries the shift in an extra contraction lane
+// d + 1 of q and k; here it is added to the fp32 dot product instead, the
+// same math up to the order of one addition, and no lane is built in
+// device memory. One kernel covers the three modes, selected by a template
+// parameter.
 //
 // What bounds it on the H100: 4*BH*Sq*Skv*D operations against
 // (q + k + v + o) bytes. At the production shapes (S = 8192 with D = 40,
@@ -69,7 +76,11 @@ size_t smem_bytes(int D) {
                           (size_t)BQ * (BKV + 1));
 }
 
-template <typename T, bool FIXED_MAX>
+// MODE: 0 = running max, 1 = fixed max exp(s * scale - fixed_max),
+// 2 = exp2-folded exp2(s + fixed_max) (fixed_max holds the shift).
+constexpr int RUNNING_MAX = 0, FIXED_MAX = 1, EXP2_FOLD = 2;
+
+template <typename T, int MODE>
 __global__ void __launch_bounds__(NT) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int Sq, int Skv, int D, float scale, float fixed_max) {
@@ -136,10 +147,15 @@ __global__ void __launch_bounds__(NT) flash_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[i][j] = kv0 + tx + 16 * j < Skv ? s[i][j] * scale : -INFINITY;
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = kv0 + tx + 16 * j < Skv;
+        if (MODE == EXP2_FOLD)
+          s[i][j] = ok ? s[i][j] + fixed_max : -INFINITY;
+        else
+          s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+      }
       float shift = fixed_max;
-      if (!FIXED_MAX) {
+      if (MODE == RUNNING_MAX) {
         float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
         const float m_new = fmaxf(m_run[i], half_warp_max(mx));
         const float alpha = expf(m_run[i] - m_new);
@@ -152,7 +168,7 @@ __global__ void __launch_bounds__(NT) flash_kernel(
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - shift);
+        const float p = MODE == EXP2_FOLD ? exp2f(s[i][j]) : expf(s[i][j] - shift);
         psum += p;
         Ps[(ty * 4 + i) * (BKV + 1) + tx + 16 * j] = to_f32(from_f32<T>(p));
       }
@@ -189,17 +205,17 @@ __global__ void __launch_bounds__(NT) flash_kernel(
   }
 }
 
-template <typename T, bool FIXED_MAX>
+template <typename T, int MODE>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
            int Sq, int Skv, int D, float scale, float fixed_max,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, FIXED_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)BH);
-  flash_kernel<T, FIXED_MAX><<<grid, NT, smem, stream>>>(
+  flash_kernel<T, MODE><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, D, scale, fixed_max);
   return (int)cudaGetLastError();
 }
@@ -207,22 +223,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
 }  // namespace
 
 // q: (BH, Sq, D), k/v: (BH, Skv, D), o: (BH, Sq, D), all contiguous, D <= 160.
-// dtype: 0 = float32, 1 = bfloat16. use_fixed_max: 1 = static shift
-// fixed_max, 0 = running max. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. mode: 0 = running max, 1 = static shift
+// fixed_max, 2 = exp2-folded (q pre-scaled by scale * log2 e, fixed_max
+// holds the shift -FM * log2 e, scale is unused). Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int BH, int Sq, int Skv, int D,
-                                   float scale, int use_fixed_max,
-                                   float fixed_max, int dtype, void* stream) {
+                                   float scale, int mode, float fixed_max,
+                                   int dtype, void* stream) {
   cudaGetLastError();  // clear any earlier error so the return is ours
   if (D < 1 || D > 16 * MAX_DJ) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return use_fixed_max
-               ? launch<float, true>(q, k, v, o, BH, Sq, Skv, D, scale, fixed_max, s)
-               : launch<float, false>(q, k, v, o, BH, Sq, Skv, D, scale, fixed_max, s);
-  if (dtype == 1)
-    return use_fixed_max
-               ? launch<__nv_bfloat16, true>(q, k, v, o, BH, Sq, Skv, D, scale, fixed_max, s)
-               : launch<__nv_bfloat16, false>(q, k, v, o, BH, Sq, Skv, D, scale, fixed_max, s);
+#define FLASH_LAUNCH(T)                                                              \
+  switch (mode) {                                                                    \
+    case RUNNING_MAX:                                                                \
+      return launch<T, RUNNING_MAX>(q, k, v, o, BH, Sq, Skv, D, scale, fixed_max, s); \
+    case FIXED_MAX:                                                                  \
+      return launch<T, FIXED_MAX>(q, k, v, o, BH, Sq, Skv, D, scale, fixed_max, s);   \
+    case EXP2_FOLD:                                                                  \
+      return launch<T, EXP2_FOLD>(q, k, v, o, BH, Sq, Skv, D, scale, fixed_max, s);   \
+    default:                                                                         \
+      return (int)cudaErrorInvalidValue;                                             \
+  }
+  if (dtype == 0) { FLASH_LAUNCH(float) }
+  if (dtype == 1) { FLASH_LAUNCH(__nv_bfloat16) }
+#undef FLASH_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

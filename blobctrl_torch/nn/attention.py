@@ -10,6 +10,10 @@ path everywhere else (cross-attention over the text tokens, short maps).
 ``set_attention_backend(..., qk_int8=True)`` sends the flash calls to the
 int8 q.k^T kernel instead, with one global k scale under
 ``int8_global_k=True`` (the int8-everything mode).
+
+``set_ln_matmul_fuse("on")`` fuses each pre-LayerNorm into the projection
+after it (``ops.ln_matmul``): the self-attention QKV, the cross-attention
+to_q and the GEGLU proj_in.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from blobctrl_torch.nn import layers
 from blobctrl_torch.ops import flash_attention as flash_op
+from blobctrl_torch.ops import ln_matmul as ln_matmul_op
 
 # Sequence length at or above which q and kv take the flash kernel.
 FLASH_MIN_SEQ = 1024
@@ -27,6 +32,9 @@ FLASH_MIN_SEQ = 1024
 # instead of per-row k scales (the int8-everything mode uses both).
 _ATTENTION_INT8 = False
 _ATTENTION_INT8_GLOBAL_K = False
+# Pre-LayerNorm -> projection fusion: "on", "off", or "auto" (= off, the JAX
+# package's historical name). Off by default, as in the JAX package.
+_LN_MATMUL_FUSE = "off"
 
 
 def set_attention_backend(backend: str = "auto",
@@ -43,6 +51,27 @@ def set_attention_backend(backend: str = "auto",
         _ATTENTION_INT8 = bool(qk_int8)
     if int8_global_k is not None:
         _ATTENTION_INT8_GLOBAL_K = bool(int8_global_k)
+
+
+def set_ln_matmul_fuse(mode: str):
+    """The JAX package's switch: "on", "off" or "auto" (off). Its
+    "interpret" mode (the Pallas kernel on the CPU) has no counterpart: the
+    port's op takes its plain version for CPU tensors under "on"."""
+    global _LN_MATMUL_FUSE
+    if mode not in ("on", "off", "auto"):
+        raise ValueError(f"ln_matmul fuse mode {mode!r}: the port has 'on', "
+                         f"'off' and 'auto'")
+    _LN_MATMUL_FUSE = mode
+
+
+def ln_matmul_fuse_mode() -> str:
+    return _LN_MATMUL_FUSE
+
+
+def _ln_linear(norm, x, params):
+    """LN(x; norm) @ kernel (+ bias) through the fused op."""
+    return ln_matmul_op.ln_matmul(x, norm["scale"], norm.get("bias"),
+                                  params["kernel"], params.get("bias"))
 
 
 def attention_int8_mode() -> tuple:
@@ -112,16 +141,26 @@ def init_attention(init: layers.ParamInit, query_dim: int,
 def attention(params, x: torch.Tensor, heads: int,
               context: Optional[torch.Tensor] = None,
               norm=None) -> torch.Tensor:
-    """norm: optional pre-LayerNorm params, applied to x first."""
-    if norm is not None:
+    """norm: optional pre-LayerNorm params, applied to x first, or with the
+    ln_matmul fusion on, inside the projection that reads the normalized x
+    (a biased self-attention keeps the explicit LayerNorm: its k and v
+    would read the un-normalized x)."""
+    fuse = (norm is not None and _LN_MATMUL_FUSE == "on"
+            and not (context is None and "bias" in params["to_q"]))
+    if norm is not None and not fuse:
         x = layers.layer_norm(norm, x)
     if context is None and "bias" not in params["to_q"]:
         # self-attention: the three projections as one matmul
         w_qkv = torch.cat([params[n]["kernel"] for n in ("to_q", "to_k",
                                                          "to_v")], dim=1)
-        q, k, v = torch.matmul(x, w_qkv.to(x.dtype)).chunk(3, dim=-1)
+        if fuse:
+            qkv = _ln_linear(norm, x, {"kernel": w_qkv})
+        else:
+            qkv = torch.matmul(x, w_qkv.to(x.dtype))
+        q, k, v = qkv.chunk(3, dim=-1)
     else:
-        q = layers.linear(params["to_q"], x)
+        q = (_ln_linear(norm, x, params["to_q"]) if fuse
+             else layers.linear(params["to_q"], x))
         src = context if context is not None else x
         k = layers.linear(params["to_k"], src)
         v = layers.linear(params["to_v"], src)
@@ -139,10 +178,15 @@ def init_feed_forward(init: layers.ParamInit, dim: int):
 
 
 def feed_forward(params, x: torch.Tensor, norm=None) -> torch.Tensor:
-    """GEGLU: proj_in to 2x inner, h * gelu(gate), proj_out."""
-    if norm is not None:
-        x = layers.layer_norm(norm, x)
-    h, gate = layers.linear(params["proj_in"], x).chunk(2, dim=-1)
+    """GEGLU: proj_in to 2x inner, h * gelu(gate), proj_out. norm: optional
+    pre-LayerNorm params, fused into proj_in with the ln_matmul fusion on."""
+    if norm is not None and _LN_MATMUL_FUSE == "on":
+        h = _ln_linear(norm, x, params["proj_in"])
+    else:
+        if norm is not None:
+            x = layers.layer_norm(norm, x)
+        h = layers.linear(params["proj_in"], x)
+    h, gate = h.chunk(2, dim=-1)
     return layers.linear(params["proj_out"], h * layers.gelu(gate))
 
 

@@ -6,7 +6,8 @@ Stride-1 3x3 convs go through ``ops.conv3x3`` wherever the shape qualifies
 block the GroupNorm statistics are folded into a per-(batch, channel) affine
 and the normalize+SiLU runs in the conv's prologue instead of as separate
 passes over device memory. With the int8 conv mode on, the routed convs
-take the tree's pre-quantized ``kernel_q``/``w_scale`` where present.
+take the tree's pre-quantized ``kernel_q``/``w_scale`` where present, and
+with the Winograd switch on its pre-transformed ``u``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def _conv3x3_kernel(conv_params, x, scale=None, shift=None):
     return conv3x3_op.conv3x3(x, conv_params["kernel"].to(x.dtype),
                               conv_params.get("bias"), scale, shift,
                               kernel_q=conv_params.get("kernel_q"),
-                              w_scale=conv_params.get("w_scale"))
+                              w_scale=conv_params.get("w_scale"),
+                              u=conv_params.get("u"))
 
 
 def conv3x3_routed(conv_params, x: torch.Tensor) -> torch.Tensor:

@@ -4,12 +4,29 @@ A wrapper takes its plain version only for CPU tensors; for a CUDA tensor it
 launches its kernel (building it on first use) or raises. ``launches`` on
 each module counts kernel launches, and nothing else."""
 
-from blobctrl_torch.ops import conv3x3, flash_attention
+from blobctrl_torch.ops import (conv3x3, flash_attention, gn_matmul,
+                                ln_matmul, winograd)
+
+# kernel name -> (module, launch counter, shape log): every kernel mode a
+# wrapper launches
+KERNELS = {
+    "flash_attention": (flash_attention, "launches", "launch_shapes"),
+    "flash_attention_int8": (flash_attention, "int8_launches",
+                             "int8_launch_shapes"),
+    "flash_attention_exp2": (flash_attention, "exp2_launches",
+                             "exp2_launch_shapes"),
+    "conv3x3": (conv3x3, "launches", "launch_shapes"),
+    "conv3x3_int8": (conv3x3, "int8_launches", "int8_launch_shapes"),
+    "affine_matmul": (gn_matmul, "launches", "launch_shapes"),
+    "affine_matmul_residual": (gn_matmul, "res_launches",
+                               "res_launch_shapes"),
+    "ln_matmul": (ln_matmul, "launches", "launch_shapes"),
+    "winograd": (winograd, "launches", "launch_shapes"),
+}
 
 
 def reset_counts():
     """Zero every kernel's launch counter and shape log."""
-    for mod in (flash_attention, conv3x3):
-        mod.launches = mod.int8_launches = 0
-        mod.launch_shapes.clear()
-        mod.int8_launch_shapes.clear()
+    for mod, count, shapes in KERNELS.values():
+        setattr(mod, count, 0)
+        getattr(mod, shapes).clear()

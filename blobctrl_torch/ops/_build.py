@@ -27,19 +27,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each library's entry point: (function, argtypes)
+# C entry points: name -> (library, i.e. csrc/<library>.cu, function,
+# argtypes). A library may hold several entry points.
 SIGNATURES = {
-    "flash_attention": ("flash_attention_fwd",
+    "flash_attention": ("flash_attention", "flash_attention_fwd",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P)),
-    "conv3x3": ("conv3x3_fwd",
+    "conv3x3": ("conv3x3", "conv3x3_fwd",
                 (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "flash_attention_int8": ("flash_attention_int8_fwd",
+    "flash_attention_int8": ("flash_attention_int8",
+                             "flash_attention_int8_fwd",
                              (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                               _I, _P)),
-    "conv3x3_int8": ("conv3x3_int8_fwd",
+    "conv3x3_int8": ("conv3x3_int8", "conv3x3_int8_fwd",
                      (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P)),
+    "affine_matmul": ("norm_matmul", "affine_matmul_fwd",
+                      (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "ln_matmul": ("norm_matmul", "ln_matmul_fwd",
+                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "winograd": ("winograd", "winograd_fwd",
+                 (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
 }
+LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 
 _lock = threading.Lock()
 _entry = {}
@@ -66,7 +75,7 @@ def build_all():
             return
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = {}
-        for name in SIGNATURES:
+        for name in LIBRARIES:
             so = _target(name)
             if not os.path.exists(so):
                 tmp = f"{so}.{os.getpid()}.tmp"
@@ -86,15 +95,16 @@ def build_all():
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))
-        for name, (fn_name, argtypes) in SIGNATURES.items():
-            fn = getattr(ctypes.CDLL(_target(name)), fn_name)
+        libs = {name: ctypes.CDLL(_target(name)) for name in LIBRARIES}
+        for name, (lib, fn_name, argtypes) in SIGNATURES.items():
+            fn = getattr(libs[lib], fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _entry[name] = fn
 
 
 def entry(name: str):
-    """The C entry point of kernel library ``name``, built on first use."""
+    """The C entry point ``name`` of ``SIGNATURES``, built on first use."""
     if name not in _entry:
         build_all()
     return _entry[name]

@@ -1,5 +1,5 @@
 """3x3 stride-1 same conv with an optional fused GroupNorm+SiLU prologue,
-exact or int8.
+exact, int8 or Winograd.
 
 Counterpart of ``blobctrl_tpu/ops/conv3x3.py``. Two CUDA kernels:
 
@@ -13,6 +13,9 @@ Counterpart of ``blobctrl_tpu/ops/conv3x3.py``. Two CUDA kernels:
     opt-in int8 mode (``set_conv_int8``): the same GEMM over int8
     activations under ONE activation scale and int8 weights under
     per-output-channel scales, int32 accumulation, one fp32 rescale.
+
+With the Winograd switch on (``set_winograd``) and the int8 mode off, calls
+with even H and W go to ``ops.winograd.conv3x3_winograd`` instead.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ INV127 = float(torch.tensor(1.0) / 127.0)
 # None for a dynamic max-abs over each call's activations.
 _CONV_INT8 = False
 _CONV_INT8_ACT_AMAX: Optional[float] = 12.0
+# The Winograd F(2x2, 3x3) route for even H and W, off by default as in the
+# JAX package.
+_WINOGRAD = False
 
 launches = 0                               # kernel launches (plain calls excluded)
 launch_shapes = collections.Counter()      # (b, h, w, c, co, dtype, prologue) -> launches
@@ -60,6 +66,15 @@ def set_conv_int8(flag: bool, act_amax: Optional[float] = "unset"):
 
 def conv_int8_enabled() -> bool:
     return _CONV_INT8
+
+
+def set_winograd(flag: bool):
+    global _WINOGRAD
+    _WINOGRAD = bool(flag)
+
+
+def winograd_enabled() -> bool:
+    return _WINOGRAD
 
 
 def quantize_kernel_i8(kern: torch.Tensor):
@@ -216,20 +231,28 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
             scale: Optional[torch.Tensor] = None,
             shift: Optional[torch.Tensor] = None,
             kernel_q: Optional[torch.Tensor] = None,
-            w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+            w_scale: Optional[torch.Tensor] = None,
+            u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, H, W, C) NHWC, w: (3, 3, C, Co) HWIO, both contiguous and of
     one dtype (bf16 or fp32); bias (Co,); scale/shift (B, C) or (C,) ->
     (B, H, W, Co). CPU tensors take the plain version.
 
     With the int8 mode on (``set_conv_int8``) the call goes to
     ``conv3x3_int8``, with the pre-quantized ``kernel_q``/``w_scale`` from
-    ``quantize_conv_tree`` or, without them, w quantized here."""
+    ``quantize_conv_tree`` or, without them, w quantized here. Otherwise,
+    with the Winograd switch on and even H and W, it goes to
+    ``winograd.conv3x3_winograd``, with the pre-transformed ``u`` from
+    ``winograd.transform_conv_tree`` or, without it, w transformed there."""
     global launches
     if _CONV_INT8:
         if kernel_q is None:
             kernel_q, w_scale = quantize_kernel_i8(w)
         return conv3x3_int8(x, kernel_q, w_scale, bias, scale, shift,
                             _CONV_INT8_ACT_AMAX)
+    if _WINOGRAD and x.dim() == 4 and x.shape[1] % 2 == 0 \
+            and x.shape[2] % 2 == 0:
+        from blobctrl_torch.ops import winograd
+        return winograd.conv3x3_winograd(x, w, bias, scale, shift, u=u)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv3x3_reference(x, w, bias, scale, shift)
     b, h, wd, c, co = _check_args("conv3x3", x, w, scale, shift, (w,))

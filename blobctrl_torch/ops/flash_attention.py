@@ -6,8 +6,12 @@ serve the long self-attention of the double-width latent layout (8192
 tokens at the top level of a 512^2 edit), where the plain version
 materializes an S x S fp32 score matrix in device memory:
 
-  * ``csrc/flash_attention.cu`` replaces the Pallas ``_flash_kernel_fixed_max``
-    and, with ``fixed_max=None``, the running-max ``_flash_kernel``;
+  * ``csrc/flash_attention.cu`` replaces the Pallas ``_flash_kernel_fixed_max``,
+    with ``fixed_max=None`` the running-max ``_flash_kernel``, and with the
+    exp2 fold on (``set_exp2_fold``) ``_flash_kernel_fixed_max2``: q arrives
+    pre-scaled by scale * log2 e and the shift as one scalar, both rounded
+    to q's dtype here in plain torch, as XLA computes them outside the
+    Pallas kernel;
   * ``csrc/flash_attention_int8.cu`` replaces ``_flash_kernel_int8g`` (one
     global k scale, the int8-everything mode) and, with ``global_k=False``,
     ``_flash_kernel_int8`` (per-row k scales). q and k are quantized here in
@@ -27,13 +31,29 @@ from blobctrl_torch.ops import _build
 from blobctrl_torch.ops.conv3x3 import INV127
 
 MAX_HEAD_DIM = 160
+MODE_RUNNING_MAX, MODE_FIXED_MAX, MODE_EXP2_FOLD = 0, 1, 2  # the kernel's modes
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The exp2 fold, off by default as in the JAX package. It applies only with
+# a numeric fixed_max and without int8.
+_EXP2_FOLD = False
+
 launches = 0                               # kernel launches (plain calls excluded)
 launch_shapes = collections.Counter()      # (bh, sq, skv, d, dtype, fixed) -> launches
+exp2_launches = 0                          # the same for the exp2-folded mode
+exp2_launch_shapes = collections.Counter()  # (bh, sq, skv, d, dtype) -> launches
 int8_launches = 0                          # the same for the int8 kernel
 int8_launch_shapes = collections.Counter()  # (bh, sq, skv, d, dtype, global_k) -> launches
+
+
+def set_exp2_fold(flag: bool):
+    global _EXP2_FOLD
+    _EXP2_FOLD = bool(flag)
+
+
+def exp2_fold_enabled() -> bool:
+    return _EXP2_FOLD
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -55,8 +75,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fixed_max: a number selects the static softmax shift p = exp(s - FM),
     exact while the logits stay within (FM - 87, FM + 88); None selects the
     running row max with alpha-rescaling. CPU tensors take the plain version
-    (exact softmax either way)."""
+    (exact softmax either way). With the exp2 fold on and a numeric
+    fixed_max the call goes to ``flash_attention_exp2``."""
     global launches
+    if _EXP2_FOLD and fixed_max is not None:
+        return flash_attention_exp2(q, k, v, scale, fixed_max)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
@@ -65,12 +88,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     fixed = fixed_max is not None
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, sq, skv, d, ctypes.c_float(scale), int(fixed),
+            bh, sq, skv, d, ctypes.c_float(scale),
+            MODE_FIXED_MAX if fixed else MODE_RUNNING_MAX,
             ctypes.c_float(fixed_max if fixed else 0.0), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", rc)
     launches += 1
     launch_shapes[(bh, sq, skv, d, str(q.dtype), fixed)] += 1
+    return out
+
+
+def exp2_operands(q: torch.Tensor, scale: float, fixed_max: float):
+    """The exp2 fold's pre-pass (XLA ops outside the Pallas kernel in the
+    JAX package) -> (q', shift): q' = q * (scale * log2 e) and shift =
+    -fixed_max * log2 e, the constants rounded to q's dtype first (JAX's
+    weakly typed Python scalars take the array's dtype), q' rounded to q's
+    dtype, shift a Python float."""
+    c = float(torch.tensor(scale * LOG2E, dtype=q.dtype))
+    shift = float(torch.tensor(-fixed_max * LOG2E, dtype=q.dtype))
+    return q * c, shift
+
+
+def flash_attention_exp2_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, scale: float,
+                                   fixed_max: float = 20.0) -> torch.Tensor:
+    """The plain version of the exp2-folded kernel: s = q'.k^T in fp32 plus
+    the shift, p = exp2(s), l = the fp32 row sum of p, p rounded to v's
+    dtype for P @ V in fp32, then acc / l in q's dtype."""
+    qs, shift = exp2_operands(q, scale, fixed_max)
+    p = torch.exp2(torch.matmul(qs.float(), k.float().transpose(-1, -2))
+                   + shift)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def flash_attention_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, fixed_max: float = 20.0
+                         ) -> torch.Tensor:
+    """The exp2-folded fixed-max flash attention. q: (BH, Sq, D); k, v:
+    (BH, Skv, D), contiguous, bf16 or fp32 -> (BH, Sq, D) in q's dtype. q is
+    pre-scaled here; the kernel takes q' and the shift. CPU tensors take the
+    plain version."""
+    global exp2_launches
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return flash_attention_exp2_reference(q, k, v, scale, fixed_max)
+    bh, sq, skv, d = _check_args("flash_attention_exp2", q, k, v)
+    qs, shift = exp2_operands(q, scale, fixed_max)
+    fn = _build.entry("flash_attention")
+    out = torch.empty_like(q)
+    rc = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+            sq, skv, d, ctypes.c_float(1.0), MODE_EXP2_FOLD,
+            ctypes.c_float(shift), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attention_exp2", rc)
+    exp2_launches += 1
+    exp2_launch_shapes[(bh, sq, skv, d, str(q.dtype))] += 1
     return out
 
 

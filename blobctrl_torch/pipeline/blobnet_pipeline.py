@@ -25,6 +25,7 @@ from blobctrl_torch.models import blobnet as blobnet_lib
 from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.models import vae as vae_lib
 from blobctrl_torch.ops import conv3x3 as conv3x3_op
+from blobctrl_torch.ops import winograd as winograd_op
 from blobctrl_torch.schedulers import unipc as unipc_lib
 
 
@@ -97,25 +98,32 @@ class BlobNetPipeline:
         self.blobnet_cfg, self.blobnet_params = blobnet_cfg, blobnet_params
         self.vae_cfg, self.vae_params = vae_cfg, vae_params
         self.dtype = dtype
-        self._int8_param_cache = {}
+        self._param_cache = {}
 
     def _conv_params(self, name: str):
-        """The param tree ``name``, with the pre-quantized int8 weights
-        (``kernel_q``/``w_scale``, ``ops.conv3x3.quantize_conv_tree``) beside
-        its hot kernels while the int8 conv mode is on. Quantized once per
-        tree and cached by identity, so a 50-step edit quantizes no weight
-        inside its loop; ``self.*_params`` stay unquantized. With the mode
-        off the quantized copies are dropped, so the exact edit holds no
-        int8 weights in device memory."""
+        """The param tree ``name``, with derived weights beside its hot
+        kernels while a mode that reads them is on: the pre-quantized int8
+        weights (``kernel_q``/``w_scale``, ``ops.conv3x3.quantize_conv_tree``)
+        in the int8 conv mode, else the Winograd-domain ``u``
+        (``ops.winograd.transform_conv_tree``) with the Winograd switch on.
+        Derived once per tree and mode, cached by identity, so a 50-step
+        edit transforms no weight inside its loop; ``self.*_params`` stay as
+        they are. With the modes off the derived copies are dropped, so the
+        exact edit holds none in device memory."""
         p = getattr(self, name)
-        if not conv3x3_op.conv_int8_enabled():
-            self._int8_param_cache.clear()
+        if conv3x3_op.conv_int8_enabled():
+            mode = "int8"
+        elif conv3x3_op.winograd_enabled():
+            mode = "winograd"
+        else:
+            self._param_cache.clear()
             return p
-        ent = self._int8_param_cache.get(name)
-        if ent is None or ent[0] is not p:
-            ent = self._int8_param_cache[name] = (
-                p, conv3x3_op.quantize_conv_tree(p))
-        return ent[1]
+        ent = self._param_cache.get(name)
+        if ent is None or ent[0] is not p or ent[1] != mode:
+            ent = self._param_cache[name] = (p, mode, (
+                conv3x3_op.quantize_conv_tree(p) if mode == "int8"
+                else winograd_op.transform_conv_tree(p, self.dtype)))
+        return ent[2]
 
     @torch.inference_mode()
     def __call__(self, prompt=None, fg_image=None, bg_image=None,

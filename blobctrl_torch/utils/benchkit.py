@@ -11,8 +11,8 @@ import torch
 
 from blobctrl_torch.apps import flagship
 from blobctrl_torch.blob import math as blob_math
-from blobctrl_torch.nn import attention
-from blobctrl_torch.ops import conv3x3
+from blobctrl_torch.nn import attention, transformer_2d
+from blobctrl_torch.ops import conv3x3, flash_attention
 from blobctrl_torch.pipeline import BlobNetPipeline
 
 
@@ -73,3 +73,26 @@ def int8_everything():
         conv3x3.set_conv_int8(conv_before)
         attention.set_attention_backend("auto", qk_int8=qk_before,
                                         int8_global_k=gk_before)
+
+
+@contextlib.contextmanager
+def fused_kernels():
+    """The fused-kernel edit: the exact edit with the JAX package's four
+    opt-in kernels on (the exp2-folded flash attention, GroupNorm -> proj_in
+    as one GEMM, each pre-LayerNorm fused into its projection, Winograd
+    F(2x2, 3x3) for every routed 3x3 conv with even H and W) around a
+    block, restoring the previous switches after it."""
+    before = (flash_attention.exp2_fold_enabled(),
+              transformer_2d.gn_proj_fuse_enabled(),
+              attention.ln_matmul_fuse_mode(), conv3x3.winograd_enabled())
+    flash_attention.set_exp2_fold(True)
+    transformer_2d.set_gn_proj_fuse(True)
+    attention.set_ln_matmul_fuse("on")
+    conv3x3.set_winograd(True)
+    try:
+        yield
+    finally:
+        flash_attention.set_exp2_fold(before[0])
+        transformer_2d.set_gn_proj_fuse(before[1])
+        attention.set_ln_matmul_fuse(before[2])
+        conv3x3.set_winograd(before[3])

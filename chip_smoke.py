@@ -9,34 +9,42 @@ script exits non-zero:
      of every CUDA kernel from ``blobctrl_torch/csrc`` (nvcc, in parallel).
   2. Kernels against their plain versions on the card, at every shape a
      512^2 edit launches (recorded through the wrappers by a one-step
-     full-width edit, once exact and once in the int8-everything mode), in
-     bf16 and fp32, flash attention in both softmax modes, int8 flash
-     attention in both k-scale modes. bf16 within 2e-2 of max |plain|, fp32
-     (TF32 off) within 1e-4. Times (CUDA events, median of 10 after
-     warm-up), in bf16, of each mode: the kernel, its plain version, and
-     one PyTorch library call computing the same function where there is
-     one (none computes either int8 function).
+     full-width edit, once exact, once in the int8-everything mode and once
+     as the fused-kernel edit), in bf16 and fp32, flash attention in both
+     softmax modes, int8 flash attention in both k-scale modes, the
+     GroupNorm -> projection GEMM in its plain and residual modes. bf16
+     within 2e-2 of max |plain|, fp32 (TF32 off) within 1e-4. Times (CUDA
+     events, median of 10 after warm-up), in bf16, of each mode: the
+     kernel, its plain version, and one PyTorch library call computing the
+     same function where there is one (none computes either int8 function;
+     the fused GEMMs and the Winograd conv are set against the library's
+     product or conv without their prologue).
   3. The trained 256^2 toy checkpoint: a move and a remove edit (20 steps,
-     fp32), exact and in the int8-everything mode, on the card with the
-     kernels and on the CPU with the plain route; PSNR of card against CPU
-     >= 40 dB; the mode's kernels launched.
+     fp32), exact, in the int8-everything mode and as the fused-kernel
+     edit, on the card with the kernels and on the CPU with the plain
+     route; PSNR of card against CPU >= 40 dB; the mode's kernels launched.
   4. Full width: SD-1.5 UNet (5-ch) + BlobNet (1029-ch) + VAE, random
      weights drawn on the card, bf16; three exact STEPS-step requests
      through ``BlobNetPipeline.__call__`` (the standard edit, a second edit
      with another ellipse and seed, a remove-mode edit), then the standard
-     edit in the int8-everything mode (its PSNR against the exact one is
-     printed for information). Launch counters are zeroed just before each
-     of the two paths and read just after it.
+     edit in the int8-everything mode and as the fused-kernel edit (the
+     PSNR of each against the exact one is printed for information).
+     Launch counters are zeroed just before each of the three paths and
+     read just after it; the pipeline's derived weights (int8, Winograd)
+     are dropped before each path, so each peak holds only its own.
   5. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
 
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
-kernels' from the exact requests, the int8 kernels' from the int8 one);
+kernels' from the exact requests, the int8 kernels' from the int8 one, the
+fused-kernel edit's four from the fused one);
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
 those launches, from the per-shape medians of phase 2 weighted by phase 4's
 per-shape launch counts. ``bound_ms`` is the larger of bytes (each input
 read once, each output written once) over 3.35 TB/s and the operations
 over the card's peak for their type: 989 TFLOP/s for bf16 products,
-1979 TOP/s for int8 products (H100 SXM data sheet).
+1979 TOP/s for int8 products (H100 SXM data sheet). The Winograd conv's
+operations are its own multiply count, 4*C*Co MACs per output pixel (the
+direct conv's 9*C*Co is logged beside it).
 """
 
 from __future__ import annotations
@@ -184,15 +192,106 @@ def conv_int8_case(key, dtype, gen):
         nbytes=nbytes + kq.numel() + 4 * ws.numel())
 
 
+def flash_exp2_case(key, dtype, gen):
+    """key: (bh, sq, skv, d, dtype-name): the exp2-folded fixed-max kernel
+    (the fused-kernel edit's flash attention)."""
+    from blobctrl_torch.ops import flash_attention as fa
+    q, k, v, scale, prod, nbytes = _flash_inputs(key, dtype, gen)
+    return dict(
+        modes=(None,), labels=("",),
+        kernel=lambda _: fa.flash_attention_exp2(q, k, v, scale),
+        plain=lambda _: fa.flash_attention_exp2_reference(q, k, v, scale),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], scale=scale),
+        ops_ms=1e3 * 2 * prod / PEAK_BF16_FLOPS, nbytes=nbytes)
+
+
+def _gemm_case(x2d, w, kernel, plain, modes, labels, extra_bytes):
+    """A normalize-prologue GEMM (M, C) @ (C, N); the library call is the
+    same product without the prologue (no one PyTorch call fuses it)."""
+    m, c = x2d.shape
+    n = w.shape[1]
+    nbytes = (m * c + c * n + m * n) * x2d.element_size() + 4 * n
+    return dict(modes=modes, labels=labels, kernel=kernel, plain=plain,
+                library=lambda: torch.matmul(x2d, w),
+                ops_ms=1e3 * 2.0 * m * c * n / PEAK_BF16_FLOPS,
+                nbytes=nbytes + extra_bytes)
+
+
+def affine_matmul_case(key, dtype, gen):
+    """key: (b, hw, c, n, dtype-name, affine) as the wrapper logs it; modes:
+    the plain epilogue (gn_proj, the main path), the residual epilogue
+    (gn_proj with a residual) and the residual epilogue without the affine
+    (matmul_residual); bytes are the main mode's."""
+    from blobctrl_torch.ops import gn_matmul as gm
+    b, hw, c, n = key[:4]
+    x = _rnd(gen, b, hw, 1, c).to(dtype)
+    w = _rnd(gen, c, n, s=c ** -0.5).to(dtype)
+    bias = _rnd(gen, n)
+    s, t = 1.0 + 0.3 * _rnd(gen, b, c), _rnd(gen, b, c)
+    res = _rnd(gen, b, hw, 1, n).to(dtype)
+    args = {"plain": (s, t, None), "residual": (s, t, res),
+            "residual, no affine": (None, None, res)}
+    return _gemm_case(
+        x.reshape(b * hw, c), w,
+        kernel=lambda mode: gm.affine_matmul(x, w, bias, *args[mode]),
+        plain=lambda mode: gm.affine_matmul_reference(x, w, bias,
+                                                      *args[mode]),
+        modes=tuple(args), labels=tuple(args), extra_bytes=8 * b * c)
+
+
+def ln_matmul_case(key, dtype, gen):
+    """key: (m, c, n, dtype-name)."""
+    from blobctrl_torch.ops import ln_matmul as lm
+    m, c, n = key[:3]
+    x = _rnd(gen, m, c).to(dtype)
+    gamma, beta = 1.0 + 0.3 * _rnd(gen, c), 0.1 * _rnd(gen, c)
+    w = _rnd(gen, c, n, s=c ** -0.5).to(dtype)
+    bias = _rnd(gen, n)
+    return _gemm_case(
+        x, w, kernel=lambda _: lm.ln_matmul(x, gamma, beta, w, bias),
+        plain=lambda _: lm.ln_matmul_reference(x, gamma, beta, w, bias),
+        modes=(None,), labels=("",), extra_bytes=8 * c)
+
+
+def winograd_case(key, dtype, gen):
+    """key: (b, h, w, c, co, dtype-name, prologue): the weights go in
+    pre-transformed, as ``BlobNetPipeline._conv_params`` keeps them."""
+    from blobctrl_torch.ops import winograd as wg
+    x, k, bias, pro, ops, nbytes = _conv_inputs(key, dtype, gen)
+    u = wg.transform_weights(k).to(dtype)
+    xn = x.permute(0, 3, 1, 2)
+    wn = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bias_d = bias.to(dtype)
+    return dict(
+        modes=(None,), labels=("",),
+        kernel=lambda _: wg.conv3x3_winograd(x, k, bias, *pro, u=u),
+        plain=lambda _: wg.conv3x3_winograd_reference(x, u, bias, *pro),
+        # cuDNN's conv, without the prologue: no one library call fuses it
+        library=lambda: torch.nn.functional.conv2d(xn, wn, bias_d, padding=1),
+        ops_ms=1e3 * ops * 4 / 9 / PEAK_BF16_FLOPS,
+        direct_ops_ms=1e3 * ops / PEAK_BF16_FLOPS,
+        nbytes=nbytes + u.numel() * u.element_size())
+
+
 CASES = {"flash_attention": flash_case, "conv3x3": conv_case,
          "flash_attention_int8": flash_int8_case,
-         "conv3x3_int8": conv_int8_case}
+         "conv3x3_int8": conv_int8_case,
+         "flash_attention_exp2": flash_exp2_case,
+         "affine_matmul": affine_matmul_case, "ln_matmul": ln_matmul_case,
+         "winograd": winograd_case}
 
 
 def shape_label(name, key) -> str:
     if name.startswith("flash_attention"):
         bh, sq, skv, d = key[:4]
         return f"{name} bh={bh} sq={sq} skv={skv} d={d}"
+    if name == "affine_matmul":
+        b, hw, c, n = key[:4]
+        return f"{name} b={b} hw={hw} c={c} n={n}"
+    if name == "ln_matmul":
+        m, c, n = key[:3]
+        return f"{name} m={m} c={c} n={n}"
     b, h, w, c, co = key[:5]
     label = (f"{name} b={b} h={h} w={w} c={c} co={co}"
              f"{' +gn-silu' if key[6] else ''}")
@@ -202,8 +301,8 @@ def shape_label(name, key) -> str:
 def check_kernels(shapes):
     """shapes: {kernel name: recorded keys}. Every key in bf16 and fp32, in
     every mode, kernel against plain; bf16 timings of each mode (the first
-    mode is the main path's; ``alt_*`` the other's). -> per-kernel {key:
-    numbers}."""
+    mode is the main path's; ``<label>:ms`` and ``<label>:plain_ms`` the
+    others'). -> per-kernel {key: numbers}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {name: {} for name in shapes}
     for name, keys in shapes.items():
@@ -226,7 +325,7 @@ def check_kernels(shapes):
                         raise AssertionError(f"{tag}: rel {rel}")
                     row["max_abs_err"] = max(row["max_abs_err"], abs_err)
                     if dtype == torch.bfloat16:
-                        pre = "alt_" if i else ""
+                        pre = f"{case['labels'][i]}:" if i else ""
                         row[pre + "ms"] = time_ms(
                             lambda: case["kernel"](mode))
                         row[pre + "plain_ms"] = time_ms(
@@ -237,14 +336,21 @@ def check_kernels(shapes):
                     row["ops_ms"] = case["ops_ms"]
                     row["bytes_ms"] = 1e3 * case["nbytes"] / PEAK_BYTES
                     row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+                    if "direct_ops_ms" in case:
+                        row["direct_bound_ms"] = max(case["direct_ops_ms"],
+                                                     row["bytes_ms"])
                     lib = row["library_ms"]
+                    others = "".join(
+                        f" ({label} {row[label + ':ms']:.4f}, plain "
+                        f"{row[label + ':plain_ms']:.4f})"
+                        for label in case["labels"][1:])
                     log(f"    bf16 ms {row['ms']:.4f} plain "
-                        f"{row['plain_ms']:.4f}"
-                        + (f" (other mode {row['alt_ms']:.4f}, plain "
-                           f"{row['alt_plain_ms']:.4f})" if "alt_ms" in row
-                           else "")
-                        + f" library {'none' if lib is None else f'{lib:.4f}'}"
-                        f" bound {row['bound_ms']:.4f}")
+                        f"{row['plain_ms']:.4f}{others}"
+                        f" library {'none' if lib is None else f'{lib:.4f}'}"
+                        f" bound {row['bound_ms']:.4f}"
+                        + (f" (direct conv's count: "
+                           f"{row['direct_bound_ms']:.4f})"
+                           if "direct_bound_ms" in row else ""))
                 del case
             results[name][key] = row
             torch.cuda.empty_cache()
@@ -317,41 +423,51 @@ def psnr(a, b) -> float:
 
 
 def launch_counts():
-    """-> {kernel name: launches since the last ``ops.reset_counts()``}."""
-    from blobctrl_torch.ops import conv3x3, flash_attention
-    return {"flash_attention": flash_attention.launches,
-            "conv3x3": conv3x3.launches,
-            "flash_attention_int8": flash_attention.int8_launches,
-            "conv3x3_int8": conv3x3.int8_launches}
+    """-> {kernel name: launches since the last ``ops.reset_counts()``} of
+    every path's kernels."""
+    from blobctrl_torch.ops import KERNELS
+    return {name: getattr(KERNELS[name][0], KERNELS[name][1])
+            for names in MODES.values() for name in names}
 
 
 def launch_shapes():
     """-> {kernel name: {shape key: launches}} since the last reset."""
-    from blobctrl_torch.ops import conv3x3, flash_attention
-    return {"flash_attention": dict(flash_attention.launch_shapes),
-            "conv3x3": dict(conv3x3.launch_shapes),
-            "flash_attention_int8": dict(flash_attention.int8_launch_shapes),
-            "conv3x3_int8": dict(conv3x3.int8_launch_shapes)}
+    from blobctrl_torch.ops import KERNELS
+    return {name: dict(getattr(KERNELS[name][0], KERNELS[name][2]))
+            for names in MODES.values() for name in names}
 
 
 EXACT = ("flash_attention", "conv3x3")
 INT8 = ("flash_attention_int8", "conv3x3_int8")
-# the second mode of a kernel, checked and timed in phase 2 only
-OTHER_MODE = {"flash_attention": "running-max mode (K2)",
-              "flash_attention_int8": "per-row-k mode (K4)"}
+FUSED = ("flash_attention_exp2", "affine_matmul", "ln_matmul", "winograd")
+MODES = {"exact": EXACT, "int8": INT8, "fused": FUSED}
+# the other modes of a kernel, checked and timed in phase 2 only:
+# {kernel: [(phase-2 label, description)]}
+OTHER_MODE = {"flash_attention": [("running-max", "running-max mode (K2)")],
+              "flash_attention_int8": [("per-row-k", "per-row-k mode (K4)")],
+              "affine_matmul": [
+                  ("residual", "residual mode (K10, `:85`)"),
+                  ("residual, no affine",
+                   "residual mode without the affine (K10, `:85`, "
+                   "matmul_residual)")]}
+
+
+def mode_context(mode):
+    """The switches of a path around a block."""
+    from blobctrl_torch.utils import benchkit
+    return {"exact": contextlib.nullcontext, "int8": benchkit.int8_everything,
+            "fused": benchkit.fused_kernels}[mode]()
 
 
 def toy_phase():
     from blobctrl_torch import ops
     from blobctrl_torch.train import toy
-    from blobctrl_torch.utils import benchkit
     ckpt = os.path.join(ROOT, "assets", "toy_ckpt_256")
     card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.float32)
     cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.float32)
-    for mode, kernels in (("exact", EXACT), ("int8", INT8)):
+    for mode, kernels in MODES.items():
         for name, kw in toy_edits(256, 20).items():
-            with (benchkit.int8_everything() if mode == "int8"
-                  else contextlib.nullcontext()):
+            with mode_context(mode):
                 ops.reset_counts()
                 t0 = time.perf_counter()
                 got = card(**kw).images
@@ -410,7 +526,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from blobctrl_torch import ops
-    from blobctrl_torch.ops import _build, conv3x3
+    from blobctrl_torch.ops import _build, conv3x3, winograd
     from blobctrl_torch.utils import benchkit
 
     # -- phase 1 ------------------------------------------------------------
@@ -434,12 +550,13 @@ def main() -> int:
     one_step = dict(benchkit.standard_edit_kwargs(512, 1),
                     blobnet_control_guidance_end=1.0)
     ops.reset_counts()
-    pipe(**one_step)
-    with benchkit.int8_everything():
-        pipe(**one_step)
+    for mode in MODES:
+        with mode_context(mode):
+            pipe(**one_step)
     torch.cuda.synchronize()
+    pipe._param_cache.clear()  # the int8 and Winograd weight copies
     shapes = {name: set(keys) for name, keys in launch_shapes().items()}
-    log("  recorded shapes from a one-step edit, exact and int8: "
+    log("  recorded shapes from a one-step edit, exact, int8 and fused: "
         + ", ".join(f"{name} {len(keys)}" for name, keys in shapes.items()))
     results = check_kernels(shapes)
 
@@ -458,28 +575,38 @@ def main() -> int:
         log(f"  {name}: {secs:.3f} s, launches {launches}, peak memory "
             f"{mem:.2f} GiB")
     counts, totals = launch_shapes(), launch_counts()
-    t0 = time.perf_counter()
-    for tree in (pipe.unet_params, pipe.blobnet_params, pipe.vae_params):
-        conv3x3.quantize_conv_tree(tree)
-    torch.cuda.synchronize()
-    log(f"  quantize_conv_tree of the UNet, BlobNet and VAE weights: "
-        f"{time.perf_counter() - t0:.3f} s (the int8 edit below pays it once)")
-    ops.reset_counts()
-    with benchkit.int8_everything():
-        out, secs, launches, mem = run_request(pipe, requests[0][1])
-    log(f"  edit, int8-everything: {secs:.3f} s, launches {launches}, peak "
-        f"memory {mem:.2f} GiB, PSNR against the exact edit "
-        f"{psnr(out, exact_edit):.2f} dB (for information)")
-    int8_counts, int8_totals = launch_shapes(), launch_counts()
-    for name in INT8:  # the int8 kernels' counts come from the int8 request
-        counts[name], totals[name] = int8_counts[name], int8_totals[name]
+    path_totals = {"exact": dict(totals)}
+    for mode, derive in (("int8", lambda t: conv3x3.quantize_conv_tree(t)),
+                         ("fused", lambda t: winograd.transform_conv_tree(
+                             t, pipe.dtype))):
+        t0 = time.perf_counter()
+        for tree in (pipe.unet_params, pipe.blobnet_params, pipe.vae_params):
+            derive(tree)
+        torch.cuda.synchronize()
+        log(f"  {mode}: deriving its weights of the UNet, BlobNet and VAE "
+            f"alone takes {time.perf_counter() - t0:.3f} s (the request "
+            f"below pays it once)")
+        pipe._param_cache.clear()  # the peak holds this path's copies only
+        ops.reset_counts()
+        with mode_context(mode):
+            out, secs, launches, mem = run_request(pipe, requests[0][1])
+        pipe._param_cache.clear()
+        log(f"  edit, {mode}: {secs:.3f} s, launches {launches}, peak "
+            f"memory {mem:.2f} GiB, PSNR against the exact edit "
+            f"{psnr(out, exact_edit):.2f} dB (for information)")
+        mode_counts, path_totals[mode] = launch_shapes(), launch_counts()
+        for name in MODES[mode]:  # each kernel's counts from its own path
+            counts[name] = mode_counts[name]
+            totals[name] = path_totals[mode][name]
     for name, per_shape in counts.items():
         for key, n in sorted(per_shape.items(), key=repr):
             log(f"  launches {shape_label(name, key)}: {n}")
-    if min(totals.values()) == 0 or any(int8_totals[k] for k in EXACT):
-        raise AssertionError(f"a kernel never ran on its path, or the int8 "
-                             f"path ran an exact kernel: {totals}, "
-                             f"{int8_totals}")
+    strays = {mode: {k: n for k, n in path_totals[mode].items()
+                     if n and k not in names}
+              for mode, names in MODES.items()}
+    if min(totals.values()) == 0 or any(strays.values()):
+        raise AssertionError(f"a kernel never ran on its path, or a path ran "
+                             f"another path's kernel: {totals}, {strays}")
 
     # -- phase 5 ------------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
@@ -490,7 +617,15 @@ def main() -> int:
                 "blobctrl_torch/csrc/flash_attention_int8.cu",
                 "blobctrl_tpu/ops/flash_attention.py:179"),
             "conv3x3_int8": ("blobctrl_torch/csrc/conv3x3_int8.cu",
-                             "blobctrl_tpu/ops/conv3x3.py:195")}
+                             "blobctrl_tpu/ops/conv3x3.py:195"),
+            "flash_attention_exp2": ("blobctrl_torch/csrc/flash_attention.cu",
+                                     "blobctrl_tpu/ops/flash_attention.py:55"),
+            "affine_matmul": ("blobctrl_torch/csrc/norm_matmul.cu",
+                              "blobctrl_tpu/ops/gn_matmul.py:64"),
+            "ln_matmul": ("blobctrl_torch/csrc/norm_matmul.cu",
+                          "blobctrl_tpu/ops/ln_matmul.py:38"),
+            "winograd": ("blobctrl_torch/csrc/winograd.cu",
+                         "blobctrl_tpu/ops/winograd.py:85")}
     kernels = []
     for name, (source, replaces) in meta.items():
         missing = set(counts[name]) - set(results[name])
@@ -512,11 +647,15 @@ def main() -> int:
         entry["bound_by"] = ("operations" if weighted("ops_ms")
                              >= weighted("bytes_ms") else "bytes")
         kernels.append(entry)
-        if name in OTHER_MODE:
+        if name == "winograd":
+            log(f"  winograd bound with the direct conv's multiply count: "
+                f"{weighted('direct_bound_ms'):.2f} ms (its own: "
+                f"{entry['bound_ms']:.2f})")
+        for label, what in OTHER_MODE.get(name, ()):
             lib = weighted("library_ms")
-            log(f"  {name}, {OTHER_MODE[name]} (on no main path), weighted by"
-                f" the main mode's launches: ms {weighted('alt_ms'):.1f} plain"
-                f" {weighted('alt_plain_ms'):.1f} bound "
+            log(f"  {name}, {what} (on no main path), weighted by the main "
+                f"mode's launches: ms {weighted(label + ':ms'):.1f} plain "
+                f"{weighted(label + ':plain_ms'):.1f} bound "
                 f"{weighted('bound_ms'):.2f} library "
                 f"{'none' if lib is None else f'{lib:.1f}'}")
     log(json.dumps({"kernels": kernels}))

@@ -11,6 +11,9 @@ import torch
 
 from blobctrl_torch.ops import conv3x3 as tconv
 from blobctrl_torch.ops import flash_attention as tfa
+from blobctrl_torch.ops import gn_matmul as tgn
+from blobctrl_torch.ops import ln_matmul as tln
+from blobctrl_torch.ops import winograd as twg
 
 
 @pytest.fixture
@@ -158,3 +161,168 @@ def test_conv3x3_int8_kernel_rejects_what_it_cannot_take(cuda_device):
         tconv.conv3x3_int8(x, kq, ws[:8])
     with pytest.raises(ValueError):
         tconv.conv3x3_int8(x.half(), kq, ws)
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_exp2_kernel_matches_plain_on_card(cuda_device, dtype, tol):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    # ragged q and kv tails, d in {16, 40, 80, 160}
+    for bh, sq, skv, d in [(3, 200, 333, 40), (2, 130, 1024, 80),
+                           (1, 64, 70, 160), (2, 100, 256, 16)]:
+        q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+                   .to(dtype) for s in (sq, skv, skv))
+        before = tfa.exp2_launches
+        got = tfa.flash_attention_exp2(q, k, v, d ** -0.5)
+        assert tfa.exp2_launches == before + 1
+        ref = tfa.flash_attention_exp2_reference(q, k, v, d ** -0.5)
+        err = _rel_err(got, ref)
+        assert err <= tol, (bh, sq, skv, d, err)
+
+
+@pytest.mark.cuda
+def test_flash_exp2_kernel_rejects_what_it_cannot_take(cuda_device):
+    q = torch.zeros(2, 64, 40, device=cuda_device)
+    with pytest.raises(ValueError):  # mismatched dtypes
+        tfa.flash_attention_exp2(q, q.half(), q.half(), 1.0)
+    with pytest.raises(ValueError):  # another device
+        tfa.flash_attention_exp2(q, q.cpu(), q, 1.0)
+    big = torch.zeros(1, 64, 192, device=cuda_device)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_exp2(big, big, big, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("mode", ["plain", "residual", "residual-no-affine"])
+def test_affine_matmul_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                                    mode):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    # h*w = 9 (no multiple of 8), ragged M and N tails, odd C
+    for b, h, w, c, n in [(2, 3, 3, 37, 40), (1, 8, 16, 320, 320),
+                          (2, 5, 7, 64, 130), (1, 64, 2, 1029, 3)]:
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * s
+        x = rnd(b, h, w, c).to(dtype)
+        wk = rnd(c, n, s=c ** -0.5).to(dtype)
+        bias = rnd(n)
+        st = ((None, None) if mode == "residual-no-affine"
+              else (1 + 0.3 * rnd(b, c), rnd(b, c)))
+        res = None if mode == "plain" else rnd(b, h, w, n).to(dtype)
+        counter = "launches" if res is None else "res_launches"
+        before = getattr(tgn, counter)
+        got = tgn.affine_matmul(x, wk, bias, *st, residual=res)
+        assert getattr(tgn, counter) == before + 1
+        ref = tgn.affine_matmul_reference(x, wk, bias, *st, residual=res)
+        err = _rel_err(got, ref)
+        assert err <= tol, (b, h, w, c, n, err)
+
+
+@pytest.mark.cuda
+def test_affine_matmul_kernel_rejects_what_it_cannot_take(cuda_device):
+    x = torch.zeros(1, 4, 4, 32, device=cuda_device)
+    w = torch.zeros(32, 16, device=cuda_device)
+    st = torch.ones(1, 32, device=cuda_device)
+    with pytest.raises(ValueError):  # mismatched dtypes
+        tgn.affine_matmul(x, w.bfloat16())
+    with pytest.raises(ValueError):
+        tgn.affine_matmul(x, w, residual=torch.zeros(
+            1, 4, 4, 16, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # another device
+        tgn.affine_matmul(x, w.cpu())
+    with pytest.raises(ValueError):  # s without t
+        tgn.affine_matmul(x, w, s=st)
+    with pytest.raises(ValueError):
+        tgn.affine_matmul(x, w[:16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ln_matmul_kernel_matches_plain_on_card(cuda_device, dtype, tol):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    # ragged M and N tails, C up to 1280, a batched (B, S, C) input
+    for shape, n in [((300, 320), 960), ((2, 77, 64), 128),
+                     ((130, 1280), 40), ((33, 37), 3)]:
+        c = shape[-1]
+
+        def rnd(*s, sc=1.0):
+            return torch.randn(*s, generator=g, device=cuda_device) * sc
+        x = (rnd(*shape) * 2 + 0.5).to(dtype)
+        gamma, beta = 1 + 0.3 * rnd(c), 0.1 * rnd(c)
+        wk = rnd(c, n, sc=c ** -0.5).to(dtype)
+        bias = rnd(n)
+        before = tln.launches
+        got = tln.ln_matmul(x, gamma, beta, wk, bias)
+        assert tln.launches == before + 1
+        assert got.shape == shape[:-1] + (n,)
+        ref = tln.ln_matmul_reference(x, gamma, beta, wk, bias)
+        err = _rel_err(got, ref)
+        assert err <= tol, (shape, n, err)
+
+
+@pytest.mark.cuda
+def test_ln_matmul_kernel_rejects_what_it_cannot_take(cuda_device):
+    x = torch.zeros(8, 32, device=cuda_device)
+    gamma = torch.ones(32, device=cuda_device)
+    w = torch.zeros(32, 16, device=cuda_device)
+    with pytest.raises(ValueError):  # a dtype the kernel does not take
+        tln.ln_matmul(x.half(), gamma, None, w)
+    with pytest.raises(ValueError):  # another device
+        tln.ln_matmul(x, gamma.cpu(), None, w)
+    with pytest.raises(ValueError):
+        tln.ln_matmul(x, gamma, None, w[:16])
+    with pytest.raises(ValueError):
+        tln.ln_matmul(x.t(), gamma[:8], None, w[:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_winograd_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                               prologue):
+    torch.backends.cudnn.allow_tf32 = False  # the direct conv in full fp32
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    # C in {37, 1029}, Co in {3, 40, 320}, ragged tile and Co tails
+    for b, h, w, c, co in [(2, 8, 16, 1029, 320), (1, 16, 8, 37, 40),
+                           (2, 6, 10, 64, 3), (2, 24, 40, 64, 130)]:
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * s
+        x = rnd(b, h, w, c).to(dtype)
+        k = rnd(3, 3, c, co, s=(9 * c) ** -0.5).to(dtype)
+        bias = rnd(co)
+        pro = (1 + 0.3 * rnd(b, c), rnd(b, c)) if prologue else (None, None)
+        u = twg.transform_weights(k)
+        before = twg.launches
+        got = twg.conv3x3_winograd(x, k, bias, *pro, u=u)
+        assert twg.launches == before + 1
+        ref = twg.conv3x3_winograd_reference(x, u, bias, *pro)
+        err = _rel_err(got, ref)
+        assert err <= tol, (b, h, w, c, co, err)
+        # the same conv as the direct kernel, up to V's rounding to dtype
+        direct = tconv.conv3x3_reference(x, k, bias, *pro)
+        assert _rel_err(got, direct) <= 10 * tol, (b, h, w, c, co)
+
+
+@pytest.mark.cuda
+def test_winograd_kernel_rejects_what_it_cannot_take(cuda_device):
+    x = torch.zeros(1, 8, 8, 32, device=cuda_device)
+    k = torch.zeros(3, 3, 32, 16, device=cuda_device)
+    with pytest.raises(ValueError):  # odd H
+        twg.conv3x3_winograd(x[:, :7].contiguous(), k)
+    with pytest.raises(ValueError):  # weights on another device
+        twg.conv3x3_winograd(x, k.cpu())
+    with pytest.raises(ValueError):  # a dtype the kernel does not take
+        twg.conv3x3_winograd(x.half(), k.half())
+    with pytest.raises(ValueError):
+        twg.conv3x3_winograd(x, k[:, :, :16])
