@@ -3,14 +3,19 @@ NVIDIA Hopper (H100).
 
 Mirrors the subpackages of the JAX package (``blobctrl_tpu/``) module by
 module (``nn``, ``ops``, ``models``, ``schedulers``, ``blob``, ``pipeline``,
-``params``, ``apps``) so each function has an obvious counterpart:
+``params``, ``apps``, ``tokenizer``) so each function has an obvious
+counterpart:
 
   * NHWC activations and HWIO conv kernels at every public function;
   * params are plain dicts / lists of tensors with the JAX package's key
     names (``params.from_jax`` carries a JAX pytree across unchanged);
-  * the two hot kernels (flash attention, the 3x3 conv with its fused
-    GroupNorm+SiLU prologue) are hand-written CUDA C++ in ``csrc/``, built
-    with nvcc at first use and bound through ctypes (``ops``).
+  * every kernel the JAX package writes in Pallas (flash attention, the
+    3x3 conv, their int8 and fused variants, the blob splat) is
+    hand-written CUDA C++ in ``csrc/``, built with nvcc at first use and
+    bound through ctypes (``ops``);
+  * host-side image work (resizes, ellipse rasters, the ellipse fit) is
+    numpy, bit-equal to the PIL and cv2 calls of the JAX package, which
+    the port does not import.
 
 Entry points run on the card: they default to ``device="cuda"`` and raise
 ``RuntimeError`` when CUDA is unavailable, unless the caller asks for

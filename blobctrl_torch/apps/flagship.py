@@ -1,13 +1,15 @@
 """The production BlobCtrl stack: SD-1.5 UNet (5-channel conv_in), BlobNet
-(1029-channel conv_in) and the SD-1.5 VAE (counterpart of
-``blobctrl_tpu/apps/flagship.py``), plus the tiny test geometry and random
-production-geometry weights drawn on the device."""
+(1029-channel conv_in), the SD-1.5 VAE, CLIP ViT-L/14 text and DINOv2-large
+(counterpart of ``blobctrl_tpu/apps/flagship.py``), plus the tiny test
+geometry and random production-geometry weights drawn on the device."""
 
 from __future__ import annotations
 
 import torch
 
 from blobctrl_torch.models import blobnet as blobnet_lib
+from blobctrl_torch.models import clip_text as clip_lib
+from blobctrl_torch.models import dinov2 as dino_lib
 from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.models import vae as vae_lib
 
@@ -24,6 +26,28 @@ def blobctrl_blobnet_config() -> blobnet_lib.BlobNetConfig:
 
 def sd15_vae_config() -> vae_lib.VAEConfig:
     return vae_lib.VAEConfig()
+
+
+def clip_vit_l_config() -> clip_lib.CLIPTextConfig:
+    """CLIP ViT-L/14 text: 12 layers, 768 wide, 77 positions."""
+    return clip_lib.CLIPTextConfig()
+
+
+def dinov2_large_config() -> dino_lib.DINOv2Config:
+    """DINOv2-large: 24 layers, 1024 wide, 14-px patches."""
+    return dino_lib.DINOv2Config.large()
+
+
+def tiny_encoder_configs(vocab_size: int = 600, ctx: int = 16,
+                         dino_c: int = 16):
+    """Small CLIP text and DINOv2 for tests, as wide as ``tiny_configs``'
+    context and appearance channels."""
+    return (clip_lib.CLIPTextConfig(vocab_size=vocab_size, hidden_size=ctx,
+                                    intermediate_size=2 * ctx, num_layers=2,
+                                    num_heads=2),
+            dino_lib.DINOv2Config(hidden_size=dino_c, num_layers=2,
+                                  num_heads=2, intermediate_size=2 * dino_c,
+                                  patch_size=14, image_size=56))
 
 
 def tiny_configs(dino_c: int = 16, ctx: int = 16):
@@ -50,3 +74,11 @@ def production_params(seed: int = 0, device="cuda", dtype=torch.bfloat16):
             blobnet_lib.init_blobnet(blobctrl_blobnet_config(), seed + 1,
                                      device, dtype, zero_taps=False),
             vae_lib.init_vae(sd15_vae_config(), seed + 2, device, dtype))
+
+
+def production_encoder_params(seed: int = 0, device="cuda",
+                              dtype=torch.bfloat16):
+    """(clip, dino) params of CLIP ViT-L/14 text and DINOv2-large, drawn on
+    the device with the JAX init scales."""
+    return (clip_lib.init(clip_vit_l_config(), seed, device, dtype),
+            dino_lib.init(dinov2_large_config(), seed + 1, device, dtype))

@@ -1,6 +1,6 @@
 """Blob math: ellipse -> Gaussian, Gaussian splatting to score maps and
-depth-ordered alpha compositing (counterpart of ``blobctrl_tpu/blob/math.py``,
-the parts that build the pipeline's ``gs_score``).
+depth-ordered alpha compositing, feature splatting (counterpart of
+``blobctrl_tpu/blob/math.py``).
 
 Conventions: ellipses are cv2-style ((xc, yc), (d1, d2), angle_deg) with
 d1 <= d2 the full axis lengths and angle_deg the clockwise angle of the
@@ -12,10 +12,12 @@ channels-last (N, H, W, M+1) with slot 0 the background layer.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from blobctrl_torch.nn import layers
 
 
 def ellipse_to_gaussian(x: float, y: float, a: float, b: float,
@@ -91,6 +93,22 @@ def splat_scores(xs: torch.Tensor, ys: torch.Tensor, covs: torch.Tensor,
     scores = scores.movedim(1, -1)                              # (N,H,W,M)
     scores = torch.cat([torch.ones_like(scores[..., :1]), scores], -1)
     return composite_scores(scores)
+
+
+def splat_features_from_scores(scores: torch.Tensor, features: torch.Tensor,
+                               size: Optional[int] = None) -> torch.Tensor:
+    """scores (N, H, W, M), features (N, M, C) -> (N, H, W, C), the scores
+    first bilinearly resized to size x size when ``size`` is given."""
+    if size and scores.shape[1] != size:
+        scores = layers.bilinear_resize(scores, size, size)
+    return torch.einsum("nhwm,nmc->nhwc", scores, features.to(scores.dtype))
+
+
+def removal_score(score_hw: Tuple[int, int]) -> torch.Tensor:
+    """Score map of the remove mode: background 1, the blob 0,
+    (1, h, w, 2) fp32 on the CPU."""
+    h, w = score_hw
+    return torch.stack([torch.ones(1, h, w), torch.zeros(1, h, w)], -1)
 
 
 def blob_scores_from_ellipses(ellipses, width: int, height: int,

@@ -37,6 +37,11 @@ class ParamInit:
         t.uniform_(-bound, bound, generator=self.gen)
         return t.to(self.dtype)
 
+    def normal(self, shape, std: float) -> torch.Tensor:
+        t = torch.empty(shape, device=self.device, dtype=torch.float32)
+        t.normal_(0.0, std, generator=self.gen)
+        return t.to(self.dtype)
+
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(shape, device=self.device, dtype=self.dtype)
 
@@ -169,8 +174,37 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample of NHWC."""
     n, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
     return x.reshape(n, h * 2, w * 2, c)
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of NHWC with half-pixel centers (torch's
+    ``interpolate(mode='bilinear', align_corners=False)``), in fp32 and
+    cast back, gathering rows then columns as the JAX package does."""
+    n, h, w, c = x.shape
+    if (h, w) == (out_h, out_w):
+        return x
+    xf = x.float()
+
+    def axis_weights(in_size, out_size):
+        coords = ((torch.arange(out_size, dtype=torch.float32, device=x.device)
+                   + 0.5) * (in_size / out_size) - 0.5)
+        coords = torch.clamp(coords, 0.0, in_size - 1)
+        lo = torch.floor(coords).long()
+        hi = torch.clamp(lo + 1, max=in_size - 1)
+        return lo, hi, coords - lo.float()
+
+    hlo, hhi, hfrac = axis_weights(h, out_h)
+    wlo, whi, wfrac = axis_weights(w, out_w)
+    top, bot = xf[:, hlo], xf[:, hhi]
+    rows = top + (bot - top) * hfrac[None, :, None, None]
+    left, right = rows[:, :, wlo], rows[:, :, whi]
+    return (left + (right - left) * wfrac[None, None, :, None]).to(x.dtype)

@@ -4,8 +4,8 @@ A wrapper takes its plain version only for CPU tensors; for a CUDA tensor it
 launches its kernel (building it on first use) or raises. ``launches`` on
 each module counts kernel launches, and nothing else."""
 
-from blobctrl_torch.ops import (conv3x3, flash_attention, gn_matmul,
-                                ln_matmul, winograd)
+from blobctrl_torch.ops import (blob_splat, conv3x3, flash_attention,
+                                gn_matmul, ln_matmul, winograd)
 
 # kernel name -> (module, launch counter, shape log): every kernel mode a
 # wrapper launches
@@ -22,6 +22,7 @@ KERNELS = {
                                "res_launch_shapes"),
     "ln_matmul": (ln_matmul, "launches", "launch_shapes"),
     "winograd": (winograd, "launches", "launch_shapes"),
+    "blob_splat": (blob_splat, "launches", "launch_shapes"),
 }
 
 

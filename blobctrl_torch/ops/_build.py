@@ -47,6 +47,8 @@ SIGNATURES = {
                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "winograd": ("winograd", "winograd_fwd",
                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "blob_splat": ("blob_splat", "blob_splat_fwd",
+                   (_P, _P, _I, _I, _I, _I, _F, _F, _P)),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 

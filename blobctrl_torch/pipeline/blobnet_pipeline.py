@@ -1,32 +1,38 @@
 """The BlobCtrl edit pipeline in PyTorch (counterpart of
-``blobctrl_tpu/pipeline/blobnet_pipeline.py``, ``BlobNetPipeline.__call__``
-on the host-embeds path).
+``blobctrl_tpu/pipeline/blobnet_pipeline.py``, ``BlobNetPipeline.__call__``).
 
-One edit: VAE-encode the fg and bg images in one batch; build the
-width-concat inputs; for each UniPC step run BlobNet (at the edit batch,
-its residuals broadcast to both CFG rows, skipped outside the control
-window) and the UNet with the right-half injections, combine under CFG and
-step the scheduler; VAE-decode; transport the image as uint8. The loop runs
-eagerly; the hot convs and attentions go through the hand-written kernels
+Text comes as prompt strings (tokenizer + CLIP text, memoized by token
+ids) or as embeddings; appearance as object images (DINOv2's pooled CLS,
+memoized by pixel content) or as embeddings. One edit: VAE-encode the fg
+and bg images in one batch; build the width-concat inputs; for each UniPC
+step run BlobNet (at the edit batch, its residuals broadcast to both CFG
+rows, skipped outside the control window) and the UNet with the
+right-half injections, combine under CFG and step the scheduler;
+VAE-decode; transport the image as uint8. The loop runs eagerly; the hot
+convs and attentions go through the hand-written kernels
 (``blobctrl_torch.ops``) when the pipeline runs on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from blobctrl_torch import resolve_device
 from blobctrl_torch.models import blobnet as blobnet_lib
+from blobctrl_torch.models import clip_text as clip_lib
+from blobctrl_torch.models import dinov2 as dino_lib
 from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.models import vae as vae_lib
 from blobctrl_torch.ops import conv3x3 as conv3x3_op
 from blobctrl_torch.ops import winograd as winograd_op
 from blobctrl_torch.schedulers import unipc as unipc_lib
+from blobctrl_torch.utils import resample
 
 
 @dataclasses.dataclass
@@ -42,22 +48,24 @@ def blobnet_keep_schedule(num_steps: int, start: float,
     return np.asarray(keeps, np.float32)
 
 
-def image_transport(image, height: int, width: int) -> np.ndarray:
-    """uint8 (H, W, 3) or (1, H, W, 3) ndarray at the target size ->
-    (1, H, W, 3) uint8. Resizing is not ported."""
+def preprocess_image_transport(image, height: int, width: int) -> np.ndarray:
+    """An integer (H, W, 3) or (1, H, W, 3) ndarray -> (1, height, width, 3)
+    uint8, resized with PIL's LANCZOS where the size differs (the port's
+    bit-exact copy, ``utils/resample``), as the JAX package resizes it.
+    Float images, which the JAX package resamples in float, are not
+    ported."""
     arr = np.asarray(image)
-    if arr.ndim == 3:
-        arr = arr[None]
-    if not np.issubdtype(arr.dtype, np.integer) or arr.ndim != 4 \
-            or arr.shape[0] != 1 or arr.shape[3] != 3:
+    if arr.ndim == 4 and arr.shape[0] == 1:
+        arr = arr[0]
+    if not np.issubdtype(arr.dtype, np.integer) or arr.ndim != 3 \
+            or arr.shape[2] != 3:
         raise NotImplementedError(
             f"images must be one integer (H, W, 3) ndarray, got "
             f"{arr.dtype} {arr.shape}")
-    if arr.shape[1:3] != (height, width):
-        raise NotImplementedError(
-            f"image of {arr.shape[1:3]} at target size {(height, width)}: "
-            f"resizing is not ported")
-    return arr.astype(np.uint8)
+    arr = arr.astype(np.uint8)
+    if arr.shape[:2] != (height, width):
+        arr = resample.pil_resize(arr, (width, height), "lanczos")
+    return arr[None]
 
 
 def normalize_gs(gs_score, h: int, w: int) -> torch.Tensor:
@@ -84,7 +92,14 @@ class BlobNetPipeline:
     def __init__(self, *, unet_cfg: unet_lib.UNetConfig, unet_params,
                  blobnet_cfg: blobnet_lib.BlobNetConfig, blobnet_params,
                  vae_cfg: vae_lib.VAEConfig, vae_params,
-                 dtype=torch.float32, device="cuda"):
+                 clip_cfg: Optional[clip_lib.CLIPTextConfig] = None,
+                 clip_params=None,
+                 dino_cfg: Optional[dino_lib.DINOv2Config] = None,
+                 dino_params=None,
+                 tokenizer: Optional[Callable[[Sequence[str]],
+                                              np.ndarray]] = None,
+                 dtype=torch.float32, device="cuda",
+                 dino_image_size: int = 224, safety_checker=None):
         self.device = resolve_device(device)
         leaf = unet_params["conv_in"]["kernel"]
         if leaf.device.type != self.device.type:
@@ -97,8 +112,19 @@ class BlobNetPipeline:
         self.unet_cfg, self.unet_params = unet_cfg, unet_params
         self.blobnet_cfg, self.blobnet_params = blobnet_cfg, blobnet_params
         self.vae_cfg, self.vae_params = vae_cfg, vae_params
+        self.clip_cfg, self.clip_params = clip_cfg, clip_params
+        self.dino_cfg, self.dino_params = dino_cfg, dino_params
+        self.tokenizer = tokenizer
+        self.dino_image_size = dino_image_size
+        if safety_checker is not None:
+            raise NotImplementedError("the safety checker is not ported")
         self.dtype = dtype
         self._param_cache = {}
+        # encoder memos: a prompt or object repeated across edit rounds is
+        # encoded once (keys carry the param tree's version)
+        self._prompt_cache = {}
+        self._dino_cache = {}
+        self._param_versions = {}
 
     def _conv_params(self, name: str):
         """The param tree ``name``, with derived weights beside its hot
@@ -125,10 +151,144 @@ class BlobNetPipeline:
                 else winograd_op.transform_conv_tree(p, self.dtype)))
         return ent[2]
 
+    def _params_version(self, name: str) -> tuple:
+        """A memo-key component for the named param tree: a version number
+        that changes when the attribute is replaced (the version map holds
+        the tree, so a freed tree's id cannot be reused under a live
+        key)."""
+        tree = getattr(self, name)
+        ent = self._param_versions.get(name)
+        if ent is None or ent[0] is not tree:
+            ent = (tree, 0 if ent is None else ent[1] + 1)
+            self._param_versions[name] = ent
+        return (name, ent[1])
+
+    def _tokens(self, texts) -> torch.Tensor:
+        if self.tokenizer is None or self.clip_params is None:
+            raise ValueError("text prompts need a tokenizer and CLIP params "
+                             "(pass them to BlobNetPipeline), or pass "
+                             "prompt_embeds and negative_prompt_embeds")
+        return torch.as_tensor(np.asarray(self.tokenizer(texts)))
+
+    def encode_prompt(self, prompt, negative_prompt,
+                      num_images_per_prompt: int, do_cfg: bool,
+                      clip_skip: Optional[int] = None,
+                      prompt_embeds=None, negative_prompt_embeds=None
+                      ) -> torch.Tensor:
+        """(2B, T, C) [negative; positive] under CFG, else (B, T, C), on the
+        device in the compute dtype. Strings go through CLIP (the positive
+        with ``clip_skip``, the negative, "" where none is given, through
+        the plain final state, as in the JAX package), memoized by token
+        ids: a prompt repeated across edit rounds is not encoded again."""
+        nipp = num_images_per_prompt
+        dev, dtype = self.device, self.dtype
+
+        def rep(x):
+            return torch.repeat_interleave(x, nipp, dim=0)
+
+        def host(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+        if prompt_embeds is not None and (not do_cfg or
+                                          negative_prompt_embeds is not None):
+            pe = rep(host(prompt_embeds))
+            if do_cfg:
+                pe = torch.cat([rep(host(negative_prompt_embeds)), pe], 0)
+            return pe.to(dtype)
+        cfg, params = self.clip_cfg, self.clip_params
+        if prompt_embeds is None:
+            if isinstance(prompt, str):
+                prompt = [prompt]
+            ids = self._tokens(prompt)
+            nids = None
+            if do_cfg and negative_prompt_embeds is None:
+                if negative_prompt is None:
+                    negative_prompt = [""] * len(prompt)
+                elif isinstance(negative_prompt, str):
+                    negative_prompt = [negative_prompt] * len(prompt)
+                nids = self._tokens(negative_prompt)
+            if nids is not None or not do_cfg:
+                key = (ids.numpy().tobytes(),
+                       None if nids is None else nids.numpy().tobytes(),
+                       nipp, clip_skip, do_cfg,
+                       self._params_version("clip_params"))
+                hit = self._prompt_cache.get(key)
+                if hit is not None:
+                    return hit
+                pe = rep(clip_lib.encode_with_clip_skip(params, cfg, ids,
+                                                        clip_skip))
+                if nids is not None:
+                    pe = torch.cat([rep(clip_lib.apply(params, cfg, nids)),
+                                    pe], 0)
+                pe = pe.to(dtype)
+                if len(self._prompt_cache) >= 16:
+                    self._prompt_cache.pop(next(iter(self._prompt_cache)))
+                self._prompt_cache[key] = pe
+                return pe
+            # string positives, negatives given as embeddings
+            prompt_embeds = clip_lib.encode_with_clip_skip(params, cfg, ids,
+                                                           clip_skip)
+        pe = prompt_embeds if torch.is_tensor(prompt_embeds) else host(
+            prompt_embeds)
+        bsz, pe = pe.shape[0], rep(pe)
+        if not do_cfg:
+            return pe.to(dtype)
+        if negative_prompt_embeds is None:
+            if negative_prompt is None:
+                negative_prompt = [""] * bsz
+            elif isinstance(negative_prompt, str):
+                negative_prompt = [negative_prompt] * bsz
+            npe = clip_lib.apply(params, cfg, self._tokens(negative_prompt))
+        else:
+            npe = host(negative_prompt_embeds)
+        return torch.cat([rep(npe), pe.to(npe.dtype)], 0).to(dtype)
+
+    @staticmethod
+    def _dino_uint8_list(fg_image) -> list:
+        """fg_image: one image, a list of them, or a batched (M, H, W, 3)
+        ndarray -> list of uint8 HWC arrays."""
+        if isinstance(fg_image, (list, tuple)):
+            images = fg_image
+        elif np.asarray(fg_image).ndim == 4:
+            images = list(np.asarray(fg_image))
+        else:
+            images = [fg_image]
+        return [np.asarray(im, np.uint8) for im in images]
+
+    def _dino_pooled_cached(self, images_u8) -> torch.Tensor:
+        """(M, Cd) fp32 pooled DINOv2 embeddings of uint8 object images,
+        memoized by pixel content: the object of a multi-round edit is
+        encoded once."""
+        key = (hashlib.blake2b(b"".join(np.ascontiguousarray(x).tobytes()
+                                        for x in images_u8),
+                               digest_size=16).digest(),
+               tuple(x.shape for x in images_u8), self.dino_image_size,
+               self._params_version("dino_params"))
+        hit = self._dino_cache.get(key)
+        if hit is None:
+            px = dino_lib.preprocess_u8(np.stack(images_u8),
+                                        size=self.dino_image_size)
+            hit = self._encode_dino(torch.as_tensor(px, device=self.device))
+            if len(self._dino_cache) >= 32:
+                self._dino_cache.pop(next(iter(self._dino_cache)))
+            self._dino_cache[key] = hit
+        return hit
+
+    def _encode_dino(self, pixels_u8: torch.Tensor) -> torch.Tensor:
+        """uint8 (B, H, W, 3) on the device -> (B, Cd) fp32 pooled output:
+        normalized in fp32 first, cast to the compute dtype after."""
+        if self.dino_params is None:
+            raise ValueError("appearance from object images needs DINOv2 "
+                             "params (pass them to BlobNetPipeline), or pass "
+                             "fg_dino_feats")
+        px = dino_lib.normalize_pixels(pixels_u8).to(self.dtype)
+        return dino_lib.apply(self.dino_params, self.dino_cfg, px)[1].float()
+
     @torch.inference_mode()
     def __call__(self, prompt=None, fg_image=None, bg_image=None,
                  gs_score=None, height: int = 512, width: int = 512,
                  num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                 negative_prompt=None, num_images_per_prompt: int = 1,
                  seed: Optional[int] = None,
                  latents: Optional[np.ndarray] = None,
                  prompt_embeds: Optional[np.ndarray] = None,
@@ -136,41 +296,49 @@ class BlobNetPipeline:
                  blobnet_conditioning_scale: float = 1.0,
                  blobnet_control_guidance_start: float = 0.0,
                  blobnet_control_guidance_end: float = 1.0,
+                 clip_skip: Optional[int] = None,
                  scheduler: str = "unipc",
-                 fg_dino_feats: Optional[np.ndarray] = None
-                 ) -> PipelineOutput:
+                 encoder_cache_interval: int = 0,
+                 cfg_guidance_start: float = 0.0,
+                 cfg_guidance_end: float = 1.0,
+                 fg_dino_feats: Optional[np.ndarray] = None,
+                 fg_vae_image=None,
+                 callback_on_step_end=None) -> PipelineOutput:
         """One element-level edit. gs_score: (1, h, w, M+1) [bg, fg_1..fg_M]
-        composited score layers (see ``blob.math``), NHWC or NCHW;
-        fg_dino_feats: (M, Cd) per-blob appearance embeddings;
-        prompt_embeds / negative_prompt_embeds: (B, T, C) text embeddings.
+        composited score layers (see ``blob.math``), NHWC or NCHW.
+        prompt / negative_prompt: strings (through the tokenizer and CLIP),
+        or prompt_embeds / negative_prompt_embeds (B, T, C). fg_image: the
+        object image, or a list of M of them (one per blob), embedded by
+        DINOv2 unless fg_dino_feats (M, Cd) are given; the VAE sees
+        fg_vae_image, else the first object image.
 
         latents: (n, h, w, 4) initial noise. Without them the noise is drawn
         from ``torch.Generator().manual_seed(seed)`` on the CPU: the same
         numbers on every device, but by design not JAX's draw for that seed.
         """
-        if prompt is not None or prompt_embeds is None:
-            raise NotImplementedError("text prompts need CLIP, which is not "
-                                      "ported: pass prompt_embeds")
-        if fg_dino_feats is None:
-            raise NotImplementedError("appearance needs DINOv2, which is not "
-                                      "ported: pass fg_dino_feats")
         if scheduler != "unipc":
             raise NotImplementedError(f"scheduler {scheduler!r}: only "
                                       f"'unipc' is ported")
+        if encoder_cache_interval > 1:
+            raise NotImplementedError("encoder_cache_interval (the encoder "
+                                      "cache) is not ported")
+        if (cfg_guidance_start, cfg_guidance_end) != (0.0, 1.0):
+            raise NotImplementedError("guidance-interval CFG is not ported")
+        if callback_on_step_end is not None:
+            raise NotImplementedError("step callbacks are not ported")
         dev, dtype = self.device, self.dtype
         do_cfg = guidance_scale > 1.0
         h, w = height // 8, width // 8
 
-        # text embeddings, [negative; positive] under CFG
-        pe = np.asarray(prompt_embeds, np.float32)
-        if do_cfg:
-            if negative_prompt_embeds is None:
-                raise ValueError("guidance_scale > 1 needs "
-                                 "negative_prompt_embeds")
-            pe = np.concatenate([np.asarray(negative_prompt_embeds,
-                                            np.float32), pe], axis=0)
-        pe = torch.as_tensor(pe, device=dev).to(dtype)
-        cfg_batch, n = pe.shape[0], pe.shape[0] // (2 if do_cfg else 1)
+        if prompt is not None:
+            batch_size = 1 if isinstance(prompt, str) else len(prompt)
+        else:
+            batch_size = np.asarray(prompt_embeds).shape[0]
+        pe = self.encode_prompt(prompt, negative_prompt,
+                                num_images_per_prompt, do_cfg, clip_skip,
+                                prompt_embeds, negative_prompt_embeds)
+        cfg_batch = pe.shape[0]
+        n = batch_size * num_images_per_prompt
 
         if latents is None:
             if seed is None:
@@ -183,8 +351,12 @@ class BlobNetPipeline:
         latents = latents.contiguous().to(dev)
 
         # conditioning: fg and bg through one batched VAE encode
-        fgbg = np.concatenate([image_transport(fg_image, height, width),
-                               image_transport(bg_image, height, width)])
+        if fg_vae_image is None:
+            fg_vae_image = (fg_image[0] if isinstance(fg_image, (list, tuple))
+                            else fg_image)
+        fgbg = np.concatenate([
+            preprocess_image_transport(fg_vae_image, height, width),
+            preprocess_image_transport(bg_image, height, width)])
         img = torch.as_tensor(fgbg, device=dev).float() / 255.0 * 2.0 - 1.0
         vae_params = self._conv_params("vae_params")
         lat2 = vae_lib.encode_to_scaled_latents(
@@ -194,10 +366,13 @@ class BlobNetPipeline:
             return x.repeat(cfg_batch, 1, 1, 1)
 
         gs = normalize_gs(gs_score, h, w).to(dev)
-        pooled = torch.as_tensor(np.asarray(fg_dino_feats, np.float32),
-                                 device=dev)
-        if pooled.dim() == 3:
-            pooled = pooled[:, 0]
+        if fg_dino_feats is None:
+            pooled = self._dino_pooled_cached(self._dino_uint8_list(fg_image))
+        else:
+            pooled = torch.as_tensor(np.asarray(fg_dino_feats, np.float32),
+                                     device=dev)
+            if pooled.dim() == 3:
+                pooled = pooled[:, 0]
         num_blobs = gs.shape[-1] - 1
         if pooled.shape[0] == 1 and num_blobs > 1:
             pooled = pooled.expand(num_blobs, -1)

@@ -14,6 +14,7 @@ from blobctrl_torch.blob import math as blob_math
 from blobctrl_torch.nn import attention, transformer_2d
 from blobctrl_torch.ops import conv3x3, flash_attention
 from blobctrl_torch.pipeline import BlobNetPipeline
+from blobctrl_torch.tokenizer import clip_bpe
 
 
 def make_flagship_pipe(seed: int = 0, device="cuda", dtype=torch.bfloat16):
@@ -25,6 +26,43 @@ def make_flagship_pipe(seed: int = 0, device="cuda", dtype=torch.bfloat16):
         blobnet_cfg=flagship.blobctrl_blobnet_config(), blobnet_params=blob_p,
         vae_cfg=flagship.sd15_vae_config(), vae_params=vae_p, dtype=dtype,
         device=device)
+
+
+def byte_level_tokenizer() -> clip_bpe.CLIPTokenizer:
+    """A CLIP tokenizer over a vocabulary built in code: the 256 byte
+    symbols, each again with the word-end mark, a few merges, BOS and EOS
+    (the SD-1.5 vocabulary files are not in the repository)."""
+    base = list(clip_bpe.bytes_to_unicode().values())
+    vocab = {ch: i for i, ch in enumerate(base)}
+    for ch in base:
+        vocab[ch + "</w>"] = len(vocab)
+    merges = [("r", "e"), ("e", "d</w>"), ("b", "a"), ("l", "l</w>"),
+              ("ba", "ll</w>"), ("t", "a"), ("b", "l"), ("bl", "e</w>")]
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    return clip_bpe.CLIPTokenizer(vocab, merges)
+
+
+def add_encoders(pipe: BlobNetPipeline, seed: int = 0) -> BlobNetPipeline:
+    """Give a production pipeline CLIP ViT-L/14 text, DINOv2-large (random
+    weights drawn on its device) and the byte-level tokenizer, so it takes
+    prompt strings and object images."""
+    clip_p, dino_p = flagship.production_encoder_params(seed, pipe.device,
+                                                        pipe.dtype)
+    pipe.clip_cfg, pipe.clip_params = flagship.clip_vit_l_config(), clip_p
+    pipe.dino_cfg, pipe.dino_params = flagship.dinov2_large_config(), dino_p
+    pipe.tokenizer = byte_level_tokenizer()
+    return pipe
+
+
+def make_flagship_session_pipe(seed: int = 0, device="cuda",
+                               dtype=torch.bfloat16):
+    """The production pipeline with its encoders: what
+    ``apps/session.BlobCtrlSession`` drives (random weights drawn on the
+    device)."""
+    return add_encoders(make_flagship_pipe(seed, device, dtype), seed + 3)
 
 
 def make_edit_inputs(size: int = 512, seed: int = 0, ellipse=None):

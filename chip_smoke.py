@@ -13,7 +13,11 @@ script exits non-zero:
      as the fused-kernel edit), in bf16 and fp32, flash attention in both
      softmax modes, int8 flash attention in both k-scale modes, the
      GroupNorm -> projection GEMM in its plain and residual modes. bf16
-     within 2e-2 of max |plain|, fp32 (TF32 off) within 1e-4. Times (CUDA
+     within 2e-2 of max |plain|, fp32 (TF32 off) within 1e-4. The blob
+     splat (fp32 only) at the session's view (1, 512, 512, M=1) and at
+     M = 3, 11 and a 1024^2 grid, within 1e-5 absolute, timed from its
+     parameter rows (built in plain torch before kernel or plain version,
+     timed apart). Times (CUDA
      events, median of 10 after warm-up), in bf16, of each mode: the
      kernel, its plain version, and one PyTorch library call computing the
      same function where there is one (none computes either int8 function;
@@ -32,11 +36,21 @@ script exits non-zero:
      Launch counters are zeroed just before each of the three paths and
      read just after it; the pipeline's derived weights (int8, Winograd)
      are dropped before each path, so each peak holds only its own.
-  5. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
+  5. The interactive session at full width, bf16: CLIP ViT-L/14 text and
+     DINOv2-large added to phase 4's pipeline (random weights drawn on the
+     card, a byte-level vocabulary built in code), ``BlobCtrlSession``:
+     a seeded 640x480 image (resized), a mask from the port's raster, the
+     blob fitted and moved, resized and rotated with the blob view after
+     each step (the splat kernel), the view against the same call on the
+     CPU (<= 1 uint8 level), then three STEPS-step runs from a text prompt
+     and the object image: an edit, another after a move (the prompt and
+     DINOv2 memos hit), and a remove. Counters zeroed before, read after.
+  6. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
 
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
 kernels' from the exact requests, the int8 kernels' from the int8 one, the
 fused-kernel edit's four from the fused one);
+the splat's from phase 5;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
 those launches, from the per-shape medians of phase 2 weighted by phase 4's
 per-shape launch counts. ``bound_ms`` is the larger of bytes (each input
@@ -44,7 +58,10 @@ read once, each output written once) over 3.35 TB/s and the operations
 over the card's peak for their type: 989 TFLOP/s for bf16 products,
 1979 TOP/s for int8 products (H100 SXM data sheet). The Winograd conv's
 operations are its own multiply count, 4*C*Co MACs per output pixel (the
-direct conv's 9*C*Co is logged beside it).
+direct conv's 9*C*Co is logged beside it). The splat's operations are
+fp32 arithmetic (about 20 per pixel and blob) at 67 TFLOP/s; its bytes,
+the parameter rows read and the N*H*W*(M+1) fp32 output written, bound
+it.
 """
 
 from __future__ import annotations
@@ -64,6 +81,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+SPLAT_TOL = 1e-5  # absolute: the splat's outputs lie in [0, 1]
+SPLAT_SHAPES = ((1, 512, 512, 1), (1, 512, 512, 3), (2, 512, 512, 11),
+                (1, 1024, 1024, 4))  # (n, h, w, m)
+PROMPT = "a red ball on a table"
+SESSION_SIZE = 512  # the session's canvas (the pipeline's height and width)
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 STEPS = 50  # UniPC steps of each full-width request
 
@@ -283,6 +306,9 @@ CASES = {"flash_attention": flash_case, "conv3x3": conv_case,
 
 
 def shape_label(name, key) -> str:
+    if name == "blob_splat":
+        n, h, w, m = key
+        return f"{name} n={n} h={h} w={w} m={m}"
     if name.startswith("flash_attention"):
         bh, sq, skv, d = key[:4]
         return f"{name} bh={bh} sq={sq} skv={skv} d={d}"
@@ -357,6 +383,50 @@ def check_kernels(shapes):
     return results
 
 
+def check_splat():
+    """The blob splat at SPLAT_SHAPES, fp32, kernel against its plain
+    version on the card. -> {(n, h, w, m): numbers}."""
+    from blobctrl_torch.ops import blob_splat
+    rng = np.random.RandomState(0)
+    results = {}
+    for n, h, w, m in SPLAT_SHAPES:
+        xs, ys = (rng.uniform(0.1, 0.9, (n, m)) for _ in range(2))
+        a, b = rng.uniform(0.002, 0.05, (2, n, m))
+        rho = rng.uniform(-0.8, 0.8, (n, m)) * np.sqrt(a * b)
+        covs = np.stack([np.stack([a, rho], -1), np.stack([rho, b], -1)], -2)
+        sizes = np.ones((n, m))
+        if m >= 3:
+            sizes[0, 1] = 0.0  # a gated blob
+        args = [torch.tensor(v, dtype=torch.float32, device="cuda")
+                for v in (xs, ys, covs, sizes)]
+        params = blob_splat.splat_params(*args, (h, w))
+        got = blob_splat.splat_scores(*args, (h, w))
+        ref = blob_splat.splat_scores_plain(params, h, w)
+        rows_ms = time_ms(lambda: blob_splat.splat_params(*args, (h, w)))
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        ok = err <= SPLAT_TOL and bool(torch.isfinite(got).all())
+        log(f"  blob_splat n={n} h={h} w={w} m={m} fp32: max_abs {err:.3e} "
+            f"(tol {SPLAT_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"blob_splat {(n, h, w, m)}: {err}")
+        nbytes = 4 * n * h * w * (m + 1) + 32 * n * m
+        row = {"max_abs_err": err,
+               "ms": time_ms(
+                   lambda: blob_splat.splat_from_params(params, h, w)),
+               "plain_ms": time_ms(
+                   lambda: blob_splat.splat_scores_plain(params, h, w)),
+               "library_ms": None,
+               "ops_ms": 1e3 * 20.0 * n * h * w * m / PEAK_FP32_FLOPS,
+               "bytes_ms": 1e3 * nbytes / PEAK_BYTES}
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        log(f"    fp32 ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+            f"library none bound {row['bound_ms']:.4f} (the parameter "
+            f"rows, plain torch before either: {rows_ms:.4f})")
+        results[(n, h, w, m)] = row
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 3: trained toy checkpoint, card against CPU
 # ---------------------------------------------------------------------------
@@ -427,20 +497,22 @@ def launch_counts():
     every path's kernels."""
     from blobctrl_torch.ops import KERNELS
     return {name: getattr(KERNELS[name][0], KERNELS[name][1])
-            for names in MODES.values() for name in names}
+            for name in ALL_KERNELS}
 
 
 def launch_shapes():
     """-> {kernel name: {shape key: launches}} since the last reset."""
     from blobctrl_torch.ops import KERNELS
     return {name: dict(getattr(KERNELS[name][0], KERNELS[name][2]))
-            for names in MODES.values() for name in names}
+            for name in ALL_KERNELS}
 
 
 EXACT = ("flash_attention", "conv3x3")
 INT8 = ("flash_attention_int8", "conv3x3_int8")
 FUSED = ("flash_attention_exp2", "affine_matmul", "ln_matmul", "winograd")
 MODES = {"exact": EXACT, "int8": INT8, "fused": FUSED}
+SESSION = ("blob_splat",)  # the session's own kernel; its edits run EXACT
+ALL_KERNELS = EXACT + INT8 + FUSED + SESSION
 # the other modes of a kernel, checked and timed in phase 2 only:
 # {kernel: [(phase-2 label, description)]}
 OTHER_MODE = {"flash_attention": [("running-max", "running-max mode (K2)")],
@@ -520,6 +592,107 @@ def run_request(pipe, kw):
     return out, secs, launches, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the interactive session
+# ---------------------------------------------------------------------------
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def encoder_times(pipe):
+    """CLIP on [prompt, ""] and DINOv2 on one 512^2 object, each timed on
+    its first call and again warm, outside the pipeline's memos."""
+    from blobctrl_torch.models import clip_text, dinov2
+    ids = torch.as_tensor(np.asarray(pipe.tokenizer([PROMPT, ""])))
+    obj = np.random.RandomState(5).randint(
+        0, 256, (1, SESSION_SIZE, SESSION_SIZE, 3)).astype(np.uint8)
+    out = {}
+    for name, fn in (
+            ("clip", lambda: clip_text.apply(pipe.clip_params, pipe.clip_cfg,
+                                             ids)),
+            ("dinov2", lambda: pipe._encode_dino(torch.as_tensor(
+                dinov2.preprocess_u8(obj), device=pipe.device)))):
+        y, first = timed(fn)
+        _, warm = timed(fn)
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"{name}: non-finite output")
+        out[name] = (1e3 * first, 1e3 * warm, tuple(y.shape))
+    return out
+
+
+def session_phase(pipe, steps: int):
+    """The interactive session at full width; -> (per-shape splat
+    launches, launch totals)."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.apps import session
+    from blobctrl_torch.blob import viz
+    for name, (first, warm, shape) in encoder_times(pipe).items():
+        log(f"  {name}: first call {first:.1f} ms, warm {warm:.1f} ms, "
+            f"output {shape}")
+    size = SESSION_SIZE
+    sess = session.BlobCtrlSession(pipe, size=size)
+    rng = np.random.RandomState(6)
+    ops.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    views = []
+    _, secs = timed(lambda: sess.set_image(
+        rng.randint(0, 256, (480, 640, 3)).astype(np.uint8)))
+    log(f"  set_image 640x480 -> {size}^2: {secs:.3f} s")
+    k = size / 512
+    sess.set_mask(viz.ellipse_mask(((260.0 * k, 250.0 * k),
+                                    (150.0 * k, 220.0 * k), 25.0),
+                                   size, size))
+    for label, step in (("generate_blob", sess.generate_blob),
+                        ("move(60, -20)", lambda: sess.move(60, -20)),
+                        ("resize(1.2)", lambda: sess.resize(1.2)),
+                        ("rotate(20)", lambda: sess.rotate(20))):
+        _, secs = timed(step)
+        view, vsecs = timed(sess.blob_visualization)
+        views.append(view)
+        log(f"  {label}: {secs:.3f} s, blob view {vsecs:.4f} s")
+    want = viz.blob_vis_from_ellipse(sess.editor.current, size, size,
+                                     device="cpu")
+    diff = int(np.abs(views[-1].astype(int) - want.astype(int)).max())
+    log(f"  blob view card against CPU: max {diff} uint8 level(s)")
+    if diff > 1 or views[-1].shape != (size, size, 3):
+        raise AssertionError(f"blob view differs from the CPU by {diff}")
+    runs = (("run", {}), ("run after move(-30, 10)", {}),
+            ("run, remove", {"remove": True}))
+    for label, kw in runs:
+        if label.startswith("run after"):
+            sess.move(-30, 10)
+        if kw.get("remove"):
+            sess.set_remove_mode(True)
+        before = launch_counts()
+        res, secs = timed(lambda: sess.run(PROMPT, num_inference_steps=steps,
+                                           **kw))
+        launches = {k: n - before[k] for k, n in launch_counts().items()
+                    if n - before[k]}
+        if res.images.shape != (1, size, size, 3) or not np.isfinite(
+                res.images).all():
+            raise AssertionError(f"session {label}: bad output "
+                                 f"{res.images.shape}")
+        log(f"  {label}: {secs:.3f} s, launches {launches}, memos: "
+            f"{len(pipe._prompt_cache)} prompt, {len(pipe._dino_cache)} "
+            f"object")
+    if len(pipe._prompt_cache) != 1 or len(pipe._dino_cache) != 1:
+        raise AssertionError("the prompt and object memos did not hit")
+    totals = launch_counts()
+    log(f"  session launches {totals}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    others = {k: n for k, n in totals.items()
+              if n and k not in SESSION + EXACT}
+    if totals["blob_splat"] == 0 or min(totals[k] for k in EXACT) == 0 \
+            or others:
+        raise AssertionError(f"session launches {totals}")
+    return launch_shapes()["blob_splat"], totals["blob_splat"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -559,6 +732,7 @@ def main() -> int:
     log("  recorded shapes from a one-step edit, exact, int8 and fused: "
         + ", ".join(f"{name} {len(keys)}" for name, keys in shapes.items()))
     results = check_kernels(shapes)
+    results["blob_splat"] = check_splat()
 
     # -- phase 3 ------------------------------------------------------------
     log("phase 3: trained toy checkpoint, card against CPU")
@@ -604,11 +778,20 @@ def main() -> int:
     strays = {mode: {k: n for k, n in path_totals[mode].items()
                      if n and k not in names}
               for mode, names in MODES.items()}
-    if min(totals.values()) == 0 or any(strays.values()):
+    if min(totals[k] for names in MODES.values() for k in names) == 0 \
+            or any(strays.values()):
         raise AssertionError(f"a kernel never ran on its path, or a path ran "
                              f"another path's kernel: {totals}, {strays}")
 
     # -- phase 5 ------------------------------------------------------------
+    log(f"phase 5: the interactive session at full width, bf16, {STEPS} "
+        f"steps per run")
+    benchkit.add_encoders(pipe, seed=3)
+    counts["blob_splat"], totals["blob_splat"] = session_phase(pipe, STEPS)
+    for key, n in counts["blob_splat"].items():
+        log(f"  launches {shape_label('blob_splat', key)}: {n}")
+
+    # -- phase 6 ------------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
                                 "blobctrl_tpu/ops/flash_attention.py:80"),
             "conv3x3": ("blobctrl_torch/csrc/conv3x3.cu",
@@ -625,7 +808,9 @@ def main() -> int:
             "ln_matmul": ("blobctrl_torch/csrc/norm_matmul.cu",
                           "blobctrl_tpu/ops/ln_matmul.py:38"),
             "winograd": ("blobctrl_torch/csrc/winograd.cu",
-                         "blobctrl_tpu/ops/winograd.py:85")}
+                         "blobctrl_tpu/ops/winograd.py:85"),
+            "blob_splat": ("blobctrl_torch/csrc/blob_splat.cu",
+                           "blobctrl_tpu/ops/blob_splat.py:31")}
     kernels = []
     for name, (source, replaces) in meta.items():
         missing = set(counts[name]) - set(results[name])

@@ -61,8 +61,10 @@ def test_sources_name_no_jax(path):
 
 def test_entry_points_raise_without_cuda():
     _needs_cpu_only()
-    from blobctrl_torch.apps import flagship
-    from blobctrl_torch.models import unet
+    import numpy as np
+    from blobctrl_torch.apps import flagship, session
+    from blobctrl_torch.blob import viz
+    from blobctrl_torch.models import clip_text, dinov2, unet
     from blobctrl_torch.params.from_jax import from_jax
     from blobctrl_torch.pipeline import BlobNetPipeline
     from blobctrl_torch.train import toy
@@ -77,12 +79,33 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError):
         BlobNetPipeline(unet_cfg=ucfg, unet_params=up, blobnet_cfg=bcfg,
                         blobnet_params={}, vae_cfg=None, vae_params={})
-    BlobNetPipeline(unet_cfg=ucfg, unet_params=up, blobnet_cfg=bcfg,
-                    blobnet_params={}, vae_cfg=None, vae_params={},
-                    device="cpu")
+    pipe = BlobNetPipeline(unet_cfg=ucfg, unet_params=up, blobnet_cfg=bcfg,
+                           blobnet_params={}, vae_cfg=None, vae_params={},
+                           device="cpu")
+    ccfg, dcfg = flagship.tiny_encoder_configs()
+    with pytest.raises(RuntimeError):
+        clip_text.init(ccfg)
+    with pytest.raises(RuntimeError):
+        dinov2.init(dcfg)
+    with pytest.raises(RuntimeError):
+        flagship.production_encoder_params()
+    e = ((32.0, 32.0), (20.0, 30.0), 10.0)
+    with pytest.raises(RuntimeError):
+        viz.blob_vis_from_ellipse(e, 64, 64)
+    # the session runs where its pipeline runs
+    sess = session.BlobCtrlSession(pipe, size=64)
+    sess.editor.init_from_ellipse(e)
+    assert sess.device.type == "cpu"
+    assert sess.blob_visualization().shape == (64, 64, 3)
+    assert np.array_equal(sess.blob_visualization(),
+                          viz.blob_vis_from_ellipse(e, 64, 64, device="cpu"))
 
 
 def test_pipeline_rejects_what_is_not_ported():
+    """What stays unported raises NotImplementedError (a scheduler other
+    than UniPC, the encoder cache, guidance-interval CFG); a text prompt on
+    a pipeline without a tokenizer and CLIP raises a clear ValueError; an
+    image that needs a resize, which is ported, runs."""
     from blobctrl_torch.train import toy
     from blobctrl_torch.utils import benchkit
     pipe, _ = toy.load_toy(str(ROOT / "assets/toy_ckpt"), device="cpu")
@@ -93,10 +116,25 @@ def test_pipeline_rejects_what_is_not_ported():
               fg_dino_feats=emb["appearance"][:1], height=128, width=128,
               num_inference_steps=1)
     with pytest.raises(NotImplementedError):
-        pipe(**{**kw, "fg_image": kw["fg_image"][:64]})  # needs a resize
-    with pytest.raises(NotImplementedError):
         pipe(**{**kw, "scheduler": "ddim"})
     with pytest.raises(NotImplementedError):
-        pipe(**{**kw, "prompt": "a red ball"})
-    out = pipe(**kw)
+        pipe(**{**kw, "encoder_cache_interval": 2})
+    with pytest.raises(NotImplementedError):
+        pipe(**{**kw, "cfg_guidance_end": 0.5})
+    with pytest.raises(ValueError, match="tokenizer"):
+        pipe(**{**kw, "prompt": "a red ball", "prompt_embeds": None})
+    out = pipe(**{**kw, "fg_image": kw["fg_image"][:64]})  # resized
     assert out.images.shape == (1, 128, 128, 3)
+
+
+FORBIDDEN = ("cv2", "PIL", "regex", "ftfy", "jax", "flax")
+
+
+@pytest.mark.parametrize("path", [str(p.relative_to(ROOT)) for p in SOURCES]
+                         + ["chip_smoke.py"])
+def test_sources_import_no_host_image_or_text_library(path):
+    """The card's machine has no cv2, PIL, regex or ftfy: no source of the
+    port imports them, at the top or inside a function."""
+    text = (ROOT / path).read_text()
+    pat = r"^\s*(import|from)\s+(" + "|".join(FORBIDDEN) + r")\b"
+    assert not re.search(pat, text, re.M), path

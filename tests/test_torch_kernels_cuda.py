@@ -326,3 +326,33 @@ def test_winograd_kernel_rejects_what_it_cannot_take(cuda_device):
         twg.conv3x3_winograd(x.half(), k.half())
     with pytest.raises(ValueError):
         twg.conv3x3_winograd(x, k[:, :, :16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,m", [(1, 512, 512, 1), (2, 64, 128, 3),
+                                     (1, 37, 53, 11), (1, 16, 16, 1100)])
+def test_blob_splat_kernel_matches_plain_on_card(cuda_device, n, h, w, m):
+    """fp32, atol 1e-5 (outputs in [0, 1]); odd H and W, a gated blob, and
+    more blobs than the kernel stages in shared memory."""
+    from blobctrl_torch.ops import blob_splat as tsplat
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g,
+                                           device=cuda_device)
+    xs, ys = u(0.1, 0.9, n, m), u(0.1, 0.9, n, m)
+    a, b = u(0.002, 0.05, n, m), u(0.002, 0.05, n, m)
+    rho = u(-0.8, 0.8, n, m) * (a * b).sqrt()
+    covs = torch.stack([torch.stack([a, rho], -1),
+                        torch.stack([rho, b], -1)], -2)
+    sizes = torch.ones(n, m, device=cuda_device)
+    if m >= 2:
+        sizes[0, 1] = 0.0
+    before = tsplat.launches
+    got = tsplat.splat_scores(xs, ys, covs, sizes, (h, w))
+    ref = tsplat.splat_scores_plain(
+        tsplat.splat_params(xs, ys, covs, sizes, (h, w)), h, w)
+    torch.cuda.synchronize()
+    assert tsplat.launches == before + 1
+    assert got.shape == (n, h, w, m + 1)
+    assert (got - ref).abs().max().item() <= 1e-5
