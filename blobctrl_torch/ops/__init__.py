@@ -26,8 +26,19 @@ KERNELS = {
 }
 
 
+# kernel name -> (module, counter): the launches of that kernel that the C
+# entry point reports as run on the tensor-core (bf16) kernel
+TENSOR_CORE = {
+    "flash_attention": (flash_attention, "tc_launches"),
+    "flash_attention_exp2": (flash_attention, "exp2_tc_launches"),
+    "winograd": (winograd, "tc_launches"),
+}
+
+
 def reset_counts():
-    """Zero every kernel's launch counter and shape log."""
+    """Zero every kernel's launch counters and shape log."""
     for mod, count, shapes in KERNELS.values():
         setattr(mod, count, 0)
         getattr(mod, shapes).clear()
+    for mod, count in TENSOR_CORE.values():
+        setattr(mod, count, 0)

@@ -2,16 +2,19 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library with
 a plain C interface (no PyTorch headers: seconds per file, not minutes) and
-is loaded through ctypes. Builds happen at first use, never at import, into
+is loaded through ctypes; the sources may include the shared headers
+``csrc/*.cuh``. Builds happen at first use, never at import, into
 ``csrc/build/`` (git-ignored); all sources compile in parallel, one nvcc
 process each, so the build takes as long as the slowest file. A library is
-named by a digest of its source and flags, so an edited source rebuilds and
+named by a digest of its source, the headers and the flags, so an edit
+rebuilds and
 an unchanged one loads as is.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -27,11 +30,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)  # an int the entry point writes back
 # C entry points: name -> (library, i.e. csrc/<library>.cu, function,
 # argtypes). A library may hold several entry points.
 SIGNATURES = {
     "flash_attention": ("flash_attention", "flash_attention_fwd",
-                        (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P)),
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P,
+                         _IP)),
     "conv3x3": ("conv3x3", "conv3x3_fwd",
                 (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "flash_attention_int8": ("flash_attention_int8",
@@ -46,11 +51,15 @@ SIGNATURES = {
     "ln_matmul": ("norm_matmul", "ln_matmul_fwd",
                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "winograd": ("winograd", "winograd_fwd",
-                 (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+                 (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                  _IP)),
     "blob_splat": ("blob_splat", "blob_splat_fwd",
                    (_P, _P, _I, _I, _I, _I, _F, _F, _P)),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
+# What an entry point with a trailing int* writes back when its bf16
+# tensor-core kernel ran (0: the fp32 SIMT kernel).
+DESIGN_TENSOR_CORES = 1
 
 _lock = threading.Lock()
 _entry = {}
@@ -64,8 +73,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a digest of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

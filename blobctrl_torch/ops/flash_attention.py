@@ -11,7 +11,9 @@ materializes an S x S fp32 score matrix in device memory:
     exp2 fold on (``set_exp2_fold``) ``_flash_kernel_fixed_max2``: q arrives
     pre-scaled by scale * log2 e and the shift as one scalar, both rounded
     to q's dtype here in plain torch, as XLA computes them outside the
-    Pallas kernel;
+    Pallas kernel. bf16 runs on the tensor cores (mma.sync, cp.async tiles),
+    fp32 on the SIMT kernel; the C entry point picks by dtype and reports
+    which ran (``tc_launches``, ``exp2_tc_launches``);
   * ``csrc/flash_attention_int8.cu`` replaces ``_flash_kernel_int8g`` (one
     global k scale, the int8-everything mode) and, with ``global_k=False``,
     ``_flash_kernel_int8`` (per-row k scales). q and k are quantized here in
@@ -41,8 +43,10 @@ _EXP2_FOLD = False
 
 launches = 0                               # kernel launches (plain calls excluded)
 launch_shapes = collections.Counter()      # (bh, sq, skv, d, dtype, fixed) -> launches
+tc_launches = 0                            # of those, on the tensor-core kernel
 exp2_launches = 0                          # the same for the exp2-folded mode
 exp2_launch_shapes = collections.Counter()  # (bh, sq, skv, d, dtype) -> launches
+exp2_tc_launches = 0
 int8_launches = 0                          # the same for the int8 kernel
 int8_launch_shapes = collections.Counter()  # (bh, sq, skv, d, dtype, global_k) -> launches
 
@@ -77,7 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     running row max with alpha-rescaling. CPU tensors take the plain version
     (exact softmax either way). With the exp2 fold on and a numeric
     fixed_max the call goes to ``flash_attention_exp2``."""
-    global launches
+    global launches, tc_launches
     if _EXP2_FOLD and fixed_max is not None:
         return flash_attention_exp2(q, k, v, scale, fixed_max)
     if q.device.type == "cpu" and k.device.type == "cpu" \
@@ -87,13 +91,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _build.entry("flash_attention")
     out = torch.empty_like(q)
     fixed = fixed_max is not None
+    design = ctypes.c_int(-1)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bh, sq, skv, d, ctypes.c_float(scale),
             MODE_FIXED_MAX if fixed else MODE_RUNNING_MAX,
             ctypes.c_float(fixed_max if fixed else 0.0), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            ctypes.byref(design))
     _build.check("flash_attention", rc)
     launches += 1
+    tc_launches += design.value == _build.DESIGN_TENSOR_CORES
     launch_shapes[(bh, sq, skv, d, str(q.dtype), fixed)] += 1
     return out
 
@@ -129,7 +136,7 @@ def flash_attention_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (BH, Skv, D), contiguous, bf16 or fp32 -> (BH, Sq, D) in q's dtype. q is
     pre-scaled here; the kernel takes q' and the shift. CPU tensors take the
     plain version."""
-    global exp2_launches
+    global exp2_launches, exp2_tc_launches
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_exp2_reference(q, k, v, scale, fixed_max)
@@ -137,12 +144,15 @@ def flash_attention_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qs, shift = exp2_operands(q, scale, fixed_max)
     fn = _build.entry("flash_attention")
     out = torch.empty_like(q)
+    design = ctypes.c_int(-1)
     rc = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
             sq, skv, d, ctypes.c_float(1.0), MODE_EXP2_FOLD,
             ctypes.c_float(shift), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            ctypes.byref(design))
     _build.check("flash_attention_exp2", rc)
     exp2_launches += 1
+    exp2_tc_launches += design.value == _build.DESIGN_TENSOR_CORES
     exp2_launch_shapes[(bh, sq, skv, d, str(q.dtype))] += 1
     return out
 

@@ -14,15 +14,23 @@ Transform matrices (interpolation points 0, 1, -1, inf):
   G   = [[1,0,0],[.5,.5,.5],[.5,-.5,.5],[0,0,1]]       (weights, exact)
   A^T = [[1,1,1,0],[0,1,-1,-1]]                        (output)
 
+bf16 runs on the tensor cores (the 16 products on mma.sync, the input halo
+and the weight slices by cp.async), fp32 on the SIMT kernel; the C entry
+point picks by dtype and reports which ran (``tc_launches``). Where a
+bf16 conv's output blocks would leave SMs idle (fewer blocks than SMs, or
+a short last wave), the wrapper splits C across more blocks
+(``launch_config``) and the kernel sums the splits in fp32.
+
 The JAX package splits the contraction in two halves summed in x's dtype
-when its VMEM estimate passes 14 MiB; the port's kernel sums all of C in
-one fp32 accumulation, so at full width in bf16 the two differ there by
-bf16 rounding.
+when its VMEM estimate passes 14 MiB; the port's kernel accumulates C in
+fp32 throughout, so at full width in bf16 the two differ there by bf16
+rounding.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 from typing import Optional
 
 import torch
@@ -36,6 +44,48 @@ _GT = ((1.0, 0.5, 0.5, 0.0),
 
 launches = 0                               # kernel launches (plain calls excluded)
 launch_shapes = collections.Counter()      # (b, h, w, c, co, dtype, prologue) -> launches
+tc_launches = 0                            # of those, on the tensor-core kernel
+
+# The bf16 kernel's block (csrc/winograd.cu): a PATCH_H x PATCH_W patch of
+# 2x2 output tiles x BLOCK_N output channels, C in BLOCK_K-channel slices.
+PATCH_H, PATCH_W, BLOCK_N, BLOCK_K = 4, 8, 64, 32
+SMEM_BYTES = 223488   # its dynamic shared memory (the kernel's TC_SMEM)
+NUM_SMS = 132         # the H100 SXM's SMs; one block fills one (its shared memory)
+MIN_SLICES_PER_SPLIT = 2
+SPLIT_OVERHEAD_SLICES = 1.5  # a block's fixed cost (first loads, epilogue) in slices
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_config(b: int, h: int, w: int, c: int, co: int) -> dict:
+    """The bf16 kernel's launch for an NHWC (b, h, w, c) -> co conv: the
+    number of C splits and the grid (patches, Co blocks, splits).
+
+    One block runs per SM at a time, so a grid of N blocks takes
+    ceil(N / NUM_SMS) waves, and the last one may leave most SMs idle (160
+    blocks take two waves). Splitting C into s parts gives s times the
+    blocks, each with 1/s of the slices. The split taken minimizes waves x
+    (slices per split + ``SPLIT_OVERHEAD_SLICES``) among those whose grid
+    reaches ``NUM_SMS`` blocks (or the largest grid, where none does), each
+    split at least ``MIN_SLICES_PER_SPLIT`` slices; s = 1 wins ties."""
+    blocks = b * _cdiv(h // 2, PATCH_H) * _cdiv(w // 2, PATCH_W)
+    n_blocks = _cdiv(co, BLOCK_N)
+    slices = _cdiv(c, BLOCK_K)
+    grid = blocks * n_blocks
+    best = None
+    for want in range(1, max(1, slices // MIN_SLICES_PER_SPLIT) + 1):
+        per = _cdiv(slices, want)
+        splits = _cdiv(slices, per)  # no empty split
+        waves = _cdiv(grid * splits, NUM_SMS)
+        cost = (grid * splits < NUM_SMS, waves * (per + SPLIT_OVERHEAD_SLICES),
+                splits)
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    splits = best[1]
+    return {"splits": splits, "grid": (blocks, n_blocks, splits),
+            "smem_bytes": SMEM_BYTES}
 
 
 def transform_weights(kernel: torch.Tensor) -> torch.Tensor:
@@ -103,7 +153,7 @@ def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
     and W; raises otherwise. u: the pre-transformed (16, C, Co) weights
     (``transform_weights``), computed here when absent, used in x's dtype.
     CPU tensors take the plain version."""
-    global launches
+    global launches, tc_launches
     if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"conv3x3_winograd: x {tuple(x.shape)}; Winograd "
                          f"F(2x2, 3x3) takes NHWC with even H and W")
@@ -131,13 +181,20 @@ def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
                          f"u {tuple(u.shape)}")
     uw = u.to(x.dtype).contiguous()
     bias32, scale32, shift32 = _epilogue_args(x, co, bias, scale, shift)
+    splits = (launch_config(b, h, wd, c, co)["splits"]
+              if x.dtype == torch.bfloat16 else 1)
+    ws = (torch.empty((splits, b, h, wd, co), device=x.device,
+                      dtype=torch.float32) if splits > 1 else None)
     fn = _build.entry("winograd")
     out = torch.empty((b, h, wd, co), device=x.device, dtype=x.dtype)
+    design = ctypes.c_int(-1)
     rc = fn(x.data_ptr(), uw.data_ptr(), bias32.data_ptr(), _ptr(scale32),
             _ptr(shift32), out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            splits, _ptr(ws), torch.cuda.current_stream(x.device).cuda_stream,
+            ctypes.byref(design))
     _build.check("winograd", rc)
     launches += 1
+    tc_launches += design.value == _build.DESIGN_TENSOR_CORES
     launch_shapes[(b, h, wd, c, co, str(x.dtype), scale is not None)] += 1
     return out
 

@@ -35,7 +35,9 @@ script exits non-zero:
      PSNR of each against the exact one is printed for information).
      Launch counters are zeroed just before each of the three paths and
      read just after it; the pipeline's derived weights (int8, Winograd)
-     are dropped before each path, so each peak holds only its own.
+     are dropped before each path, so each peak holds only its own. Every
+     bf16 flash (exact, exp2-folded) and Winograd launch must have run on
+     its tensor-core kernel, as the C entry point reports it.
   5. The interactive session at full width, bf16: CLIP ViT-L/14 text and
      DINOv2-large added to phase 4's pipeline (random weights drawn on the
      card, a byte-level vocabulary built in code), ``BlobCtrlSession``:
@@ -44,7 +46,8 @@ script exits non-zero:
      each step (the splat kernel), the view against the same call on the
      CPU (<= 1 uint8 level), then three STEPS-step runs from a text prompt
      and the object image: an edit, another after a move (the prompt and
-     DINOv2 memos hit), and a remove. Counters zeroed before, read after.
+     DINOv2 memos hit), and a remove. Counters zeroed before, read after;
+     every flash launch on the tensor-core kernel.
   6. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
 
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
@@ -53,15 +56,19 @@ fused-kernel edit's four from the fused one);
 the splat's from phase 5;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
 those launches, from the per-shape medians of phase 2 weighted by phase 4's
-per-shape launch counts. ``bound_ms`` is the larger of bytes (each input
-read once, each output written once) over 3.35 TB/s and the operations
+per-shape launch counts. ``bound_ms`` is the largest of bytes (each input
+read once, each output written once) over 3.35 TB/s, the operations
 over the card's peak for their type: 989 TFLOP/s for bf16 products,
-1979 TOP/s for int8 products (H100 SXM data sheet). The Winograd conv's
-operations are its own multiply count, 4*C*Co MACs per output pixel (the
-direct conv's 9*C*Co is logged beside it). The splat's operations are
-fp32 arithmetic (about 20 per pixel and blob) at 67 TFLOP/s; its bytes,
-the parameter rows read and the N*H*W*(M+1) fp32 output written, bound
-it.
+1979 TOP/s for int8 products (H100 SXM data sheet), and, for the flash
+kernels, one exponential per score over the special-function units' rate:
+16 a clock per SM (CUDA programming guide, compute capability 9.0) x the
+SMs x ``nvidia-smi --query-gpu=clocks.max.sm``; ``bound_ops`` says
+whether the exponentials ("exp") or the products ("tensor") bind. The
+Winograd conv's operations are its own multiply count, 4*C*Co MACs per
+output pixel (the direct conv's 9*C*Co is logged beside it). The splat's
+operations are fp32 arithmetic (about 20 per pixel and blob) at 67
+TFLOP/s; its bytes, the parameter rows read and the N*H*W*(M+1) fp32
+output written, bound it.
 """
 
 from __future__ import annotations
@@ -82,6 +89,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+EXP_PER_SM_CLOCK = 16  # MUFU.EX2 per clock per SM (compute capability 9.0)
+EXP_RATE = None        # exponentials per second: SMs x 16 x the max SM clock (main)
 SPLAT_TOL = 1e-5  # absolute: the splat's outputs lie in [0, 1]
 SPLAT_SHAPES = ((1, 512, 512, 1), (1, 512, 512, 3), (2, 512, 512, 11),
                 (1, 1024, 1024, 4))  # (n, h, w, m)
@@ -134,6 +143,12 @@ def _flash_inputs(key, dtype, gen):
     return q, k, v, d ** -0.5, prod, nbytes
 
 
+def _exp_ms(key) -> float:
+    """The time of one exponential per score on the special-function units."""
+    bh, sq, skv = key[:3]
+    return 1e3 * bh * sq * skv / EXP_RATE
+
+
 def flash_case(key, dtype, gen):
     """key: (bh, sq, skv, d, dtype-name, fixed) as the wrapper logs it;
     modes: the fixed-max shift (main path), the running max."""
@@ -145,7 +160,8 @@ def flash_case(key, dtype, gen):
         plain=lambda fixed: fa.flash_attention_reference(q, k, v, scale),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             q[None], k[None], v[None], scale=scale),
-        ops_ms=1e3 * 2 * prod / PEAK_BF16_FLOPS, nbytes=nbytes)
+        ops_ms=1e3 * 2 * prod / PEAK_BF16_FLOPS, exp_ms=_exp_ms(key),
+        nbytes=nbytes)
 
 
 def flash_int8_case(key, dtype, gen):
@@ -162,7 +178,7 @@ def flash_int8_case(key, dtype, gen):
                                                            global_k=gk),
         library=None,
         ops_ms=1e3 * (prod / PEAK_INT8_OPS + prod / PEAK_BF16_FLOPS),
-        nbytes=nbytes)
+        exp_ms=_exp_ms(key), nbytes=nbytes)
 
 
 def _conv_inputs(key, dtype, gen):
@@ -226,7 +242,8 @@ def flash_exp2_case(key, dtype, gen):
         plain=lambda _: fa.flash_attention_exp2_reference(q, k, v, scale),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             q[None], k[None], v[None], scale=scale),
-        ops_ms=1e3 * 2 * prod / PEAK_BF16_FLOPS, nbytes=nbytes)
+        ops_ms=1e3 * 2 * prod / PEAK_BF16_FLOPS, exp_ms=_exp_ms(key),
+        nbytes=nbytes)
 
 
 def _gemm_case(x2d, w, kernel, plain, modes, labels, extra_bytes):
@@ -321,6 +338,9 @@ def shape_label(name, key) -> str:
     b, h, w, c, co = key[:5]
     label = (f"{name} b={b} h={h} w={w} c={c} co={co}"
              f"{' +gn-silu' if key[6] else ''}")
+    if name == "winograd":  # the bf16 kernel's split of C across blocks
+        from blobctrl_torch.ops import winograd
+        label += f" splits={winograd.launch_config(b, h, w, c, co)['splits']}"
     return label + (f" amax={key[7]}" if name == "conv3x3_int8" else "")
 
 
@@ -360,8 +380,10 @@ def check_kernels(shapes):
                     row["library_ms"] = (time_ms(case["library"])
                                          if case["library"] else None)
                     row["ops_ms"] = case["ops_ms"]
+                    row["exp_ms"] = case.get("exp_ms", 0.0)
                     row["bytes_ms"] = 1e3 * case["nbytes"] / PEAK_BYTES
-                    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+                    row["bound_ms"] = max(row["ops_ms"], row["exp_ms"],
+                                          row["bytes_ms"])
                     if "direct_ops_ms" in case:
                         row["direct_bound_ms"] = max(case["direct_ops_ms"],
                                                      row["bytes_ms"])
@@ -374,6 +396,8 @@ def check_kernels(shapes):
                         f"{row['plain_ms']:.4f}{others}"
                         f" library {'none' if lib is None else f'{lib:.4f}'}"
                         f" bound {row['bound_ms']:.4f}"
+                        + (f" (exp {row['exp_ms']:.4f}, tensor "
+                           f"{row['ops_ms']:.4f})" if row["exp_ms"] else "")
                         + (f" (direct conv's count: "
                            f"{row['direct_bound_ms']:.4f})"
                            if "direct_bound_ms" in row else ""))
@@ -416,7 +440,7 @@ def check_splat():
                    lambda: blob_splat.splat_from_params(params, h, w)),
                "plain_ms": time_ms(
                    lambda: blob_splat.splat_scores_plain(params, h, w)),
-               "library_ms": None,
+               "library_ms": None, "exp_ms": 0.0,
                "ops_ms": 1e3 * 20.0 * n * h * w * m / PEAK_FP32_FLOPS,
                "bytes_ms": 1e3 * nbytes / PEAK_BYTES}
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
@@ -498,6 +522,27 @@ def launch_counts():
     from blobctrl_torch.ops import KERNELS
     return {name: getattr(KERNELS[name][0], KERNELS[name][1])
             for name in ALL_KERNELS}
+
+
+def tensor_core_counts():
+    """-> {kernel name: launches the C entry point ran on the tensor-core
+    kernel since the last ``ops.reset_counts()``}."""
+    from blobctrl_torch.ops import TENSOR_CORE
+    return {name: getattr(mod, count)
+            for name, (mod, count) in TENSOR_CORE.items()}
+
+
+def check_tensor_cores(what, totals, names):
+    """Every bf16 launch of ``names`` (all of ``totals``) ran on the
+    tensor-core kernel."""
+    tc = tensor_core_counts()
+    log(f"  {what}: tensor-core launches " + ", ".join(
+        f"{k} {tc[k]} of {totals[k]}" for k in names if k in tc))
+    wrong = {k: (tc[k], totals[k]) for k in names
+             if k in tc and tc[k] != totals[k]}
+    if wrong:
+        raise AssertionError(f"{what}: bf16 launches off the tensor-core "
+                             f"kernel: {wrong}")
 
 
 def launch_shapes():
@@ -690,6 +735,7 @@ def session_phase(pipe, steps: int):
     if totals["blob_splat"] == 0 or min(totals[k] for k in EXACT) == 0 \
             or others:
         raise AssertionError(f"session launches {totals}")
+    check_tensor_cores("session", totals, EXACT)
     return launch_shapes()["blob_splat"], totals["blob_splat"]
 
 
@@ -707,6 +753,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     log(smi.splitlines()[0])
+    global EXP_RATE
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_RATE = sms * EXP_PER_SM_CLOCK * clock_mhz * 1e6
+    log(f"  {sms} SMs at up to {clock_mhz:.0f} MHz: {EXP_RATE:.3e} "
+        f"exponentials/s")
     log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -749,6 +804,7 @@ def main() -> int:
         log(f"  {name}: {secs:.3f} s, launches {launches}, peak memory "
             f"{mem:.2f} GiB")
     counts, totals = launch_shapes(), launch_counts()
+    check_tensor_cores("exact requests", totals, EXACT)
     path_totals = {"exact": dict(totals)}
     for mode, derive in (("int8", lambda t: conv3x3.quantize_conv_tree(t)),
                          ("fused", lambda t: winograd.transform_conv_tree(
@@ -769,6 +825,7 @@ def main() -> int:
             f"memory {mem:.2f} GiB, PSNR against the exact edit "
             f"{psnr(out, exact_edit):.2f} dB (for information)")
         mode_counts, path_totals[mode] = launch_shapes(), launch_counts()
+        check_tensor_cores(f"edit, {mode}", path_totals[mode], MODES[mode])
         for name in MODES[mode]:  # each kernel's counts from its own path
             counts[name] = mode_counts[name]
             totals[name] = path_totals[mode][name]
@@ -829,8 +886,12 @@ def main() -> int:
                                     for r in results[name].values())}
         for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[field] = weighted(field)
-        entry["bound_by"] = ("operations" if weighted("ops_ms")
-                             >= weighted("bytes_ms") else "bytes")
+        ops_ms = max(weighted("ops_ms"), weighted("exp_ms"))
+        entry["bound_by"] = ("operations" if ops_ms >= weighted("bytes_ms")
+                             else "bytes")
+        if weighted("exp_ms"):  # which operations: exponentials or products
+            entry["bound_ops"] = ("exp" if weighted("exp_ms")
+                                  >= weighted("ops_ms") else "tensor")
         kernels.append(entry)
         if name == "winograd":
             log(f"  winograd bound with the direct conv's multiply count: "

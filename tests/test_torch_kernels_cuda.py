@@ -356,3 +356,92 @@ def test_blob_splat_kernel_matches_plain_on_card(cuda_device, n, h, w, m):
     assert tsplat.launches == before + 1
     assert got.shape == (n, h, w, m + 1)
     assert (got - ref).abs().max().item() <= 1e-5
+
+
+# The bf16 kernels on the tensor cores: every launch below must be reported
+# by the C entry point as the tensor-core kernel (``tc_launches``).
+FLASH_TC_SHAPES = [
+    # the main path: the top level (D = 40) and the second (D = 80), UNet
+    # (bh 16) and BlobNet (bh 8)
+    (16, 8192, 8192, 40), (8, 8192, 8192, 40),
+    (16, 2048, 2048, 80), (8, 2048, 2048, 80),
+    # ragged Sq and Skv against the 128-row query and 64-key tiles
+    (3, 200, 333, 40), (2, 130, 1000, 80), (1, 129, 65, 40),
+    # D in {16, 40, 80, 160}, and D not a multiple of 8 (masked loads)
+    (2, 100, 256, 16), (1, 64, 70, 160), (2, 96, 200, 41), (1, 77, 90, 20),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["running-max", "fixed-max", "exp2-fold"])
+def test_flash_tc_kernel_matches_plain_on_card(cuda_device, mode):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for bh, sq, skv, d in FLASH_TC_SHAPES:
+        q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+                   .bfloat16() for s in (sq, skv, skv))
+        scale = d ** -0.5
+        if mode == "exp2-fold":
+            before = (tfa.exp2_launches, tfa.exp2_tc_launches)
+            got = tfa.flash_attention_exp2(q, k, v, scale)
+            assert (tfa.exp2_launches, tfa.exp2_tc_launches) == (
+                before[0] + 1, before[1] + 1)
+            ref = tfa.flash_attention_exp2_reference(q, k, v, scale)
+        else:
+            fixed = 20.0 if mode == "fixed-max" else None
+            before = (tfa.launches, tfa.tc_launches)
+            got = tfa.flash_attention(q, k, v, scale, fixed_max=fixed)
+            assert (tfa.launches, tfa.tc_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+            ref = tfa.flash_attention_reference(q, k, v, scale)
+        err = _rel_err(got, ref)
+        del ref
+        assert err <= 2e-2, (bh, sq, skv, d, err)
+
+
+@pytest.mark.cuda
+def test_fp32_kernels_stay_off_the_tensor_cores(cuda_device):
+    q = torch.randn(1, 70, 40, device=cuda_device)
+    x = torch.randn(1, 8, 16, 32, device=cuda_device)
+    k = torch.randn(3, 3, 32, 8, device=cuda_device) * 0.05
+    before = (tfa.launches, tfa.tc_launches, twg.launches, twg.tc_launches)
+    tfa.flash_attention(q, q, q, 0.2)
+    twg.conv3x3_winograd(x, k)
+    assert (tfa.launches, tfa.tc_launches, twg.launches, twg.tc_launches) == (
+        before[0] + 1, before[1], before[2] + 1, before[3])
+
+
+WINOGRAD_TC_SHAPES = [
+    # (b, h, w, c, co): the 1029-channel BlobNet conv_in
+    (1, 64, 128, 1029, 320),
+    # Co of 3, 4 (the 4-channel UNet conv_out, split in two) and 8
+    (1, 64, 64, 128, 3), (2, 64, 128, 320, 4), (1, 32, 32, 512, 8),
+    # H/2 = 11 and W/2 = 19: ragged 4 x 8 tile patches, Co 320
+    (2, 22, 38, 64, 320),
+    # an 8 x 16 map at C = 1280: too few blocks, C split across them
+    (1, 8, 16, 1280, 1280),
+    # the VAE's 512 x 512 x 128 convs
+    (1, 512, 512, 128, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+def test_winograd_tc_kernel_matches_plain_on_card(cuda_device, prologue):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, h, w, c, co in WINOGRAD_TC_SHAPES:
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * s
+        x = rnd(b, h, w, c).bfloat16()
+        k = rnd(3, 3, c, co, s=(9 * c) ** -0.5).bfloat16()
+        bias = rnd(co)
+        pro = (1 + 0.3 * rnd(b, c), rnd(b, c)) if prologue else (None, None)
+        u = twg.transform_weights(k).bfloat16()
+        if (h, w, c) == (8, 16, 1280):
+            assert twg.launch_config(b, h, w, c, co)["splits"] > 1
+        before = (twg.launches, twg.tc_launches)
+        got = twg.conv3x3_winograd(x, k, bias, *pro, u=u)
+        assert (twg.launches, twg.tc_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        ref = twg.conv3x3_winograd_reference(x, u, bias, *pro)
+        err = _rel_err(got, ref)
+        assert err <= 2e-2, (b, h, w, c, co, err)
