@@ -31,6 +31,10 @@ KERNELS = {
 TENSOR_CORE = {
     "flash_attention": (flash_attention, "tc_launches"),
     "flash_attention_exp2": (flash_attention, "exp2_tc_launches"),
+    "conv3x3": (conv3x3, "tc_launches"),
+    "affine_matmul": (gn_matmul, "tc_launches"),
+    "affine_matmul_residual": (gn_matmul, "res_tc_launches"),
+    "ln_matmul": (ln_matmul, "tc_launches"),
     "winograd": (winograd, "tc_launches"),
 }
 

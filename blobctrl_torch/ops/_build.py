@@ -16,10 +16,13 @@ from __future__ import annotations
 import ctypes
 import glob
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -38,7 +41,8 @@ SIGNATURES = {
                         (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P,
                          _IP)),
     "conv3x3": ("conv3x3", "conv3x3_fwd",
-                (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+                (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                 _IP)),
     "flash_attention_int8": ("flash_attention_int8",
                              "flash_attention_int8_fwd",
                              (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
@@ -47,9 +51,11 @@ SIGNATURES = {
                      (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P)),
     "affine_matmul": ("norm_matmul", "affine_matmul_fwd",
-                      (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+                      (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _IP)),
     "ln_matmul": ("norm_matmul", "ln_matmul_fwd",
-                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P,
+                   _IP)),
     "winograd": ("winograd", "winograd_fwd",
                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                   _IP)),
@@ -129,3 +135,25 @@ def entry(name: str):
 def check(name: str, rc: int):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``:
+    the value of ``torch.cuda.current_stream(device).cuda_stream``, without
+    building a stream object on every launch."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
+
+
+def as_f32(t: torch.Tensor, device: torch.device, *shape: int) -> torch.Tensor:
+    """t as a contiguous fp32 tensor of ``shape`` on ``device``, reshaped
+    when it holds as many elements, else broadcast: t itself when it
+    already is one, as the small per-call parameters (bias, scales) usually
+    are."""
+    if (t.dtype == torch.float32 and t.device == device
+            and t.shape == shape and t.is_contiguous()):
+        return t
+    t = t.to(device=device, dtype=torch.float32)
+    return (t.reshape(shape) if t.numel() == math.prod(shape)
+            else t.expand(*shape)).contiguous()

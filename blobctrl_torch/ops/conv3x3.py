@@ -8,7 +8,15 @@ Counterpart of ``blobctrl_tpu/ops/conv3x3.py``. Two CUDA kernels:
     with M = B*H*W, N = Co, K = 9*C, fp32 accumulation, bias in the
     epilogue, and ``silu(x * scale[b, c] + shift[b, c])`` applied as x is
     loaded, before the zero padding (taps outside the image contribute 0,
-    not silu(shift));
+    not silu(shift)). bf16 runs on the tensor cores (the shared mainloop of
+    ``csrc/gemm_bf16.cuh``: each block's 10 x 18 input halo goes through
+    the prologue once per 64-channel slice and feeds the 9 taps as shifted
+    views, the weights stream by cp.async into mma.sync), fp32 on the first,
+    SIMT kernel; the C entry point picks by dtype and reports which ran
+    (``tc_launches``). Where a bf16 conv's output blocks would leave SMs
+    idle, the wrapper splits C across more blocks (``launch_config``) and a
+    second kernel sums the splits in fp32 with the bias. What is left: wgmma
+    with TMA, and warp-specialised producers;
   * ``csrc/conv3x3_int8.cu`` replaces ``_conv3x3_kernel_halo_i8``, the
     opt-in int8 mode (``set_conv_int8``): the same GEMM over int8
     activations under ONE activation scale and int8 weights under
@@ -21,12 +29,14 @@ with even H and W go to ``ops.winograd.conv3x3_winograd`` instead.
 from __future__ import annotations
 
 import collections
+import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from blobctrl_torch.ops import _build
+from blobctrl_torch.ops._split import cdiv, split_k
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,6 +56,7 @@ _WINOGRAD = False
 
 launches = 0                               # kernel launches (plain calls excluded)
 launch_shapes = collections.Counter()      # (b, h, w, c, co, dtype, prologue) -> launches
+tc_launches = 0                            # of those, on the tensor-core kernel
 int8_launches = 0                          # the same for the int8 kernel
 int8_launch_shapes = collections.Counter()  # (b, h, w, c, co, dtype, prologue, act_amax) -> launches
 
@@ -53,6 +64,27 @@ int8_launch_shapes = collections.Counter()  # (b, h, w, c, co, dtype, prologue, 
 # also pre-quantizes, as the JAX package does for its int8 linear path
 _LINEAR_INT8_NAMES = frozenset(
     {"to_q", "to_k", "to_v", "to_out", "proj_in", "proj_out"})
+
+
+# The bf16 kernel's block (csrc/conv3x3.cu, csrc/gemm_bf16.cuh): a PATCH_H x
+# PATCH_W patch of output pixels x BLOCK_N output channels, C in
+# BLOCK_K-channel slices, two halo slices and B_STAGES weight slices in
+# flight.
+PATCH_H, PATCH_W, BLOCK_N, BLOCK_K, B_STAGES = 8, 16, 128, 64, 3
+# the kernel's TC_SMEM: two halo stages, the weight ring
+SMEM_BYTES = 2 * (2 * (PATCH_H + 2) * (PATCH_W + 2) * (BLOCK_K + 8)
+                  + B_STAGES * BLOCK_K * (BLOCK_N + 8))
+
+
+def launch_config(b: int, h: int, w: int, c: int, co: int) -> dict:
+    """The bf16 kernel's launch for an NHWC (b, h, w, c) -> co conv: the
+    number of C splits (``_split.split_k``) and the grid (patches, Co
+    blocks, splits)."""
+    blocks = b * cdiv(h, PATCH_H) * cdiv(w, PATCH_W)
+    n_blocks = cdiv(co, BLOCK_N)
+    splits = split_k(blocks * n_blocks, cdiv(c, BLOCK_K))
+    return {"splits": splits, "grid": (blocks, n_blocks, splits),
+            "smem_bytes": SMEM_BYTES}
 
 
 def set_conv_int8(flag: bool, act_amax: Optional[float] = "unset"):
@@ -211,15 +243,14 @@ def _check_args(name, x, w, scale, shift, device_tensors):
 
 def _epilogue_args(x, co, bias, scale, shift):
     """fp32 bias (Co,) and fp32 (B, C) scale/shift (or None) on x's device."""
-    b, c = x.shape[0], x.shape[3]
-    aux = {"device": x.device, "dtype": torch.float32}
-    bias32 = (torch.zeros(co, **aux) if bias is None
-              else bias.to(**aux).reshape(co).contiguous())
+    b, c, dev = x.shape[0], x.shape[3], x.device
+    bias32 = (torch.zeros(co, device=dev) if bias is None
+              else _build.as_f32(bias, dev, co))
     if scale is None:
         return bias32, None, None
-    shift32 = (torch.zeros(b, c, **aux) if shift is None
-               else _per_batch(shift.to(x.device), b, c))
-    return bias32, _per_batch(scale.to(x.device), b, c), shift32
+    shift32 = (torch.zeros(b, c, device=dev) if shift is None
+               else _build.as_f32(shift, dev, b, c))
+    return bias32, _build.as_f32(scale, dev, b, c), shift32
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -243,7 +274,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     with the Winograd switch on and even H and W, it goes to
     ``winograd.conv3x3_winograd``, with the pre-transformed ``u`` from
     ``winograd.transform_conv_tree`` or, without it, w transformed there."""
-    global launches
+    global launches, tc_launches
     if _CONV_INT8:
         if kernel_q is None:
             kernel_q, w_scale = quantize_kernel_i8(w)
@@ -260,13 +291,19 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv3x3: dtypes x {x.dtype}, w {w.dtype}; the "
                          f"kernel takes matching bf16 or fp32")
     bias32, scale32, shift32 = _epilogue_args(x, co, bias, scale, shift)
+    splits = (launch_config(b, h, wd, c, co)["splits"]
+              if x.dtype == torch.bfloat16 else 1)
+    ws = (torch.empty((splits, b, h, wd, co), device=x.device,
+                      dtype=torch.float32) if splits > 1 else None)
     fn = _build.entry("conv3x3")
     out = torch.empty((b, h, wd, co), device=x.device, dtype=x.dtype)
+    design = ctypes.c_int(-1)
     rc = fn(x.data_ptr(), w.data_ptr(), bias32.data_ptr(), _ptr(scale32),
             _ptr(shift32), out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            splits, _ptr(ws), _build.stream(x.device), ctypes.byref(design))
     _build.check("conv3x3", rc)
     launches += 1
+    tc_launches += design.value == _build.DESIGN_TENSOR_CORES
     launch_shapes[(b, h, wd, c, co, str(x.dtype), scale is not None)] += 1
     return out
 

@@ -10,6 +10,16 @@ normalized activation never goes to device memory. The GroupNorm
 statistics stay outside the kernel, in plain torch (``gn_affine``), as they
 stay in XLA in the JAX package, and use its one-pass variance.
 
+bf16 runs on the tensor cores (the shared mainloop of
+``csrc/gemm_bf16.cuh``: 128 x 256 output blocks, or 128 x 128 where the
+columns are no multiple of 256; slices of x and of the weights streamed by
+cp.async, x normalized once per element in shared memory, the products on
+mma.sync), fp32 on the first, SIMT kernel; the C entry point picks by
+dtype and reports which ran (``tc_launches``, ``res_tc_launches``). Where
+the output blocks are fewer than the SMs, the wrapper splits C across more
+blocks (``launch_config``) and a second kernel sums the splits in fp32 with
+the bias and residual. What is left: wgmma with TMA.
+
 Unlike the Pallas kernel, whose row-block fallback leaves rows unwritten
 when h*w is no multiple of 8, the CUDA kernel masks ragged rows and is
 right at any h*w.
@@ -18,18 +28,63 @@ right at any h*w.
 from __future__ import annotations
 
 import collections
+import ctypes
 from typing import Optional
 
 import torch
 
 from blobctrl_torch.ops import _build
+from blobctrl_torch.ops._split import NUM_SMS, cdiv, split_k
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0                               # kernel launches, plain epilogue
 launch_shapes = collections.Counter()      # (b, hw, c, n, dtype, affine) -> launches
+tc_launches = 0                            # of those, on the tensor-core kernel
 res_launches = 0                           # the same for the residual epilogue
 res_launch_shapes = collections.Counter()
+res_tc_launches = 0
+
+# The bf16 kernel's block (csrc/norm_matmul.cu, csrc/gemm_bf16.cuh), shared
+# with ops.ln_matmul: BLOCK_M rows x WIDE_N columns where n % WIDE_N == 0,
+# else x NARROW_N; each width with its K slice (channels) and the depth of
+# its rings of x and weight slices: {block_n: (block_k, stages)}.
+BLOCK_M, WIDE_N, NARROW_N = 128, 256, 128
+SLICES = {WIDE_N: (64, 3), NARROW_N: (32, 4)}
+
+
+def smem_bytes(block_n: int) -> int:
+    """The kernel's tc_smem<BN>: per stage the x slice and the weight
+    slice; then the rows' fp32 LayerNorm mean and rstd."""
+    block_k, stages = SLICES[block_n]
+    return (2 * stages * (BLOCK_M * (block_k + 8) + block_k * (block_n + 8))
+            + 8 * BLOCK_M)
+
+
+def launch_config(m: int, c: int, n: int) -> dict:
+    """The bf16 kernel's launch for an (m, c) @ (c, n) product: the block's
+    columns, the number of C splits and the grid (row blocks, column
+    blocks, splits). C is split (``_split.split_k``) only where the blocks
+    are fewer than the SMs: elsewhere the fp32 workspace's traffic (m x n x
+    4 bytes written and read per split) outweighs a shorter last wave."""
+    block_n = WIDE_N if n % WIDE_N == 0 else NARROW_N
+    m_blocks, n_blocks = cdiv(m, BLOCK_M), cdiv(n, block_n)
+    grid = m_blocks * n_blocks
+    slices = cdiv(c, SLICES[block_n][0])
+    splits = split_k(grid, slices) if grid < NUM_SMS else 1
+    return {"block_n": block_n, "splits": splits,
+            "grid": (m_blocks, n_blocks, splits),
+            "smem_bytes": smem_bytes(block_n)}
+
+
+def split_workspace(x: torch.Tensor, m: int, c: int, n: int):
+    """-> (splits, the fp32 (splits, m, n) workspace or None) for a launch
+    on x: bf16 takes ``launch_config``'s split, fp32 (SIMT) none."""
+    splits = (launch_config(m, c, n)["splits"]
+              if x.dtype == torch.bfloat16 else 1)
+    ws = (torch.empty((splits, m, n), device=x.device, dtype=torch.float32)
+          if splits > 1 else None)
+    return splits, ws
 
 
 def gn_affine(x: torch.Tensor, norm_params, num_groups: int, eps: float):
@@ -81,13 +136,17 @@ def affine_matmul(x: torch.Tensor, w: torch.Tensor,
     (C, N), residual (B, H, W, N), all contiguous and of one dtype (bf16 or
     fp32); bias (N,); s, t (B, C) fp32, both or neither -> (B, H, W, N).
     CPU tensors take the plain version."""
-    global launches, res_launches
+    global launches, res_launches, tc_launches, res_tc_launches
     if (s is None) != (t is None):
         raise ValueError("affine_matmul: s and t go together")
-    tensors = [a for a in (x, w, bias, s, t, residual) if a is not None]
-    if all(a.device.type == "cpu" for a in tensors):
-        return affine_matmul_reference(x, w, bias, s, t, residual)
-    if not (x.is_cuda and all(a.device == x.device for a in tensors)):
+    others = [a for a in (w, bias, s, t, residual) if a is not None]
+    if not x.is_cuda:
+        if all(a.device.type == "cpu" for a in others):
+            return affine_matmul_reference(x, w, bias, s, t, residual)
+        raise ValueError("affine_matmul: every tensor must be on x's CUDA "
+                         "device")
+    dev = x.device
+    if any(a.device != dev for a in others):
         raise ValueError("affine_matmul: every tensor must be on x's CUDA "
                          "device")
     if x.dtype not in _DTYPES or w.dtype != x.dtype or (
@@ -113,23 +172,28 @@ def affine_matmul(x: torch.Tensor, w: torch.Tensor,
     if min(b, h, wd, c, n) < 1:
         raise ValueError(f"affine_matmul: empty shape x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
-    f32 = {"device": x.device, "dtype": torch.float32}
-    bias32 = (torch.zeros(n, **f32) if bias is None
-              else bias.to(**f32).reshape(n).contiguous())
-    s32 = None if s is None else s.to(**f32).contiguous()
-    t32 = None if t is None else t.to(**f32).contiguous()
+    bias32 = (torch.zeros(n, device=dev) if bias is None
+              else _build.as_f32(bias, dev, n))
+    s32 = None if s is None else _build.as_f32(s, dev, b, c)
+    t32 = None if t is None else _build.as_f32(t, dev, b, c)
+    splits, ws = split_workspace(x, b * h * wd, c, n)
     fn = _build.entry("affine_matmul")
-    out = torch.empty((b, h, wd, n), device=x.device, dtype=x.dtype)
+    out = torch.empty((b, h, wd, n), device=dev, dtype=x.dtype)
+    design = ctypes.c_int(-1)
     rc = fn(x.data_ptr(), w.data_ptr(), bias32.data_ptr(), _ptr(s32),
             _ptr(t32), _ptr(residual), out.data_ptr(), b * h * wd, h * wd, c,
-            n, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+            n, _DTYPES[x.dtype], splits, _ptr(ws), _build.stream(dev),
+            ctypes.byref(design))
     _build.check("affine_matmul", rc)
     key = (b, h * wd, c, n, str(x.dtype), s is not None)
+    tc = design.value == _build.DESIGN_TENSOR_CORES
     if residual is None:
         launches += 1
+        tc_launches += tc
         launch_shapes[key] += 1
     else:
         res_launches += 1
+        res_tc_launches += tc
         res_launch_shapes[key] += 1
     return out
 

@@ -2,25 +2,36 @@
 [+ bias], the transformer block's pre-norm prologue.
 
 Counterpart of ``blobctrl_tpu/ops/ln_matmul.py``. ``csrc/norm_matmul.cu``
-(``ln_matmul_fwd``) replaces the Pallas ``_ln_matmul_kernel``: each block
-reduces its rows' fp32 mean and two-pass variance over C, then normalizes
-x as it loads it into the GEMM, so the normalized activation never goes to
-device memory (one x read, one y write).
+(``ln_matmul_fwd``) replaces the Pallas ``_ln_matmul_kernel``: from each
+row's fp32 mean and two-pass variance over C it normalizes x as it loads it
+into the GEMM, so the normalized activation never goes to device memory.
+
+bf16 runs on the tensor cores: a small kernel first writes each row's mean
+and rstd once (an fp32 (M, 2) workspace; the TPU kernel likewise normalizes
+once per row block, its SIMT predecessor here once per 64-column block),
+then the GEMM of ``ops.gn_matmul`` (the shared mainloop of
+``csrc/gemm_bf16.cuh``, its block and split: ``gn_matmul.launch_config``)
+applies the LayerNorm once per loaded element. fp32 runs on the first,
+SIMT kernel, whose blocks reduce their own rows' statistics. The C entry
+point picks by dtype and reports which ran (``tc_launches``).
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 from typing import Optional
 
 import torch
 
 from blobctrl_torch.ops import _build
+from blobctrl_torch.ops.gn_matmul import _ptr, split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0                               # kernel launches (plain calls excluded)
 launch_shapes = collections.Counter()      # (m, c, n, dtype) -> launches
+tc_launches = 0                            # of those, on the tensor-core kernel
 
 
 def ln_matmul_reference(x: torch.Tensor, gamma: torch.Tensor,
@@ -49,11 +60,14 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
     """LayerNorm(x; gamma, beta) @ w (+ w_bias). x: (..., C) contiguous,
     bf16 or fp32; gamma, beta (C,); w (C, N), cast to x's dtype; w_bias (N,)
     -> (..., N) in x's dtype. CPU tensors take the plain version."""
-    global launches
-    tensors = [a for a in (x, gamma, beta, w, w_bias) if a is not None]
-    if all(a.device.type == "cpu" for a in tensors):
-        return ln_matmul_reference(x, gamma, beta, w, w_bias, eps)
-    if not (x.is_cuda and all(a.device == x.device for a in tensors)):
+    global launches, tc_launches
+    others = [a for a in (gamma, beta, w, w_bias) if a is not None]
+    if not x.is_cuda:
+        if all(a.device.type == "cpu" for a in others):
+            return ln_matmul_reference(x, gamma, beta, w, w_bias, eps)
+        raise ValueError("ln_matmul: every tensor must be on x's CUDA device")
+    dev = x.device
+    if any(a.device != dev for a in others):
         raise ValueError("ln_matmul: every tensor must be on x's CUDA device")
     if x.dtype not in _DTYPES:
         raise ValueError(f"ln_matmul: x dtype {x.dtype}; the kernel takes "
@@ -70,19 +84,24 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
     if min(m, c, n) < 1:
         raise ValueError(f"ln_matmul: empty shape x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}")
-    f32 = {"device": x.device, "dtype": torch.float32}
     wk = w.to(x.dtype).contiguous()
-    bias32 = (torch.zeros(n, **f32) if w_bias is None
-              else w_bias.to(**f32).reshape(n).contiguous())
-    g32 = gamma.to(**f32).reshape(c).contiguous()
-    b32 = (torch.zeros(c, **f32) if beta is None
-           else beta.to(**f32).reshape(c).contiguous())
+    bias32 = (torch.zeros(n, device=dev) if w_bias is None
+              else _build.as_f32(w_bias, dev, n))
+    g32 = _build.as_f32(gamma, dev, c)
+    b32 = (torch.zeros(c, device=dev) if beta is None
+           else _build.as_f32(beta, dev, c))
+    splits, ws = split_workspace(x, m, c, n)
+    stats = (torch.empty((m, 2), device=dev, dtype=torch.float32)
+             if x.dtype == torch.bfloat16 else None)
     fn = _build.entry("ln_matmul")
-    out = torch.empty(x.shape[:-1] + (n,), device=x.device, dtype=x.dtype)
+    out = torch.empty(x.shape[:-1] + (n,), device=dev, dtype=x.dtype)
+    design = ctypes.c_int(-1)
     rc = fn(x.data_ptr(), wk.data_ptr(), bias32.data_ptr(), g32.data_ptr(),
             b32.data_ptr(), out.data_ptr(), m, c, n, float(eps),
-            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+            _DTYPES[x.dtype], splits, _ptr(ws), _ptr(stats),
+            _build.stream(dev), ctypes.byref(design))
     _build.check("ln_matmul", rc)
     launches += 1
+    tc_launches += design.value == _build.DESIGN_TENSOR_CORES
     launch_shapes[(m, c, n, str(x.dtype))] += 1
     return out

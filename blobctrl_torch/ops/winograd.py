@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from blobctrl_torch.ops import _build
+from blobctrl_torch.ops._split import cdiv, split_k
 from blobctrl_torch.ops.conv3x3 import _DTYPES, _epilogue_args, _prologue, _ptr
 
 _GT = ((1.0, 0.5, 0.5, 0.0),
@@ -50,40 +51,16 @@ tc_launches = 0                            # of those, on the tensor-core kernel
 # 2x2 output tiles x BLOCK_N output channels, C in BLOCK_K-channel slices.
 PATCH_H, PATCH_W, BLOCK_N, BLOCK_K = 4, 8, 64, 32
 SMEM_BYTES = 223488   # its dynamic shared memory (the kernel's TC_SMEM)
-NUM_SMS = 132         # the H100 SXM's SMs; one block fills one (its shared memory)
-MIN_SLICES_PER_SPLIT = 2
-SPLIT_OVERHEAD_SLICES = 1.5  # a block's fixed cost (first loads, epilogue) in slices
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def launch_config(b: int, h: int, w: int, c: int, co: int) -> dict:
     """The bf16 kernel's launch for an NHWC (b, h, w, c) -> co conv: the
-    number of C splits and the grid (patches, Co blocks, splits).
-
-    One block runs per SM at a time, so a grid of N blocks takes
-    ceil(N / NUM_SMS) waves, and the last one may leave most SMs idle (160
-    blocks take two waves). Splitting C into s parts gives s times the
-    blocks, each with 1/s of the slices. The split taken minimizes waves x
-    (slices per split + ``SPLIT_OVERHEAD_SLICES``) among those whose grid
-    reaches ``NUM_SMS`` blocks (or the largest grid, where none does), each
-    split at least ``MIN_SLICES_PER_SPLIT`` slices; s = 1 wins ties."""
-    blocks = b * _cdiv(h // 2, PATCH_H) * _cdiv(w // 2, PATCH_W)
-    n_blocks = _cdiv(co, BLOCK_N)
-    slices = _cdiv(c, BLOCK_K)
-    grid = blocks * n_blocks
-    best = None
-    for want in range(1, max(1, slices // MIN_SLICES_PER_SPLIT) + 1):
-        per = _cdiv(slices, want)
-        splits = _cdiv(slices, per)  # no empty split
-        waves = _cdiv(grid * splits, NUM_SMS)
-        cost = (grid * splits < NUM_SMS, waves * (per + SPLIT_OVERHEAD_SLICES),
-                splits)
-        if best is None or cost < best[0]:
-            best = (cost, splits)
-    splits = best[1]
+    number of C splits (``_split.split_k``; one block fills an SM, its
+    shared memory, so 160 blocks take two waves) and the grid (patches, Co
+    blocks, splits)."""
+    blocks = b * cdiv(h // 2, PATCH_H) * cdiv(w // 2, PATCH_W)
+    n_blocks = cdiv(co, BLOCK_N)
+    splits = split_k(blocks * n_blocks, cdiv(c, BLOCK_K))
     return {"splits": splits, "grid": (blocks, n_blocks, splits),
             "smem_bytes": SMEM_BYTES}
 

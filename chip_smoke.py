@@ -27,6 +27,14 @@ script exits non-zero:
      fp32), exact, in the int8-everything mode and as the fused-kernel
      edit, on the card with the kernels and on the CPU with the plain
      route; PSNR of card against CPU >= 40 dB; the mode's kernels launched.
+     Then the bf16 pass, which runs the tensor-core kernels on trained
+     weights (fp32 picks the SIMT kernels): the move edit, exact and fused,
+     loaded in bf16 on the card and on the CPU. Its floor f is PSNR(CPU
+     bf16, CPU fp32), what bf16 rounding alone costs, measured in the same
+     run; the bar is PSNR(card bf16, CPU fp32) >= f - BF16_MARGIN_DB, so
+     the kernels may add little beyond it. PSNR(card bf16, CPU bf16) is
+     logged beside it, and every bf16 launch of the mode's kernels must
+     have run on its tensor-core kernel.
   4. Full width: SD-1.5 UNet (5-ch) + BlobNet (1029-ch) + VAE, random
      weights drawn on the card, bf16; three exact STEPS-step requests
      through ``BlobNetPipeline.__call__`` (the standard edit, a second edit
@@ -36,8 +44,10 @@ script exits non-zero:
      Launch counters are zeroed just before each of the three paths and
      read just after it; the pipeline's derived weights (int8, Winograd)
      are dropped before each path, so each peak holds only its own. Every
-     bf16 flash (exact, exp2-folded) and Winograd launch must have run on
-     its tensor-core kernel, as the C entry point reports it.
+     bf16 launch of the exact and fused paths' kernels (flash, exp2-folded
+     flash, conv3x3, the two normalize GEMMs, Winograd: ``ops.
+     TENSOR_CORE``) must have run on its tensor-core kernel, as the C entry
+     point reports it.
   5. The interactive session at full width, bf16: CLIP ViT-L/14 text and
      DINOv2-large added to phase 4's pipeline (random weights drawn on the
      card, a byte-level vocabulary built in code), ``BlobCtrlSession``:
@@ -47,8 +57,10 @@ script exits non-zero:
      CPU (<= 1 uint8 level), then three STEPS-step runs from a text prompt
      and the object image: an edit, another after a move (the prompt and
      DINOv2 memos hit), and a remove. Counters zeroed before, read after;
-     every flash launch on the tensor-core kernel.
+     every flash and conv3x3 launch on its tensor-core kernel.
   6. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
+     Before it, the direct conv (K6) against Winograd (K12) at the fused
+     edit's Winograd launches, both from phase 2's medians at those shapes.
 
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
 kernels' from the exact requests, the int8 kernels' from the int8 one, the
@@ -97,6 +109,9 @@ SPLAT_SHAPES = ((1, 512, 512, 1), (1, 512, 512, 3), (2, 512, 512, 11),
 PROMPT = "a red ball on a table"
 SESSION_SIZE = 512  # the session's canvas (the pipeline's height and width)
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# phase 3's bf16 pass: PSNR(card bf16, CPU fp32) >= PSNR(CPU bf16, CPU fp32)
+# less this margin
+BF16_MARGIN_DB = 3.0
 STEPS = 50  # UniPC steps of each full-width request
 
 
@@ -329,18 +344,22 @@ def shape_label(name, key) -> str:
     if name.startswith("flash_attention"):
         bh, sq, skv, d = key[:4]
         return f"{name} bh={bh} sq={sq} skv={skv} d={d}"
-    if name == "affine_matmul":
+    from blobctrl_torch.ops import conv3x3, gn_matmul, winograd
+    if name == "affine_matmul":  # labels end in the bf16 kernel's split of C
         b, hw, c, n = key[:4]
-        return f"{name} b={b} hw={hw} c={c} n={n}"
+        return (f"{name} b={b} hw={hw} c={c} n={n} "
+                f"splits={gn_matmul.launch_config(b * hw, c, n)['splits']}")
     if name == "ln_matmul":
         m, c, n = key[:3]
-        return f"{name} m={m} c={c} n={n}"
+        return (f"{name} m={m} c={c} n={n} "
+                f"splits={gn_matmul.launch_config(m, c, n)['splits']}")
     b, h, w, c, co = key[:5]
     label = (f"{name} b={b} h={h} w={w} c={c} co={co}"
              f"{' +gn-silu' if key[6] else ''}")
-    if name == "winograd":  # the bf16 kernel's split of C across blocks
-        from blobctrl_torch.ops import winograd
-        label += f" splits={winograd.launch_config(b, h, w, c, co)['splits']}"
+    config = {"winograd": winograd.launch_config,
+              "conv3x3": conv3x3.launch_config}.get(name)
+    if config is not None:
+        label += f" splits={config(b, h, w, c, co)['splits']}"
     return label + (f" amax={key[7]}" if name == "conv3x3_int8" else "")
 
 
@@ -582,8 +601,10 @@ def toy_phase():
     ckpt = os.path.join(ROOT, "assets", "toy_ckpt_256")
     card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.float32)
     cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.float32)
+    edits = toy_edits(256, 20)
+    cpu_fp32 = {}
     for mode, kernels in MODES.items():
-        for name, kw in toy_edits(256, 20).items():
+        for name, kw in edits.items():
             with mode_context(mode):
                 ops.reset_counts()
                 t0 = time.perf_counter()
@@ -591,7 +612,7 @@ def toy_phase():
                 t_card = time.perf_counter() - t0
                 counts = launch_counts()
                 t0 = time.perf_counter()
-                want = cpu(**kw).images
+                want = cpu_fp32[mode, name] = cpu(**kw).images
                 t_cpu = time.perf_counter() - t0
             p = psnr(got, want)
             ran = {k: counts[k] for k in kernels}
@@ -601,6 +622,29 @@ def toy_phase():
                     and np.isfinite(got).all()):
                 raise AssertionError(f"toy {mode} {name}: PSNR {p}, "
                                      f"launches {counts}")
+    del card
+    card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.bfloat16)
+    cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.bfloat16)
+    for mode in ("exact", "fused"):
+        with mode_context(mode):
+            ops.reset_counts()
+            got = card(**edits["move"]).images
+            counts = launch_counts()
+            check_tensor_cores(f"toy 256^2 bf16 {mode} move", counts,
+                               MODES[mode])
+            want = cpu(**edits["move"]).images
+        want32 = cpu_fp32[mode, "move"]
+        floor, p32, p16 = (psnr(want, want32), psnr(got, want32),
+                           psnr(got, want))
+        ran = {k: counts[k] for k in MODES[mode]}
+        log(f"  toy 256^2 bf16 {mode} move: PSNR card bf16 vs cpu fp32 "
+            f"{p32:.2f} dB (bar: floor {floor:.2f} - {BF16_MARGIN_DB:.0f} = "
+            f"{floor - BF16_MARGIN_DB:.2f}; floor = cpu bf16 vs cpu fp32), "
+            f"card bf16 vs cpu bf16 {p16:.2f} dB, launches {ran}")
+        if not (p32 >= floor - BF16_MARGIN_DB and min(ran.values()) > 0
+                and np.isfinite(got).all()):
+            raise AssertionError(f"toy bf16 {mode} move: PSNR {p32} against "
+                                 f"the floor {floor}, launches {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -897,6 +941,12 @@ def main() -> int:
             log(f"  winograd bound with the direct conv's multiply count: "
                 f"{weighted('direct_bound_ms'):.2f} ms (its own: "
                 f"{entry['bound_ms']:.2f})")
+            direct = sum(results["conv3x3"][k]["ms"] * n
+                         for k, n in counts[name].items())
+            log(f"  the direct conv (K6) at the fused edit's {totals[name]} "
+                f"Winograd launches, phase 2's medians at the same shapes: "
+                f"{direct:.1f} ms against Winograd's (K12) {entry['ms']:.1f}"
+                f" ms")
         for label, what in OTHER_MODE.get(name, ()):
             lib = weighted("library_ms")
             log(f"  {name}, {what} (on no main path), weighted by the main "

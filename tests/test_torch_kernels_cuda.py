@@ -403,11 +403,28 @@ def test_fp32_kernels_stay_off_the_tensor_cores(cuda_device):
     q = torch.randn(1, 70, 40, device=cuda_device)
     x = torch.randn(1, 8, 16, 32, device=cuda_device)
     k = torch.randn(3, 3, 32, 8, device=cuda_device) * 0.05
-    before = (tfa.launches, tfa.tc_launches, twg.launches, twg.tc_launches)
+    w = torch.randn(32, 24, device=cuda_device) * 0.1
+    st = torch.ones(1, 32, device=cuda_device), torch.zeros(1, 32,
+                                                            device=cuda_device)
+    gamma = torch.ones(32, device=cuda_device)
+    counters = [(tfa, "launches", "tc_launches"),
+                (twg, "launches", "tc_launches"),
+                (tconv, "launches", "tc_launches"),
+                (tgn, "launches", "tc_launches"),
+                (tgn, "res_launches", "res_tc_launches"),
+                (tln, "launches", "tc_launches")]
+
+    def read():
+        return [(getattr(m, a), getattr(m, b)) for m, a, b in counters]
+    before = read()
     tfa.flash_attention(q, q, q, 0.2)
     twg.conv3x3_winograd(x, k)
-    assert (tfa.launches, tfa.tc_launches, twg.launches, twg.tc_launches) == (
-        before[0] + 1, before[1], before[2] + 1, before[3])
+    tconv.conv3x3(x, k)
+    tgn.affine_matmul(x, w, None, *st)
+    tgn.affine_matmul(x, w, residual=torch.zeros(1, 8, 16, 24,
+                                                 device=cuda_device))
+    tln.ln_matmul(x, gamma, None, w)
+    assert read() == [(n + 1, tc) for n, tc in before]
 
 
 WINOGRAD_TC_SHAPES = [
@@ -445,3 +462,114 @@ def test_winograd_tc_kernel_matches_plain_on_card(cuda_device, prologue):
         ref = twg.conv3x3_winograd_reference(x, u, bias, *pro)
         err = _rel_err(got, ref)
         assert err <= 2e-2, (b, h, w, c, co, err)
+
+
+CONV_TC_SHAPES = [
+    # (b, h, w, c, co): the 1029-channel BlobNet conv_in (2-byte halo loads)
+    (1, 64, 128, 1029, 320),
+    # an 8 x 16 map at C = 2560: two Co blocks, C split across many blocks
+    (1, 8, 16, 2560, 1280),
+    # ragged 8 x 16 patches, Co no multiple of 8 (2-byte weight loads) and
+    # of the 128-wide block, C no multiple of the 32-channel slice
+    (2, 13, 21, 72, 130), (1, 16, 8, 37, 40), (2, 9, 17, 40, 3),
+    # the VAE's 512 x 512 x 128 convs
+    (1, 512, 512, 128, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+def test_conv3x3_tc_kernel_matches_plain_on_card(cuda_device, prologue):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, h, w, c, co in CONV_TC_SHAPES:
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * s
+        x = rnd(b, h, w, c).bfloat16()
+        k = rnd(3, 3, c, co, s=(9 * c) ** -0.5).bfloat16()
+        bias = rnd(co)
+        pro = (1 + 0.3 * rnd(b, c), rnd(b, c)) if prologue else (None, None)
+        if (h, w, c) == (8, 16, 2560):
+            assert tconv.launch_config(b, h, w, c, co)["splits"] > 1
+        before = (tconv.launches, tconv.tc_launches)
+        got = tconv.conv3x3(x, k, bias, *pro)
+        assert (tconv.launches, tconv.tc_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        # a thread reads only what it waited for: launches agree bit for bit
+        assert torch.equal(tconv.conv3x3(x, k, bias, *pro), got)
+        ref = tconv.conv3x3_reference(x, k, bias, *pro)
+        err = _rel_err(got, ref)
+        assert err <= 2e-2, (b, h, w, c, co, err)
+
+
+AFFINE_TC_SHAPES = [
+    # (b, h, w, c, n): M = 128 rows at C = 1280 (256-wide blocks, C split),
+    # the 8192-row level-1 map of C = 320 (128-wide blocks, N ragged), a
+    # wide product (256-wide blocks, no split)
+    (1, 8, 16, 1280, 1280), (2, 64, 128, 320, 320), (1, 32, 32, 1280, 2560),
+    # h*w = 9 and 63, no multiple of 8; C and N ragged, N % 8 != 0
+    (2, 3, 3, 37, 40), (2, 7, 9, 320, 130), (1, 64, 2, 1029, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "residual", "residual-no-affine"])
+def test_affine_matmul_tc_kernel_matches_plain_on_card(cuda_device, mode):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, h, w, c, n in AFFINE_TC_SHAPES:
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * s
+        x = rnd(b, h, w, c).bfloat16()
+        wk = rnd(c, n, s=c ** -0.5).bfloat16()
+        bias = rnd(n)
+        st = ((None, None) if mode == "residual-no-affine"
+              else (1 + 0.3 * rnd(b, c), rnd(b, c)))
+        res = None if mode == "plain" else rnd(b, h, w, n).bfloat16()
+        if (b * h * w, c) == (128, 1280):
+            assert tgn.launch_config(b * h * w, c, n)["splits"] > 1
+        names = (("launches", "tc_launches") if res is None
+                 else ("res_launches", "res_tc_launches"))
+        before = [getattr(tgn, a) for a in names]
+        got = tgn.affine_matmul(x, wk, bias, *st, residual=res)
+        assert [getattr(tgn, a) for a in names] == [v + 1 for v in before]
+        assert torch.equal(tgn.affine_matmul(x, wk, bias, *st, residual=res),
+                           got)
+        ref = tgn.affine_matmul_reference(x, wk, bias, *st, residual=res)
+        err = _rel_err(got, ref)
+        assert err <= 2e-2, (b, h, w, c, n, err)
+
+
+LN_TC_SHAPES = [
+    # (x shape, n): GEGLU's proj_in N = 8C at M = 128 (C split), at the
+    # level-3 map (256-wide blocks, no split) and at the level-2 map; fused
+    # QKV N = 3C; cross-attention to_q N = C (128-wide blocks)
+    ((128, 1280), 10240), ((1024, 1280), 10240), ((2048, 640), 5120),
+    ((4096, 640), 1920), ((16384, 320), 320),
+    # ragged M, C and N; a batched (B, S, C) input
+    ((300, 320), 960), ((33, 37), 3), ((2, 77, 64), 130),
+]
+
+
+@pytest.mark.cuda
+def test_ln_matmul_tc_kernel_matches_plain_on_card(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for shape, n in LN_TC_SHAPES:
+        c = shape[-1]
+
+        def rnd(*s, sc=1.0):
+            return torch.randn(*s, generator=g, device=cuda_device) * sc
+        x = (rnd(*shape) * 2 + 0.5).bfloat16()
+        gamma, beta = 1 + 0.3 * rnd(c), 0.1 * rnd(c)
+        wk = rnd(c, n, sc=c ** -0.5).bfloat16()
+        bias = rnd(n)
+        if shape == (128, 1280):
+            assert tgn.launch_config(128, c, n)["splits"] > 1
+        before = (tln.launches, tln.tc_launches)
+        got = tln.ln_matmul(x, gamma, beta, wk, bias)
+        assert (tln.launches, tln.tc_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        assert got.shape == shape[:-1] + (n,)
+        for _ in range(3):
+            assert torch.equal(tln.ln_matmul(x, gamma, beta, wk, bias), got)
+        ref = tln.ln_matmul_reference(x, gamma, beta, wk, bias)
+        err = _rel_err(got, ref)
+        assert err <= 2e-2, (shape, n, err)

@@ -9,6 +9,7 @@ import re
 
 import pytest
 
+from blobctrl_torch.ops import _split
 from blobctrl_torch.ops import winograd as twg
 
 # (b, h, w, c, co) of every Winograd launch of a 512^2 fused edit
@@ -38,17 +39,17 @@ def test_launch_config_fills_the_card(b, h, w, c, co):
     cfg = twg.launch_config(b, h, w, c, co)
     blocks, n_blocks, splits = cfg["grid"]
     assert cfg["smem_bytes"] <= MAX_SMEM
-    assert blocks * n_blocks * splits >= twg.NUM_SMS, cfg
+    assert blocks * n_blocks * splits >= _split.NUM_SMS, cfg
     assert splits == cfg["splits"] >= 1
     slices = -(-c // twg.BLOCK_K)
     per = -(-slices // splits)
     assert -(-slices // per) == splits  # no split is empty
     if splits > 1:
-        assert per >= twg.MIN_SLICES_PER_SPLIT
+        assert per >= _split.MIN_SLICES_PER_SPLIT
         # a split only where it cuts the waves' work: waves x slices a block
         def work(s, per):
-            return -(-blocks * n_blocks * s // twg.NUM_SMS) * (
-                per + twg.SPLIT_OVERHEAD_SLICES)
+            return -(-blocks * n_blocks * s // _split.NUM_SMS) * (
+                per + _split.SPLIT_OVERHEAD_SLICES)
         assert work(splits, per) < work(1, slices)
 
 
