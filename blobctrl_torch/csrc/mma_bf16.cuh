@@ -1,9 +1,10 @@
 // Tensor-core and asynchronous-copy building blocks for sm_90a, shared by the
-// bf16 kernels of csrc/flash_attention.cu and csrc/winograd.cu: cp.async
-// (16-byte global -> shared copies, zero-filled when masked), ldmatrix (8x8
-// b16 tiles from shared memory into mma fragments, plain or transposed),
-// mma.sync m16n8k16 bf16 x bf16 -> fp32, and the special-function unit's
-// 2^x and tanh.
+// tensor-core kernels of csrc/: cp.async (16-byte global -> shared copies,
+// zero-filled when masked), ldmatrix (8x8 b16 tiles from shared memory into
+// mma fragments, plain or transposed), mma.sync m16n8k16 bf16 x bf16 ->
+// fp32, mma.sync m16n8k32 / m16n8k16 s8 x s8 -> s32 (the int8 kernels), and
+// the special-function unit's 2^x and tanh (never used by the int8 kernels,
+// whose elementwise math stays exactly the plain versions').
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
@@ -56,6 +57,33 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b on the tensor cores in exact int32, s8 operands, 32 deep
+// (m16n8k32). Fragments: each register holds 4 consecutive int8 along k;
+// with the rows of A and the columns of B as 16-byte rows in shared memory
+// (the k of both contiguous), ldmatrix (b16, no .trans) loads them:
+//   A (16 x 32): a0 = A[g][4t..4t+3], a1 = A[g+8][4t..], a2 = A[g][16+4t..],
+//                a3 = A[g+8][16+4t..];
+//   B (32 x 8):  b0 = B[4t..4t+3][g], b1 = B[16+4t..][g];
+//   C (16 x 8, s32): as the fp32 C of m16n8k16.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// The same, 16 deep (m16n8k16): a0 = A[g][4t..4t+3], a1 = A[g+8][4t..],
+// b0 = B[4t..4t+3][g].
+__device__ __forceinline__ void mma_s8_k16(int (&c)[4], uint32_t a0,
+                                           uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // Two floats rounded to nearest-even bf16, lo in the low half.

@@ -27,11 +27,14 @@ KERNELS = {
 
 
 # kernel name -> (module, counter): the launches of that kernel that the C
-# entry point reports as run on the tensor-core (bf16) kernel
+# entry point reports as run on its tensor-core kernel (bf16, and for the
+# int8 conv both dtypes)
 TENSOR_CORE = {
     "flash_attention": (flash_attention, "tc_launches"),
     "flash_attention_exp2": (flash_attention, "exp2_tc_launches"),
+    "flash_attention_int8": (flash_attention, "int8_tc_launches"),
     "conv3x3": (conv3x3, "tc_launches"),
+    "conv3x3_int8": (conv3x3, "int8_tc_launches"),
     "affine_matmul": (gn_matmul, "tc_launches"),
     "affine_matmul_residual": (gn_matmul, "res_tc_launches"),
     "ln_matmul": (ln_matmul, "tc_launches"),

@@ -46,10 +46,10 @@ SIGNATURES = {
     "flash_attention_int8": ("flash_attention_int8",
                              "flash_attention_int8_fwd",
                              (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                              _I, _P)),
+                              _I, _P, _IP)),
     "conv3x3_int8": ("conv3x3_int8", "conv3x3_int8_fwd",
-                     (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P)),
+                     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _P, _P, _IP)),
     "affine_matmul": ("norm_matmul", "affine_matmul_fwd",
                       (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P, _P, _IP)),
@@ -63,8 +63,8 @@ SIGNATURES = {
                    (_P, _P, _I, _I, _I, _I, _F, _F, _P)),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
-# What an entry point with a trailing int* writes back when its bf16
-# tensor-core kernel ran (0: the fp32 SIMT kernel).
+# What an entry point with a trailing int* writes back when its tensor-core
+# kernel ran (0: a SIMT kernel).
 DESIGN_TENSOR_CORES = 1
 
 _lock = threading.Lock()

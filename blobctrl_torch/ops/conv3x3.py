@@ -20,7 +20,13 @@ Counterpart of ``blobctrl_tpu/ops/conv3x3.py``. Two CUDA kernels:
   * ``csrc/conv3x3_int8.cu`` replaces ``_conv3x3_kernel_halo_i8``, the
     opt-in int8 mode (``set_conv_int8``): the same GEMM over int8
     activations under ONE activation scale and int8 weights under
-    per-output-channel scales, int32 accumulation, one fp32 rescale.
+    per-output-channel scales, int32 accumulation, one fp32 rescale. Both
+    dtypes run on the int8 tensor cores: a pre-pass kernel applies the
+    prologue and the quantize once per element into zero-padded int8 rows,
+    then the halo implicit GEMM runs on mma.sync s8, with the weights
+    K-major (``kmajor_weights``, cached beside ``kernel_q``) and C split by
+    waves (``launch_config_int8``) into int32 partial sums; the C entry
+    point reports the tensor cores (``int8_tc_launches``).
 
 With the Winograd switch on (``set_winograd``) and the int8 mode off, calls
 with even H and W go to ``ops.winograd.conv3x3_winograd`` instead.
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import weakref
 from typing import Optional
 
 import torch
@@ -59,6 +66,7 @@ launch_shapes = collections.Counter()      # (b, h, w, c, co, dtype, prologue) -
 tc_launches = 0                            # of those, on the tensor-core kernel
 int8_launches = 0                          # the same for the int8 kernel
 int8_launch_shapes = collections.Counter()  # (b, h, w, c, co, dtype, prologue, act_amax) -> launches
+int8_tc_launches = 0
 
 # 2-D transformer projections (and 1x1 proj convs) that quantize_conv_tree
 # also pre-quantizes, as the JAX package does for its int8 linear path
@@ -85,6 +93,50 @@ def launch_config(b: int, h: int, w: int, c: int, co: int) -> dict:
     splits = split_k(blocks * n_blocks, cdiv(c, BLOCK_K))
     return {"splits": splits, "grid": (blocks, n_blocks, splits),
             "smem_bytes": SMEM_BYTES}
+
+
+# The int8 kernel's block (csrc/conv3x3_int8.cu): the same patch and Co
+# block as the bf16 kernel, C in INT8_BLOCK_K-channel slices; two int8
+# halo stages and INT8_B_STAGES K-major weight slices, rows of INT8_ROW_LD
+# bytes.
+INT8_BLOCK_K, INT8_B_STAGES = 64, 4
+INT8_ROW_LD = INT8_BLOCK_K + 16
+INT8_SMEM_BYTES = (2 * (PATCH_H + 2) * (PATCH_W + 2) * INT8_ROW_LD
+                   + INT8_B_STAGES * BLOCK_N * INT8_ROW_LD)
+
+
+def launch_config_int8(b: int, h: int, w: int, c: int, co: int) -> dict:
+    """The int8 kernel's launch for an NHWC (b, h, w, c) -> co conv: the
+    number of C splits (``_split.split_k``), the grid (patches, Co blocks,
+    splits) and the shared memory."""
+    blocks = b * cdiv(h, PATCH_H) * cdiv(w, PATCH_W)
+    n_blocks = cdiv(co, BLOCK_N)
+    splits = split_k(blocks * n_blocks, cdiv(c, INT8_BLOCK_K))
+    return {"splits": splits, "grid": (blocks, n_blocks, splits),
+            "smem_bytes": INT8_SMEM_BYTES}
+
+
+# id(kernel_q) -> (weak reference to kernel_q, its K-major copy)
+_KMAJOR = {}
+
+
+def kmajor_weights(kernel_q: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's weights: (3, 3, C, Co) HWIO int8 -> (9, Co, Cp)
+    int8, C contiguous and zero-padded to Cp = C rounded up to 16, so that
+    each output channel's channels are a row of 16-byte copies and the s8
+    B fragment's 4 consecutive channels come by ldmatrix. Made once per
+    ``kernel_q`` and kept while it lives, outside the parameter tree."""
+    hit = _KMAJOR.get(id(kernel_q))
+    if hit is not None and hit[0]() is kernel_q:
+        return hit[1]
+    c, co = kernel_q.shape[2], kernel_q.shape[3]
+    wt = torch.zeros((9, co, cdiv(c, 16) * 16), dtype=torch.int8,
+                     device=kernel_q.device)
+    wt[:, :, :c] = kernel_q.reshape(9, c, co).transpose(1, 2)
+    key = id(kernel_q)
+    _KMAJOR[key] = (weakref.ref(kernel_q, lambda _: _KMAJOR.pop(key, None)),
+                    wt)
+    return wt
 
 
 def set_conv_int8(flag: bool, act_amax: Optional[float] = "unset"):
@@ -318,10 +370,10 @@ def conv3x3_int8(x: torch.Tensor, kernel_q: torch.Tensor,
     tensors take the plain version.
 
     With a static act_amax the kernel applies the prologue, rounds it to x's
-    dtype and quantizes as it loads x. With act_amax=None the prologue runs
+    dtype and quantizes, in a pre-pass over x. With act_amax=None the prologue runs
     here in plain torch first, since its max-abs sets the scale, and the
     kernel takes the activations without a prologue."""
-    global int8_launches
+    global int8_launches, int8_tc_launches
     if x.device.type == "cpu" and kernel_q.device.type == "cpu":
         return conv3x3_int8_reference(x, kernel_q, w_scale, bias, scale,
                                       shift, act_amax)
@@ -337,14 +389,23 @@ def conv3x3_int8(x: torch.Tensor, kernel_q: torch.Tensor,
     xs = act_scale(x, act_amax)
     bias32, scale32, shift32 = _epilogue_args(x, co, bias, scale, shift)
     ws32 = w_scale.float().contiguous()
+    splits = launch_config_int8(b, h, wd, c, co)["splits"]
+    work = (torch.empty((splits, b, h, wd, co), device=x.device,
+                        dtype=torch.int32) if splits > 1 else None)
+    # the quantized activations, rows padded to 16 bytes
+    q8 = torch.empty((b, h, wd, cdiv(c, 16) * 16), device=x.device,
+                     dtype=torch.int8)
     fn = _build.entry("conv3x3_int8")
     out = torch.empty((b, h, wd, co), device=x.device, dtype=x.dtype)
-    rc = fn(x.data_ptr(), kernel_q.data_ptr(), ws32.data_ptr(),
-            bias32.data_ptr(), _ptr(scale32), _ptr(shift32), xs.data_ptr(),
-            out.data_ptr(), b, h, wd, c, co, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+    design = ctypes.c_int(-1)
+    rc = fn(x.data_ptr(), kmajor_weights(kernel_q).data_ptr(),
+            ws32.data_ptr(), bias32.data_ptr(), _ptr(scale32), _ptr(shift32),
+            xs.data_ptr(), q8.data_ptr(), out.data_ptr(), b, h, wd, c, co,
+            _DTYPES[x.dtype], splits, _ptr(work), _build.stream(x.device),
+            ctypes.byref(design))
     _build.check("conv3x3_int8", rc)
     int8_launches += 1
+    int8_tc_launches += design.value == _build.DESIGN_TENSOR_CORES
     int8_launch_shapes[(b, h, wd, c, co, str(x.dtype), prologue,
                         act_amax)] += 1
     return out

@@ -18,7 +18,9 @@ materializes an S x S fp32 score matrix in device memory:
     global k scale, the int8-everything mode) and, with ``global_k=False``,
     ``_flash_kernel_int8`` (per-row k scales). q and k are quantized here in
     plain torch, as the JAX package quantizes them with XLA ops outside its
-    kernels.
+    kernels, and handed over in rows zero-padded to 16 bytes. bf16 runs on
+    the tensor cores (s8 mma.sync for q.k^T, bf16 for P.V), fp32 on the SIMT
+    kernel; the C entry point reports which ran (``int8_tc_launches``).
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from blobctrl_torch.ops import _build
+from blobctrl_torch.ops._split import cdiv
 from blobctrl_torch.ops.conv3x3 import INV127
 
 MAX_HEAD_DIM = 160
@@ -49,6 +53,11 @@ exp2_launch_shapes = collections.Counter()  # (bh, sq, skv, d, dtype) -> launche
 exp2_tc_launches = 0
 int8_launches = 0                          # the same for the int8 kernel
 int8_launch_shapes = collections.Counter()  # (bh, sq, skv, d, dtype, global_k) -> launches
+int8_tc_launches = 0
+
+# The bf16 int8 kernel's block (csrc/flash_attention_int8.cu): INT8_BLOCK_Q
+# query rows, keys in INT8_BLOCK_KV-row tiles through INT8_STAGES stages.
+INT8_BLOCK_Q, INT8_BLOCK_KV, INT8_STAGES = 128, 64, 3
 
 
 def set_exp2_fold(flag: bool):
@@ -208,6 +217,34 @@ def int8_operands(q: torch.Tensor, k: torch.Tensor, scale: float,
     return q8, qs * (scale * LOG2E) * ka, k8, None
 
 
+def int8_rows(t8: torch.Tensor) -> torch.Tensor:
+    """An int8 (BH, S, D) tensor as the kernels take it: rows zero-padded
+    to ``row_bytes(D)`` (16-byte aligned rows; zeros add nothing to an
+    integer sum)."""
+    d = t8.shape[-1]
+    pad = row_bytes(d) - d
+    return F.pad(t8, (0, pad)) if pad else t8.contiguous()
+
+
+def row_bytes(d: int) -> int:
+    """The padded int8 row length the kernels take for head dim d."""
+    return cdiv(d, 16) * 16
+
+
+def launch_config_int8(bh: int, sq: int, skv: int, d: int) -> dict:
+    """The bf16 int8 kernel's launch: its (DK, DN) specialisation (q.k^T
+    depth in bytes, P.V columns), the padded row length of q8 and k8, the
+    grid (query blocks, bh) and the shared memory, as the kernel computes
+    them."""
+    dk, dn = (48, 40) if d <= 40 else (80, 80) if d <= 80 else (160, 160)
+    qk_ld = dk if (dk // 16) % 2 else dk + 16
+    v_ld = cdiv(dn, 16) * 16 + 8
+    smem = ((INT8_BLOCK_Q + INT8_STAGES * INT8_BLOCK_KV) * qk_ld
+            + 2 * INT8_STAGES * INT8_BLOCK_KV * v_ld)
+    return {"dk": dk, "dn": dn, "row_bytes": row_bytes(d),
+            "grid": (cdiv(sq, INT8_BLOCK_Q), bh), "smem_bytes": smem}
+
+
 def _require_fixed_max(fixed_max):
     if fixed_max is None:
         raise ValueError(
@@ -245,7 +282,7 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     multipliers. global_k selects one k scale for the whole call (the
     int8-everything mode) over per-row k scales. There is no running-max
     mode: fixed_max=None raises. CPU tensors take the plain version."""
-    global int8_launches
+    global int8_launches, int8_tc_launches
     _require_fixed_max(fixed_max)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
@@ -254,13 +291,16 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, sq, skv, d = _check_args("flash_attention_int8", q, k, v)
     q8, rq, k8, ks = int8_operands(q, k, scale, global_k)
     fm = fixed_max * LOG2E if global_k else fixed_max
+    q8, k8 = int8_rows(q8), int8_rows(k8)
     fn = _build.entry("flash_attention_int8")
     out = torch.empty_like(q)
+    design = ctypes.c_int(-1)
     rc = fn(q8.data_ptr(), k8.data_ptr(), v.data_ptr(), rq.data_ptr(),
             None if ks is None else ks.data_ptr(), out.data_ptr(), bh, sq,
             skv, d, ctypes.c_float(fm), int(global_k), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _build.stream(q.device), ctypes.byref(design))
     _build.check("flash_attention_int8", rc)
     int8_launches += 1
+    int8_tc_launches += design.value == _build.DESIGN_TENSOR_CORES
     int8_launch_shapes[(bh, sq, skv, d, str(q.dtype), global_k)] += 1
     return out

@@ -13,7 +13,15 @@ script exits non-zero:
      as the fused-kernel edit), in bf16 and fp32, flash attention in both
      softmax modes, int8 flash attention in both k-scale modes, the
      GroupNorm -> projection GEMM in its plain and residual modes. bf16
-     within 2e-2 of max |plain|, fp32 (TF32 off) within 1e-4. The blob
+     within 2e-2 of max |plain|, fp32 (TF32 off) within 1e-4; the int8
+     conv without a prologue bit-equal to its plain version in both dtypes
+     (its integer sums are exact; with the prologue, the number of outputs
+     that differ is logged). The int8 flash kernel's plain-torch pre-pass
+     (``int8_operands`` and the row padding) is timed alone and its share
+     logged, and, for information only, cuBLASLt's int8 product
+     ``torch._int_mm`` at each int8 conv's (M, 9C, Co) where its shape rules
+     allow it: a yardstick of the product rate, not a library time of the
+     function. The blob
      splat (fp32 only) at the session's view (1, 512, 512, M=1) and at
      M = 3, 11 and a 1024^2 grid, within 1e-5 absolute, timed from its
      parameter rows (built in plain torch before kernel or plain version,
@@ -26,10 +34,12 @@ script exits non-zero:
   3. The trained 256^2 toy checkpoint: a move and a remove edit (20 steps,
      fp32), exact, in the int8-everything mode and as the fused-kernel
      edit, on the card with the kernels and on the CPU with the plain
-     route; PSNR of card against CPU >= 40 dB; the mode's kernels launched.
-     Then the bf16 pass, which runs the tensor-core kernels on trained
-     weights (fp32 picks the SIMT kernels): the move edit, exact and fused,
-     loaded in bf16 on the card and on the CPU. Its floor f is PSNR(CPU
+     route; PSNR of card against CPU >= 40 dB; the mode's kernels launched,
+     every int8 conv launch on the tensor cores (both dtypes run there).
+     Then the bf16 pass, which runs the bf16 tensor-core kernels on trained
+     weights (fp32 keeps the SIMT flash, direct-conv, GEMM and Winograd
+     kernels): the move edit, exact, fused and int8, loaded in bf16 on the
+     card and on the CPU. Its floor f is PSNR(CPU
      bf16, CPU fp32), what bf16 rounding alone costs, measured in the same
      run; the bar is PSNR(card bf16, CPU fp32) >= f - BF16_MARGIN_DB, so
      the kernels may add little beyond it. PSNR(card bf16, CPU bf16) is
@@ -46,8 +56,10 @@ script exits non-zero:
      are dropped before each path, so each peak holds only its own. Every
      bf16 launch of the exact and fused paths' kernels (flash, exp2-folded
      flash, conv3x3, the two normalize GEMMs, Winograd: ``ops.
-     TENSOR_CORE``) must have run on its tensor-core kernel, as the C entry
-     point reports it.
+     TENSOR_CORE``), and of the int8 path's int8 flash and int8 conv, must
+     have run on its tensor-core kernel, as the C entry point reports it.
+     The int8 edit also logs its K-major int8 weight copies and its largest
+     int32 split workspace.
   5. The interactive session at full width, bf16: CLIP ViT-L/14 text and
      DINOv2-large added to phase 4's pipeline (random weights drawn on the
      card, a byte-level vocabulary built in code), ``BlobCtrlSession``:
@@ -191,9 +203,17 @@ def flash_int8_case(key, dtype, gen):
                                                   global_k=gk),
         plain=lambda gk: fa.flash_attention_int8_reference(q, k, v, scale,
                                                            global_k=gk),
-        library=None,
+        library=None, prepass=lambda: _int8_prepass(q, k, scale),
         ops_ms=1e3 * (prod / PEAK_INT8_OPS + prod / PEAK_BF16_FLOPS),
         exp_ms=_exp_ms(key), nbytes=nbytes)
+
+
+def _int8_prepass(q, k, scale):
+    """The int8 flash wrapper's plain-torch pre-pass in global-k mode: the
+    quantize and the row padding."""
+    from blobctrl_torch.ops import flash_attention as fa
+    q8, rq, k8, _ = fa.int8_operands(q, k, scale, True)
+    return fa.int8_rows(q8), rq, fa.int8_rows(k8)
 
 
 def _conv_inputs(key, dtype, gen):
@@ -235,15 +255,28 @@ def conv_int8_case(key, dtype, gen):
     x, k, bias, pro, ops, nbytes = _conv_inputs(key, dtype, gen)
     kq, ws = cv.quantize_kernel_i8(k)
     amax = key[7]
+    b, h, w, c, co = key[:5]
     return dict(
         modes=(None,), labels=("",),
         kernel=lambda _: cv.conv3x3_int8(x, kq, ws, bias, *pro,
                                          act_amax=amax),
         plain=lambda _: cv.conv3x3_int8_reference(x, kq, ws, bias, *pro,
                                                   act_amax=amax),
-        library=None,
+        library=None, exact=not key[6], count_differ=True,
+        int_mm=lambda: int_mm_ms(b * h * w, 9 * c, co),
         ops_ms=1e3 * ops / PEAK_INT8_OPS,
         nbytes=nbytes + kq.numel() + 4 * ws.numel())
+
+
+def int_mm_ms(m, k, n):
+    """cuBLASLt's int8 product (m, k) @ (k, n) -> int32 (``torch._int_mm``),
+    or None where its shape rules refuse it (m > 16, k and n multiples of
+    8). For information: the rate of the int8 product alone."""
+    if m <= 16 or k % 8 or n % 8:
+        return None
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda")
+    bt = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda")
+    return time_ms(lambda: torch._int_mm(a, bt.t()))
 
 
 def flash_exp2_case(key, dtype, gen):
@@ -380,12 +413,20 @@ def check_kernels(shapes):
                     got = case["kernel"](mode)
                     torch.cuda.synchronize()
                     abs_err, rel = rel_err(got, ref)
+                    differ = (f", {int((got != ref).sum())} of "
+                              f"{got.numel()} outputs differ"
+                              if case.get("count_differ") else "")
                     del ref, got
                     tag = (f"{shape_label(name, key)} {str(dtype)[6:]} "
                            f"{case['labels'][i]}").rstrip()
-                    ok = rel <= TOL[dtype]
+                    if case.get("exact"):
+                        ok = abs_err == 0.0
+                        bar = "bit-equal"
+                    else:
+                        ok = rel <= TOL[dtype]
+                        bar = f"tol {TOL[dtype]:.0e}"
                     log(f"  {tag}: max_abs {abs_err:.3e} rel {rel:.3e} "
-                        f"(tol {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+                        f"({bar}{differ}) {'ok' if ok else 'FAIL'}")
                     if not ok:
                         raise AssertionError(f"{tag}: rel {rel}")
                     row["max_abs_err"] = max(row["max_abs_err"], abs_err)
@@ -406,6 +447,17 @@ def check_kernels(shapes):
                     if "direct_ops_ms" in case:
                         row["direct_bound_ms"] = max(case["direct_ops_ms"],
                                                      row["bytes_ms"])
+                    if "prepass" in case:
+                        row["prepass_ms"] = time_ms(case["prepass"])
+                        log(f"    pre-pass (plain torch) {row['prepass_ms']:.4f}"
+                            f" ms of the wrapper's {row['ms']:.4f} "
+                            f"({100 * row['prepass_ms'] / row['ms']:.1f} %)")
+                    if "int_mm" in case:
+                        row["int_mm_ms"] = case["int_mm"]()
+                        log("    torch._int_mm (M, 9C, Co), for information: "
+                            + ("refused by its shape rules"
+                               if row["int_mm_ms"] is None
+                               else f"{row['int_mm_ms']:.4f} ms"))
                     lib = row["library_ms"]
                     others = "".join(
                         f" ({label} {row[label + ':ms']:.4f}, plain "
@@ -622,10 +674,13 @@ def toy_phase():
                     and np.isfinite(got).all()):
                 raise AssertionError(f"toy {mode} {name}: PSNR {p}, "
                                      f"launches {counts}")
+            if mode == "int8":  # the int8 conv: tensor cores in fp32 too
+                check_tensor_cores(f"toy 256^2 fp32 int8 {name}", counts,
+                                   ("conv3x3_int8",))
     del card
     card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.bfloat16)
     cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.bfloat16)
-    for mode in ("exact", "fused"):
+    for mode in ("exact", "fused", "int8"):
         with mode_context(mode):
             ops.reset_counts()
             got = card(**edits["move"]).images
@@ -665,6 +720,17 @@ def full_width_requests(steps: int):
                                          np.float32))
     return [("edit", benchkit.standard_edit_kwargs(size, steps)),
             ("edit2", move2), ("remove", remove)]
+
+
+def int8_workspace_mib(shapes) -> float:
+    """The largest int32 split workspace of the int8 conv's launches."""
+    from blobctrl_torch.ops import conv3x3
+    most = 0
+    for b, h, w, c, co, *_ in shapes["conv3x3_int8"]:
+        splits = conv3x3.launch_config_int8(b, h, w, c, co)["splits"]
+        if splits > 1:
+            most = max(most, 4 * splits * b * h * w * co)
+    return most / 2 ** 20
 
 
 def run_request(pipe, kw):
@@ -864,6 +930,12 @@ def main() -> int:
         ops.reset_counts()
         with mode_context(mode):
             out, secs, launches, mem = run_request(pipe, requests[0][1])
+        if mode == "int8":
+            kmajor = sum(w.numel() for _, w in conv3x3._KMAJOR.values())
+            log(f"  edit, int8: K-major int8 weight copies "
+                f"{kmajor / 2 ** 20:.1f} MiB ({len(conv3x3._KMAJOR)} convs), "
+                f"largest int32 split workspace "
+                f"{int8_workspace_mib(launch_shapes()):.1f} MiB")
         pipe._param_cache.clear()
         log(f"  edit, {mode}: {secs:.3f} s, launches {launches}, peak "
             f"memory {mem:.2f} GiB, PSNR against the exact edit "
@@ -947,6 +1019,19 @@ def main() -> int:
                 f"Winograd launches, phase 2's medians at the same shapes: "
                 f"{direct:.1f} ms against Winograd's (K12) {entry['ms']:.1f}"
                 f" ms")
+        if name == "flash_attention_int8":
+            pre = weighted("prepass_ms")
+            log(f"  {name}: the plain-torch pre-pass takes {pre:.1f} ms of "
+                f"the wrapper's {entry['ms']:.1f} "
+                f"({100 * pre / entry['ms']:.1f} %), the kernel about "
+                f"{entry['ms'] - pre:.1f} ms")
+        if name == "conv3x3_int8":
+            mm = {k: results[name][k]["int_mm_ms"] for k in counts[name]}
+            done = sum(v * counts[name][k] for k, v in mm.items()
+                       if v is not None)
+            log(f"  {name}: torch._int_mm at the (M, 9C, Co) it takes, "
+                f"weighted, for information: {done:.1f} ms (it refuses "
+                f"{sum(v is None for v in mm.values())} of {len(mm)} shapes)")
         for label, what in OTHER_MODE.get(name, ()):
             lib = weighted("library_ms")
             log(f"  {name}, {what} (on no main path), weighted by the main "

@@ -573,3 +573,103 @@ def test_ln_matmul_tc_kernel_matches_plain_on_card(cuda_device):
         ref = tln.ln_matmul_reference(x, gamma, beta, wk, bias)
         err = _rel_err(got, ref)
         assert err <= 2e-2, (shape, n, err)
+
+
+# The int8 kernels on the tensor cores: every bf16 launch of the int8 flash
+# kernel and every launch of the int8 conv (both dtypes) must be reported by
+# the C entry point as the tensor-core kernel (``int8_tc_launches``).
+FLASH_INT8_TC_SHAPES = [
+    # the main path: the top level (D = 40) and the second (D = 80)
+    (16, 8192, 8192, 40), (8, 2048, 2048, 80),
+    # ragged Sq and Skv against the 128-row query and 64-key tiles
+    (3, 200, 333, 40), (2, 130, 1000, 80), (1, 129, 65, 40),
+    # D in {16, 41, 160, 20}: every specialisation, rows padded to 16 bytes,
+    # D not a multiple of 8 (masked v loads)
+    (2, 100, 256, 16), (1, 64, 70, 160), (2, 96, 200, 41), (1, 77, 90, 20),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("global_k", [True, False])
+def test_flash_int8_tc_kernel_matches_plain_on_card(cuda_device, global_k):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for bh, sq, skv, d in FLASH_INT8_TC_SHAPES:
+        q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+                   .bfloat16() for s in (sq, skv, skv))
+        before = (tfa.int8_launches, tfa.int8_tc_launches)
+        got = tfa.flash_attention_int8(q, k, v, d ** -0.5, global_k=global_k)
+        assert (tfa.int8_launches, tfa.int8_tc_launches) == (before[0] + 1,
+                                                             before[1] + 1)
+        # integer scores are exact and the rest runs in a fixed order
+        assert torch.equal(
+            tfa.flash_attention_int8(q, k, v, d ** -0.5, global_k=global_k),
+            got)
+        ref = tfa.flash_attention_int8_reference(q, k, v, d ** -0.5,
+                                                 global_k=global_k)
+        err = _rel_err(got, ref)
+        del ref
+        assert err <= 2e-2, (bh, sq, skv, d, err)
+
+
+CONV_INT8_TC_SHAPES = [
+    # (b, h, w, c, co): the 1029-channel BlobNet conv_in (masked halo loads)
+    (1, 64, 128, 1029, 320),
+    # the 8 x 16 maps at C = 1280 and 2560: C split across many blocks
+    (1, 8, 16, 1280, 1280), (2, 8, 16, 2560, 1280),
+    # ragged patches, Co no multiple of 8 nor of the 128-wide block, C no
+    # multiple of the 64-channel slice, C = 37 (masked loads in both dtypes)
+    (2, 13, 21, 72, 130), (1, 16, 8, 37, 40), (2, 9, 17, 40, 3),
+    # the VAE's 512 x 512 x 128 convs
+    (1, 512, 512, 128, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_conv3x3_int8_tc_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                                      prologue):
+    """Without a prologue the int32 sum and the epilogue are the plain
+    version's, bit for bit; with one, expf may move a quantization level."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, h, w, c, co in CONV_INT8_TC_SHAPES:
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * s
+        x = (4 * rnd(b, h, w, c)).to(dtype)
+        kq, ws = tconv.quantize_kernel_i8(rnd(3, 3, c, co, s=(9 * c) ** -0.5))
+        bias = rnd(co)
+        pro = (1 + 0.3 * rnd(b, c), rnd(b, c)) if prologue else (None, None)
+        if (h, w) == (8, 16):
+            assert tconv.launch_config_int8(b, h, w, c, co)["splits"] > 1
+        before = (tconv.int8_launches, tconv.int8_tc_launches)
+        got = tconv.conv3x3_int8(x, kq, ws, bias, *pro)
+        assert (tconv.int8_launches, tconv.int8_tc_launches) == (
+            before[0] + 1, before[1] + 1)
+        # a thread reads only what it waited for: launches agree bit for bit
+        assert torch.equal(tconv.conv3x3_int8(x, kq, ws, bias, *pro), got)
+        ref = tconv.conv3x3_int8_reference(x, kq, ws, bias, *pro)
+        if prologue:
+            err = _rel_err(got, ref)
+            assert err <= tol, (b, h, w, c, co, err)
+        else:
+            assert torch.equal(got, ref), (b, h, w, c, co, _rel_err(got, ref))
+
+
+@pytest.mark.cuda
+def test_int8_kernels_report_their_design(cuda_device):
+    """fp32 int8 flash stays on the SIMT kernel; the int8 conv runs on the
+    tensor cores in both dtypes."""
+    q = torch.randn(1, 70, 40, device=cuda_device)
+    x = torch.randn(1, 8, 16, 32, device=cuda_device)
+    kq, ws = tconv.quantize_kernel_i8(torch.randn(3, 3, 32, 8,
+                                                  device=cuda_device))
+    before = (tfa.int8_launches, tfa.int8_tc_launches, tconv.int8_launches,
+              tconv.int8_tc_launches)
+    tfa.flash_attention_int8(q, q, q, 0.2)
+    tfa.flash_attention_int8(q.bfloat16(), q.bfloat16(), q.bfloat16(), 0.2)
+    tconv.conv3x3_int8(x, kq, ws)
+    tconv.conv3x3_int8(x.bfloat16(), kq, ws)
+    assert (tfa.int8_launches, tfa.int8_tc_launches, tconv.int8_launches,
+            tconv.int8_tc_launches) == (before[0] + 2, before[1] + 1,
+                                        before[2] + 2, before[3] + 2)
