@@ -1,9 +1,9 @@
 """Blob visualization: composited score maps -> RGB images, ellipse
 overlays and masks (counterpart of ``blobctrl_tpu/blob/viz.py``).
 
-The blob view splats at full resolution through ``ops.blob_splat``'s
-routing (the hand-written kernel on the card); the ellipse rasters are the
-port's own copy of OpenCV's (``blob/raster``), bit for bit.
+The blob view splats, colours and converts to uint8 at full resolution in
+one launch of ``ops.blob_splat``'s kernel on the card; the ellipse rasters
+are the port's own copy of OpenCV's (``blob/raster``), bit for bit.
 """
 
 from __future__ import annotations
@@ -73,17 +73,32 @@ def blob_vis_image(xs, ys, covs, sizes, viz_hw: Tuple[int, int],
                    palette: Optional[np.ndarray] = None,
                    device="cuda") -> np.ndarray:
     """Splat blobs at full resolution on ``device`` and color them:
-    (H, W, 3) uint8."""
+    (H, W, 3) uint8 of image 0. Routed by shape as the JAX package routes
+    its splat: large grids whose width is a multiple of 128 take
+    ``ops.blob_splat.blob_view`` (one kernel launch on the card, after one
+    upload of the inputs and colours; the plain version on the CPU), the
+    rest the pure splat of ``blob.math``."""
     dev = resolve_device(device)
+    h, w = viz_hw
+    xs = np.asarray(xs, np.float32)
+    m = xs.shape[1]
+    pal = palette if palette is not None else default_palette()
+    if h * w >= 128 * 128 and w % 128 == 0:
+        parts = (xs[0], ys[0], covs[0], sizes[0], pal[:m + 1])
+        buf = torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.float32).ravel() for a in parts])).to(dev)
+        xs_t, ys_t, covs_t, sizes_t, colors = torch.split(
+            buf, [m, m, 4 * m, m, buf.numel() - 7 * m])
+        return blob_splat.blob_view(
+            xs_t[None], ys_t[None], covs_t.view(1, m, 2, 2), sizes_t[None],
+            viz_hw, colors.view(-1, 3)).cpu().numpy()
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    d_scores = blob_splat.splat_scores_auto(t(xs), t(ys), t(covs), t(sizes),
-                                            viz_hw)   # (N, H, W, M+1)
-    m1 = d_scores.shape[-1]
-    pal = palette if palette is not None else default_palette()
-    colors = t(pal[:m1])[None]                        # (1, M+1, 3)
+    d_scores = blob_math.splat_scores(t(xs), t(ys), t(covs), t(sizes),
+                                      viz_hw)   # (N, H, W, M+1)
+    colors = t(pal[:m + 1])[None]               # (1, M+1, 3)
     img = blob_math.splat_features_from_scores(d_scores, colors)
     arr = np.clip(img[0].cpu().numpy(), 0.0, 1.0)
     return (arr * 255).astype(np.uint8)

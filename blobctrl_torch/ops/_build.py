@@ -60,7 +60,8 @@ SIGNATURES = {
                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                   _IP)),
     "blob_splat": ("blob_splat", "blob_splat_fwd",
-                   (_P, _P, _I, _I, _I, _I, _F, _F, _P)),
+                   (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+                    _P)),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 # What an entry point with a trailing int* writes back when its tensor-core

@@ -22,10 +22,12 @@ script exits non-zero:
      ``torch._int_mm`` at each int8 conv's (M, 9C, Co) where its shape rules
      allow it: a yardstick of the product rate, not a library time of the
      function. The blob
-     splat (fp32 only) at the session's view (1, 512, 512, M=1) and at
-     M = 3, 11 and a 1024^2 grid, within 1e-5 absolute, timed from its
-     parameter rows (built in plain torch before kernel or plain version,
-     timed apart). Times (CUDA
+     splat (fp32 only) from the raw blob inputs at (1, 512, 512, M=1) and
+     at M = 3, 11 and a 1024^2 grid, within 1e-5 absolute, the rows its
+     prologue computes bit-equal to ``splat_params``; its view mode (image
+     0 coloured, uint8) at 512^2 and 1024^2 bit-equal to its plain
+     version; each by wall time (events around the host call), and by
+     device time (``torch.profiler``) after phase 5. Times (CUDA
      events, median of 10 after warm-up), in bf16, of each mode: the
      kernel, its plain version, and one PyTorch library call computing the
      same function where there is one (none computes either int8 function;
@@ -65,7 +67,8 @@ script exits non-zero:
      card, a byte-level vocabulary built in code), ``BlobCtrlSession``:
      a seeded 640x480 image (resized), a mask from the port's raster, the
      blob fitted and moved, resized and rotated with the blob view after
-     each step (the splat kernel), the view against the same call on the
+     each step (one splat launch per view, and no plain splat or colour
+     pass), the view against the same call on the
      CPU (<= 1 uint8 level), then three STEPS-step runs from a text prompt
      and the object image: an edit, another after a move (the prompt and
      DINOv2 memos hit), and a remove. Counters zeroed before, read after;
@@ -77,7 +80,8 @@ script exits non-zero:
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
 kernels' from the exact requests, the int8 kernels' from the int8 one, the
 fused-kernel edit's four from the fused one);
-the splat's from phase 5;
+the splat's from phase 5 (its views), with ``device_ms`` beside its wall
+``ms``;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
 those launches, from the per-shape medians of phase 2 weighted by phase 4's
 per-shape launch counts. ``bound_ms`` is the largest of bytes (each input
@@ -90,14 +94,16 @@ SMs x ``nvidia-smi --query-gpu=clocks.max.sm``; ``bound_ops`` says
 whether the exponentials ("exp") or the products ("tensor") bind. The
 Winograd conv's operations are its own multiply count, 4*C*Co MACs per
 output pixel (the direct conv's 9*C*Co is logged beside it). The splat's
-operations are fp32 arithmetic (about 20 per pixel and blob) at 67
-TFLOP/s; its bytes, the parameter rows read and the N*H*W*(M+1) fp32
-output written, bound it.
+operations are fp32 arithmetic (about 20 per pixel and blob, and in the
+view mode 6 per pixel and channel for the colours) at 67 TFLOP/s; its
+bytes, the raw blob inputs read and the N*H*W*(M+1) fp32 output (the
+view: H*W*3 uint8) written, bound it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -118,6 +124,7 @@ EXP_RATE = None        # exponentials per second: SMs x 16 x the max SM clock (m
 SPLAT_TOL = 1e-5  # absolute: the splat's outputs lie in [0, 1]
 SPLAT_SHAPES = ((1, 512, 512, 1), (1, 512, 512, 3), (2, 512, 512, 11),
                 (1, 1024, 1024, 4))  # (n, h, w, m)
+VIEW_SIZES = (512, 1024)  # the view mode's canvases (M = 1), 512 the session's
 PROMPT = "a red ball on a table"
 SESSION_SIZE = 512  # the session's canvas (the pipeline's height and width)
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -372,8 +379,8 @@ CASES = {"flash_attention": flash_case, "conv3x3": conv_case,
 
 def shape_label(name, key) -> str:
     if name == "blob_splat":
-        n, h, w, m = key
-        return f"{name} n={n} h={h} w={w} m={m}"
+        n, h, w, m, mode = key
+        return f"{name} n={n} h={h} w={w} m={m} {mode}"
     if name.startswith("flash_attention"):
         bh, sq, skv, d = key[:4]
         return f"{name} bh={bh} sq={sq} skv={skv} d={d}"
@@ -478,48 +485,143 @@ def check_kernels(shapes):
     return results
 
 
-def check_splat():
-    """The blob splat at SPLAT_SHAPES, fp32, kernel against its plain
-    version on the card. -> {(n, h, w, m): numbers}."""
-    from blobctrl_torch.ops import blob_splat
-    rng = np.random.RandomState(0)
-    results = {}
-    for n, h, w, m in SPLAT_SHAPES:
-        xs, ys = (rng.uniform(0.1, 0.9, (n, m)) for _ in range(2))
-        a, b = rng.uniform(0.002, 0.05, (2, n, m))
-        rho = rng.uniform(-0.8, 0.8, (n, m)) * np.sqrt(a * b)
-        covs = np.stack([np.stack([a, rho], -1), np.stack([rho, b], -1)], -2)
-        sizes = np.ones((n, m))
-        if m >= 3:
-            sizes[0, 1] = 0.0  # a gated blob
-        args = [torch.tensor(v, dtype=torch.float32, device="cuda")
-                for v in (xs, ys, covs, sizes)]
-        params = blob_splat.splat_params(*args, (h, w))
-        got = blob_splat.splat_scores(*args, (h, w))
-        ref = blob_splat.splat_scores_plain(params, h, w)
-        rows_ms = time_ms(lambda: blob_splat.splat_params(*args, (h, w)))
+def device_ms(fn, reps: int = 20):
+    """Mean device time of one call (the sum of every kernel it runs), from
+    ``torch.profiler``, so the host's launch overhead is left out; None
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        ok = err <= SPLAT_TOL and bool(torch.isfinite(got).all())
-        log(f"  blob_splat n={n} h={h} w={w} m={m} fp32: max_abs {err:.3e} "
-            f"(tol {SPLAT_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    total_us = sum(getattr(ev, "device_time_total", None)
+                   or getattr(ev, "cuda_time_total", 0)
+                   for ev in prof.key_averages())
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def _blob_inputs(rng, n, m):
+    """Blobs on the card: centres, covariances, sizes (a gated blob where
+    m >= 3)."""
+    xs, ys = (rng.uniform(0.1, 0.9, (n, m)) for _ in range(2))
+    a, b = rng.uniform(0.002, 0.05, (2, n, m))
+    rho = rng.uniform(-0.8, 0.8, (n, m)) * np.sqrt(a * b)
+    covs = np.stack([np.stack([a, rho], -1), np.stack([rho, b], -1)], -2)
+    sizes = np.ones((n, m))
+    if m >= 3:
+        sizes[0, 1] = 0.0
+    return [torch.tensor(v, dtype=torch.float32, device="cuda")
+            for v in (xs, ys, covs, sizes)]
+
+
+def _splat_plain(args, h, w):
+    """The scores' plain version from the raw inputs: rows, then scores."""
+    from blobctrl_torch.ops import blob_splat as bs
+    return bs.splat_scores_plain(bs.splat_params(*args, (h, w)), h, w)
+
+
+def check_splat():
+    """The blob splat (fp32) on the card: at SPLAT_SHAPES the raw-input
+    kernel against its plain version (the rows of its prologue bit-equal to
+    ``splat_params``, the scores within SPLAT_TOL), at VIEW_SIZES the view
+    mode bit-equal to its plain version; each timed by wall time (events
+    around the host call) beside its bound. -> ({(n, h, w, m, mode):
+    numbers}, {key: the kernel's call}) for ``splat_device_times``."""
+    from blobctrl_torch.blob import viz
+    from blobctrl_torch.ops import blob_splat as bs
+    rng = np.random.RandomState(0)
+    keys = ([(n, h, w, m, "scores") for n, h, w, m in SPLAT_SHAPES]
+            + [(1, s, s, 1, "view") for s in VIEW_SIZES])
+    results, calls = {}, {}
+    for key in keys:
+        n, h, w, m, mode = key
+        args = _blob_inputs(rng, n, m)
+        params = bs.splat_params(*args, (h, w))
+        rows_equal = torch.equal(bs.splat_rows(*args, (h, w)), params)
+        # bound now: ``splat_device_times`` calls them after the loop
+        if mode == "scores":
+            kernel = functools.partial(bs.splat_scores, *args, (h, w))
+            plain = functools.partial(_splat_plain, args, h, w)
+            # output written, the raw inputs (7 floats a blob) read
+            nbytes = 4 * n * h * w * (m + 1) + 28 * n * m
+            flops = 20.0 * n * h * w * m
+            tol = SPLAT_TOL
+        else:
+            colors = torch.tensor(viz.default_palette()[:m + 1],
+                                  device="cuda")
+            kernel = functools.partial(bs.blob_view, *args, (h, w), colors)
+            plain = functools.partial(bs.blob_view_plain, *args, (h, w),
+                                      colors)
+            # 3 bytes a pixel written, image 0's inputs and the colours read
+            nbytes = 3 * h * w + 28 * m + 12 * (m + 1)
+            flops = (20.0 * m + 6.0 * (m + 1)) * h * w
+            tol = 0.0
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        ok = (rows_equal and err <= tol
+              and bool(torch.isfinite(got.float()).all()))
+        label = shape_label("blob_splat", key)
+        out = "fp32" if mode == "scores" else "uint8"
+        same = "bit-equal" if err == 0 else "differ"
+        log(f"  {label} {out}: rows "
+            f"{'bit-equal' if rows_equal else 'DIFFER'}, max_abs {err:.3e} "
+            f"({same}; tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"blob_splat {(n, h, w, m)}: {err}")
-        nbytes = 4 * n * h * w * (m + 1) + 32 * n * m
-        row = {"max_abs_err": err,
-               "ms": time_ms(
-                   lambda: blob_splat.splat_from_params(params, h, w)),
-               "plain_ms": time_ms(
-                   lambda: blob_splat.splat_scores_plain(params, h, w)),
-               "library_ms": None, "exp_ms": 0.0,
-               "ops_ms": 1e3 * 20.0 * n * h * w * m / PEAK_FP32_FLOPS,
+            raise AssertionError(f"{label}: rows equal {rows_equal}, {err}")
+        del got, ref
+        row = {"max_abs_err": err, "ms": time_ms(kernel),
+               "plain_ms": time_ms(plain), "library_ms": None, "exp_ms": 0.0,
+               "ops_ms": 1e3 * flops / PEAK_FP32_FLOPS,
                "bytes_ms": 1e3 * nbytes / PEAK_BYTES}
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-        log(f"    fp32 ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
-            f"library none bound {row['bound_ms']:.4f} (the parameter "
-            f"rows, plain torch before either: {rows_ms:.4f})")
-        results[(n, h, w, m)] = row
-    return results
+        log(f"    wall {1e3 * row['ms']:.2f} us, plain "
+            f"{1e3 * row['plain_ms']:.2f} us, library none, bound "
+            f"{1e3 * row['bound_ms']:.3f} us (bytes "
+            f"{1e3 * row['bytes_ms']:.3f}, fp32 "
+            f"{1e3 * row['ops_ms']:.3f})")
+        results[key], calls[key] = row, kernel
+    return results, calls
+
+
+def splat_device_times(results, calls):
+    """The splat's device time at each phase-2 key, into ``results``. Run
+    after phase 5, so that every wall time of the script, the blob views'
+    included, is taken before any profiler session."""
+    for key, kernel in calls.items():
+        row = results[key]
+        row["device_ms"] = dev = device_ms(kernel)
+        log(f"  {shape_label('blob_splat', key)}: device "
+            f"{'not measured' if dev is None else f'{1e3 * dev:.2f} us'} "
+            f"(wall {1e3 * row['ms']:.2f} us, bound "
+            f"{1e3 * row['bound_ms']:.3f} us)")
+
+
+@contextlib.contextmanager
+def no_plain_view():
+    """Inside the block, any plain splat or plain colour pass raises: the
+    card's blob view must run on its kernel alone."""
+    from blobctrl_torch.blob import math as blob_math
+    from blobctrl_torch.ops import blob_splat as bs
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (bs, "blob_view_plain"), (bs, "splat_scores_plain"),
+        (bs, "splat_params"), (blob_math, "splat_scores"),
+        (blob_math, "splat_features_from_scores"))]
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise AssertionError(f"the blob view ran the plain {name}")
+        return fn
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -786,6 +888,7 @@ def session_phase(pipe, steps: int):
     from blobctrl_torch import ops
     from blobctrl_torch.apps import session
     from blobctrl_torch.blob import viz
+    from blobctrl_torch.ops import blob_splat
     for name, (first, warm, shape) in encoder_times(pipe).items():
         log(f"  {name}: first call {first:.1f} ms, warm {warm:.1f} ms, "
             f"output {shape}")
@@ -807,9 +910,15 @@ def session_phase(pipe, steps: int):
                         ("resize(1.2)", lambda: sess.resize(1.2)),
                         ("rotate(20)", lambda: sess.rotate(20))):
         _, secs = timed(step)
-        view, vsecs = timed(sess.blob_visualization)
+        before = blob_splat.launches
+        with no_plain_view():
+            view, vsecs = timed(sess.blob_visualization)
         views.append(view)
-        log(f"  {label}: {secs:.3f} s, blob view {vsecs:.4f} s")
+        ran = blob_splat.launches - before
+        log(f"  {label}: {secs:.3f} s, blob view {1e3 * vsecs:.3f} ms "
+            f"({ran} splat launch)")
+        if ran != 1:
+            raise AssertionError(f"blob view: {ran} splat launches, not 1")
     want = viz.blob_vis_from_ellipse(sess.editor.current, size, size,
                                      device="cpu")
     diff = int(np.abs(views[-1].astype(int) - want.astype(int)).max())
@@ -846,7 +955,52 @@ def session_phase(pipe, steps: int):
             or others:
         raise AssertionError(f"session launches {totals}")
     check_tensor_cores("session", totals, EXACT)
-    return launch_shapes()["blob_splat"], totals["blob_splat"]
+    splat_shapes = launch_shapes()["blob_splat"]
+    log("  the blob view's parts, a call (mean of 20, host clock, each "
+        "ending in a device sync):")
+    for part, us in view_parts(sess).items():
+        log(f"    {part}: {us:.1f} us")
+    return splat_shapes, totals["blob_splat"]
+
+
+def view_parts(sess, reps: int = 20):
+    """-> {part: microseconds a call} of the session's blob view: the
+    host's ellipse -> Gaussian math, the one upload of the inputs and
+    colours, the view op's wrapper and kernel, the copy of the uint8 view
+    back, and the whole call."""
+    from blobctrl_torch.blob import math as blob_math
+    from blobctrl_torch.blob import viz
+    from blobctrl_torch.ops import blob_splat as bs
+    size, ellipse = sess.size, sess.editor.current
+
+    def host_math():
+        return blob_math.normalize_gaussian(
+            *blob_math.gaussian_from_ellipse(ellipse), size, size)
+    mean, cov = host_math()
+    buf = np.concatenate([mean, np.ravel(cov), [1.0],
+                          viz.default_palette()[:2].ravel()]).astype(
+                              np.float32)
+
+    def upload():
+        return torch.from_numpy(buf).to("cuda")
+    d = upload()
+    args = (d[0:1].view(1, 1), d[1:2].view(1, 1), d[2:6].view(1, 1, 2, 2),
+            d[6:7].view(1, 1), (size, size), d[7:13].view(2, 3))
+    img = bs.blob_view(*args)
+    out = {}
+    for part, fn in (("ellipse -> Gaussian (host)", host_math),
+                     ("upload", upload),
+                     ("wrapper and kernel", lambda: bs.blob_view(*args)),
+                     ("copy back (0.75 MB uint8)", lambda: img.cpu().numpy()),
+                     ("whole view", sess.blob_visualization)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        out[part] = 1e6 * (time.perf_counter() - t0) / reps
+    return out
 
 
 def main() -> int:
@@ -897,7 +1051,7 @@ def main() -> int:
     log("  recorded shapes from a one-step edit, exact, int8 and fused: "
         + ", ".join(f"{name} {len(keys)}" for name, keys in shapes.items()))
     results = check_kernels(shapes)
-    results["blob_splat"] = check_splat()
+    results["blob_splat"], splat_calls = check_splat()
 
     # -- phase 3 ------------------------------------------------------------
     log("phase 3: trained toy checkpoint, card against CPU")
@@ -963,6 +1117,8 @@ def main() -> int:
     counts["blob_splat"], totals["blob_splat"] = session_phase(pipe, STEPS)
     for key, n in counts["blob_splat"].items():
         log(f"  launches {shape_label('blob_splat', key)}: {n}")
+    log("  the splat's device time (torch.profiler), phase 2's keys:")
+    splat_device_times(results["blob_splat"], splat_calls)
 
     # -- phase 6 ------------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
@@ -1002,6 +1158,8 @@ def main() -> int:
                                     for r in results[name].values())}
         for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[field] = weighted(field)
+        if name == "blob_splat":  # ms is wall time: the splat is host-bound
+            entry["device_ms"] = weighted("device_ms")
         ops_ms = max(weighted("ops_ms"), weighted("exp_ms"))
         entry["bound_by"] = ("operations" if ops_ms >= weighted("bytes_ms")
                              else "bytes")

@@ -1,7 +1,8 @@
 """The blob splat (K9) of the port against the JAX package, on the CPU:
 the op's plain version against the Pallas kernel in interpret mode and
-against the pure-JAX splat, the shape routing of ``splat_scores_auto``,
-and the blob math and blob view around it. Inputs are made with numpy
+against the pure-JAX splat, the view mode's plain version against the JAX
+``blob_vis_image``, the blob view's shape routing, and the blob math
+around it. Inputs are made with numpy
 from a seed and handed to both sides."""
 
 import numpy as np
@@ -87,17 +88,17 @@ def test_params_rows_match_the_pallas_wrapper():
 
 
 def test_routing_by_shape(monkeypatch):
-    """``blob_vis_image`` reaches the op at 512^2 (h*w >= 128^2, w % 128 ==
-    0) and not at 64^2; on the CPU the op takes its plain version and
-    launches nothing."""
+    """``blob_vis_image`` reaches the view op at 512^2 (h*w >= 128^2, w %
+    128 == 0) and not at 64^2; on the CPU the op takes its plain version
+    and launches nothing."""
     calls = []
-    real = tsplat.splat_scores
+    real = tsplat.blob_view
 
     def spy(*a, **k):
-        calls.append(a[-1])
+        calls.append(a[4])
         return real(*a, **k)
 
-    monkeypatch.setattr(tsplat, "splat_scores", spy)
+    monkeypatch.setattr(tsplat, "blob_view", spy)
     xs, ys, covs, sizes = random_blobs(1, 1)
     before = tsplat.launches
     out = tviz.blob_vis_image(xs, ys, covs, sizes, (512, 512), device="cpu")
@@ -158,3 +159,111 @@ def test_blob_vis_from_ellipse_matches_jax():
     want = jviz.blob_vis_from_ellipse(e, 512, 512)
     got = tviz.blob_vis_from_ellipse(e, 512, 512, device="cpu")
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+# the view mode: (hw, m, gated); M = 5 gates its second blob
+VIEW_CASES = [((512, 512), 1, False), ((256, 384), 2, False),
+              ((128, 256), 5, True)]
+
+
+def _view_inputs(m, gated, seed=8):
+    xs, ys, covs, sizes = random_blobs(1, m, seed=seed)
+    if not gated:
+        sizes[:] = 1.0
+    colors = tviz.default_palette()[:m + 1]
+    return xs, ys, covs, sizes, colors
+
+
+@pytest.mark.parametrize("hw,m,gated", VIEW_CASES)
+def test_blob_view_plain_matches_jax(hw, m, gated):
+    """The view's plain version (rows, scores back to front, the colour sum
+    over channels M..0, clamp, x255, truncation) against the JAX
+    ``blob_vis_image``: <= 1 uint8 level, equal at >= 99.9 % of pixels (the
+    two sides sum the colours in different orders, so a truncation can
+    flip where they round an ulp apart)."""
+    xs, ys, covs, sizes, colors = _view_inputs(m, gated)
+    want = jviz.blob_vis_image(xs, ys, covs, sizes, hw)
+    got = tsplat.blob_view_plain(*[torch.from_numpy(a) for a in
+                                   (xs, ys, covs, sizes)], hw,
+                                 torch.from_numpy(colors)).numpy()
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert got.dtype == np.uint8 and got.shape == want.shape == hw + (3,)
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+
+
+def _rows_in_kernel_order(xs, ys, covs, sizes, h, w):
+    """The kernel's prologue, operation by operation in numpy fp32 (IEEE
+    rounding, no fused multiply-add): det = a*d - b*c, then true
+    divisions."""
+    f = np.float32
+    a, b, c, d = (covs[..., i, j] for i, j in ((0, 0), (0, 1), (1, 0),
+                                              (1, 1)))
+    det = a * d - b * c
+    zero = np.zeros_like(a)
+    return np.stack([xs * f(w), ys * f(h), d / det, -(b + c) / det, a / det,
+                     (sizes >= f(0.5)).astype(f), zero, zero], -1)
+
+
+@pytest.mark.parametrize("n,m,hw", CASES + [(1, 1100, (16, 16))])
+def test_splat_rows_bit_equal_to_splat_params(n, m, hw):
+    """The rows entry (on the CPU ``splat_params``) bit-equal to the
+    kernel's prologue in its order of operations, a gated blob and more
+    blobs than one shared-memory chunk included."""
+    xs, ys, covs, sizes = random_blobs(n, m, seed=m)
+    got = tsplat.splat_rows(*[torch.from_numpy(a) for a in
+                              (xs, ys, covs, sizes)], hw).numpy()
+    want = _rows_in_kernel_order(xs, ys, covs, sizes, *hw)
+    assert got.dtype == np.float32 and got.shape == (n, m, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("hw", [(512, 512), (1024, 1024), (256, 384),
+                                (128, 256), (128, 128), (64, 256), (64, 64),
+                                (128, 200), (200, 128), (96, 96)])
+def test_view_routing_matches_jax(monkeypatch, hw):
+    """The blob view takes the view op exactly where the JAX package takes
+    its Pallas splat on a TPU (h*w >= 128^2 and w % 128 == 0); elsewhere
+    both take their pure splat. The JAX side runs with its backend
+    reported as a TPU and the Pallas call replaced by a spy."""
+    from blobctrl_tpu.blob import math as jblob_math
+    jax_calls, port_calls = [], []
+
+    def jax_spy(*a, **k):
+        jax_calls.append(a[4])
+        return jblob_math.splat_scores(*a[:5])
+
+    real = tsplat.blob_view
+
+    def port_spy(*a, **k):
+        port_calls.append(a[4])
+        return real(*a, **k)
+
+    monkeypatch.setattr(jsplat.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jsplat, "splat_scores_pallas", jax_spy)
+    monkeypatch.setattr(tsplat, "blob_view", port_spy)
+    xs, ys, covs, sizes = random_blobs(1, 1, seed=2)
+    want = jviz.blob_vis_image(xs, ys, covs, sizes, hw)
+    got = tviz.blob_vis_image(xs, ys, covs, sizes, hw, device="cpu")
+    assert port_calls == jax_calls
+    assert bool(port_calls) == (hw[0] * hw[1] >= 128 * 128
+                                and hw[1] % 128 == 0)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_cuda_tensor_never_reaches_blob_view_plain(monkeypatch):
+    """A tensor that is not on the CPU goes to the view kernel: here, with
+    no card, asking for it raises, and the plain version is never run."""
+    from blobctrl_torch.ops import _build
+
+    def no_kernel(name):
+        raise RuntimeError(f"no kernel {name}")
+
+    plain = []
+    monkeypatch.setattr(_build, "entry", no_kernel)
+    monkeypatch.setattr(tsplat, "blob_view_plain",
+                        lambda *a, **k: plain.append(a))
+    xs, ys, covs, sizes, colors = _view_inputs(2, False)
+    t = [torch.from_numpy(a).to("meta") for a in (xs, ys, covs, sizes)]
+    with pytest.raises((RuntimeError, ValueError)):
+        tsplat.blob_view(*t, (128, 128), torch.from_numpy(colors).to("meta"))
+    assert plain == []

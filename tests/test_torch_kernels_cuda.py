@@ -328,34 +328,65 @@ def test_winograd_kernel_rejects_what_it_cannot_take(cuda_device):
         twg.conv3x3_winograd(x, k[:, :, :16])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,m", [(1, 512, 512, 1), (2, 64, 128, 3),
-                                     (1, 37, 53, 11), (1, 16, 16, 1100)])
-def test_blob_splat_kernel_matches_plain_on_card(cuda_device, n, h, w, m):
-    """fp32, atol 1e-5 (outputs in [0, 1]); odd H and W, a gated blob, and
-    more blobs than the kernel stages in shared memory."""
-    from blobctrl_torch.ops import blob_splat as tsplat
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+SPLAT_CARD_SHAPES = [(1, 512, 512, 1), (2, 64, 128, 3), (1, 37, 53, 11),
+                     (1, 16, 16, 1100)]
+
+
+def _splat_inputs(device, n, h, w, m):
+    """Blobs on the card, a gated one where m >= 2, and (M+1, 3) colours."""
+    g = torch.Generator(device=device).manual_seed(0)
 
     def u(lo, hi, *shape):
-        return lo + (hi - lo) * torch.rand(*shape, generator=g,
-                                           device=cuda_device)
+        return lo + (hi - lo) * torch.rand(*shape, generator=g, device=device)
     xs, ys = u(0.1, 0.9, n, m), u(0.1, 0.9, n, m)
     a, b = u(0.002, 0.05, n, m), u(0.002, 0.05, n, m)
     rho = u(-0.8, 0.8, n, m) * (a * b).sqrt()
     covs = torch.stack([torch.stack([a, rho], -1),
                         torch.stack([rho, b], -1)], -2)
-    sizes = torch.ones(n, m, device=cuda_device)
+    sizes = torch.ones(n, m, device=device)
     if m >= 2:
         sizes[0, 1] = 0.0
+    return (xs, ys, covs, sizes), u(0.0, 1.0, m + 1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,m", SPLAT_CARD_SHAPES)
+def test_blob_splat_kernel_matches_plain_on_card(cuda_device, n, h, w, m):
+    """fp32, atol 1e-5 (outputs in [0, 1]); odd H and W, a gated blob, and
+    more blobs than the kernel stages in shared memory at once. The rows
+    its prologue computes are bit-equal to ``splat_params``; a second
+    launch is bit-equal to the first; the rows-input mode agrees too."""
+    from blobctrl_torch.ops import blob_splat as tsplat
+    raw, _ = _splat_inputs(cuda_device, n, h, w, m)
     before = tsplat.launches
-    got = tsplat.splat_scores(xs, ys, covs, sizes, (h, w))
-    ref = tsplat.splat_scores_plain(
-        tsplat.splat_params(xs, ys, covs, sizes, (h, w)), h, w)
+    got = tsplat.splat_scores(*raw, (h, w))
+    params = tsplat.splat_params(*raw, (h, w))
+    ref = tsplat.splat_scores_plain(params, h, w)
     torch.cuda.synchronize()
     assert tsplat.launches == before + 1
     assert got.shape == (n, h, w, m + 1)
     assert (got - ref).abs().max().item() <= 1e-5
+    assert torch.equal(tsplat.splat_scores(*raw, (h, w)), got)
+    assert torch.equal(tsplat.splat_rows(*raw, (h, w)), params)
+    assert (tsplat.splat_from_params(params, h, w) - ref).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,m", SPLAT_CARD_SHAPES)
+def test_blob_view_kernel_bit_equal_to_plain_on_card(cuda_device, n, h, w,
+                                                      m):
+    """The view mode (image 0, colour sum, clamp, x255, uint8) bit-equal to
+    ``blob_view_plain`` on the card, which runs the same operations; one
+    launch per view; a second launch bit-equal to the first."""
+    from blobctrl_torch.ops import blob_splat as tsplat
+    raw, colors = _splat_inputs(cuda_device, n, h, w, m)
+    before = tsplat.launches
+    got = tsplat.blob_view(*raw, (h, w), colors)
+    torch.cuda.synchronize()
+    assert tsplat.launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (h, w, 3)
+    assert torch.equal(got, tsplat.blob_view_plain(*raw, (h, w), colors))
+    assert torch.equal(tsplat.blob_view(*raw, (h, w), colors), got)
 
 
 # The bf16 kernels on the tensor cores: every launch below must be reported
