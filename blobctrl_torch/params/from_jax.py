@@ -7,22 +7,19 @@ kernels (in, out)), so the conversion is one walk that turns every leaf
 into a tensor on the target device and dtype. This is the one place where
 a layout change would go.
 
-Also a numpy-only safetensors reader (the u64 header length, the JSON
-header, raw little-endian data), so checkpoints load where the
-``safetensors`` package is not installed.
+``load_safetensors`` is the numpy-only reader of ``params.io``, named here
+for the toy checkpoints' loader.
 """
 
 from __future__ import annotations
 
-import json
 from typing import Dict
 
 import numpy as np
 import torch
 
 from blobctrl_torch import resolve_device
-
-_ST_DTYPES = {"F16": np.float16, "F32": np.float32}
+from blobctrl_torch.params.io import load_safetensors  # noqa: F401
 
 
 def from_jax(tree, device="cuda", dtype=torch.float32):
@@ -46,28 +43,6 @@ def from_jax(tree, device="cuda", dtype=torch.float32):
         return torch.from_numpy(np.array(arr)).to(dev)
 
     return conv(tree)
-
-
-def load_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """name -> array, from a .safetensors file."""
-    with open(path, "rb") as f:
-        data = f.read()
-    n = int.from_bytes(data[:8], "little")
-    header = json.loads(data[8:8 + n])
-    base = 8 + n
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        if info["dtype"] not in _ST_DTYPES:
-            raise ValueError(f"{name}: unsupported dtype {info['dtype']}")
-        dt = np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<")
-        start, end = info["data_offsets"]
-        arr = np.frombuffer(data, dtype=dt,
-                            count=(end - start) // dt.itemsize,
-                            offset=base + start)
-        out[name] = arr.reshape(info["shape"])
-    return out
 
 
 def unflatten(flat: Dict[str, np.ndarray]):

@@ -4,13 +4,20 @@
 Text comes as prompt strings (tokenizer + CLIP text, memoized by token
 ids) or as embeddings; appearance as object images (DINOv2's pooled CLS,
 memoized by pixel content) or as embeddings. One edit: VAE-encode the fg
-and bg images in one batch; build the width-concat inputs; for each UniPC
-step run BlobNet (at the edit batch, its residuals broadcast to both CFG
-rows, skipped outside the control window) and the UNet with the
-right-half injections, combine under CFG and step the scheduler;
-VAE-decode; transport the image as uint8. The loop runs eagerly; the hot
-convs and attentions go through the hand-written kernels
-(``blobctrl_torch.ops``) when the pipeline runs on the card.
+and bg images in one batch (memoized by their pixels); build the
+width-concat inputs; for each step run BlobNet (at the edit batch, its
+residuals broadcast to both CFG rows, skipped outside the control window)
+and the UNet with the right-half injections, combine under CFG and step
+the scheduler (UniPC, DDIM or the DPM-Solver++ family); VAE-decode;
+transport the image as uint8. The loop runs eagerly; the hot convs and
+attentions go through the hand-written kernels (``blobctrl_torch.ops``)
+when the pipeline runs on the card.
+
+Opt-in approximations, as in the JAX package: the encoder cache
+(``encoder_cache_interval``: BlobNet and the UNet encoder run on key steps
+only, the decoder every step) and guidance-interval CFG (outside
+[cfg_guidance_start, cfg_guidance_end) the UNet runs the conditional rows
+alone).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -27,17 +35,51 @@ from blobctrl_torch import resolve_device
 from blobctrl_torch.models import blobnet as blobnet_lib
 from blobctrl_torch.models import clip_text as clip_lib
 from blobctrl_torch.models import dinov2 as dino_lib
+from blobctrl_torch.models import lora as lora_lib
 from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.models import vae as vae_lib
+from blobctrl_torch.nn import attention, transformer_2d
 from blobctrl_torch.ops import conv3x3 as conv3x3_op
+from blobctrl_torch.ops import flash_attention as flash_op
 from blobctrl_torch.ops import winograd as winograd_op
+from blobctrl_torch.schedulers import ddim as ddim_lib
+from blobctrl_torch.schedulers import dpm as dpm_lib
 from blobctrl_torch.schedulers import unipc as unipc_lib
 from blobctrl_torch.utils import resample
+
+COND_LAT_MEMO = 8   # entries of the conditioning-latent memo (FIFO)
 
 
 @dataclasses.dataclass
 class PipelineOutput:
-    images: np.ndarray  # (B, H, W, 3) float32 in [0, 1]
+    images: np.ndarray  # (B, H, W, 3) float32 in [0, 1]; the final
+    # (B, h, w, 4) latents with output_type="latent"
+
+
+def make_scheduler(name: str, num_steps: int, eta: float = 0.0,
+                   timesteps: Optional[Sequence[int]] = None):
+    """The sampler a scheduler name selects: "unipc", "ddim" (with eta) or
+    "dpm" plus any of the tokens sde, karras and heun (e.g.
+    "dpm_sde_karras", DPM-Solver++ 2M SDE with Karras sigmas); timesteps, a
+    custom descending schedule, for any of them. Anything else raises
+    ValueError, as the JAX package does."""
+    if name == "unipc":
+        return unipc_lib.make(num_steps, timesteps=timesteps)
+    if name == "ddim":
+        return ddim_lib.make(num_steps, eta=eta, timesteps=timesteps)
+    if name == "dpm" or name.startswith("dpm_"):
+        toks = name.split("_")[1:]
+        if set(toks) - {"sde", "karras", "heun"} or "" in toks:
+            raise ValueError(
+                f"unknown dpm variant {name!r}; tokens after 'dpm_' must be "
+                f"among sde/karras/heun")
+        return dpm_lib.make(
+            num_steps,
+            algorithm_type="sde-dpmsolver++" if "sde" in toks
+            else "dpmsolver++",
+            solver_type="heun" if "heun" in toks else "midpoint",
+            use_karras_sigmas="karras" in toks, timesteps=timesteps)
+    raise ValueError(f"unknown scheduler {name}")
 
 
 def blobnet_keep_schedule(num_steps: int, start: float,
@@ -49,23 +91,57 @@ def blobnet_keep_schedule(num_steps: int, start: float,
 
 
 def preprocess_image_transport(image, height: int, width: int) -> np.ndarray:
-    """An integer (H, W, 3) or (1, H, W, 3) ndarray -> (1, height, width, 3)
-    uint8, resized with PIL's LANCZOS where the size differs (the port's
-    bit-exact copy, ``utils/resample``), as the JAX package resizes it.
-    Float images, which the JAX package resamples in float, are not
-    ported."""
+    """An image ndarray -> (1, height, width, 3) in the cheapest exact
+    transport form, as the JAX package makes it. An integer (H, W, 3) image
+    (RGBA loses its alpha) becomes uint8, resized with PIL's 8-bit LANCZOS
+    where the size differs (the port's bit-exact copy, ``utils/resample``).
+    Anything else becomes float32 in [0, 1] (divided by 255 when integer
+    or when its maximum exceeds 1.5), resized with PIL's float LANCZOS
+    (mode "F") channel by channel."""
     arr = np.asarray(image)
-    if arr.ndim == 4 and arr.shape[0] == 1:
-        arr = arr[0]
-    if not np.issubdtype(arr.dtype, np.integer) or arr.ndim != 3 \
-            or arr.shape[2] != 3:
-        raise NotImplementedError(
-            f"images must be one integer (H, W, 3) ndarray, got "
-            f"{arr.dtype} {arr.shape}")
-    arr = arr.astype(np.uint8)
-    if arr.shape[:2] != (height, width):
-        arr = resample.pil_resize(arr, (width, height), "lanczos")
-    return arr[None]
+    is_int = np.issubdtype(arr.dtype, np.integer)
+    if is_int and arr.ndim == 3:
+        if arr.shape[2] not in (3, 4):
+            raise ValueError(f"an integer image needs 3 or 4 channels, got "
+                             f"{arr.shape}")
+        arr = arr.astype(np.uint8)[..., :3]
+        if arr.shape[:2] != (height, width):
+            arr = resample.pil_resize(arr, (width, height), "lanczos")
+        return arr[None]
+    img = arr.astype(np.float32)
+    if is_int or img.max() > 1.5:
+        img = img / 255.0
+    if img.shape[-3] != height or img.shape[-2] != width:
+        img = np.stack([resample.pil_resize_float(im, (width, height))
+                        for im in (img[None] if img.ndim == 3 else img)])
+    return img[None] if img.ndim == 3 else img
+
+
+def _transport_to_signal(image: np.ndarray) -> np.ndarray:
+    """uint8 or unit-float transport form -> float32 in [-1, 1]."""
+    if image.dtype == np.uint8:
+        image = image.astype(np.float32) / 255.0
+    return image * 2.0 - 1.0
+
+
+def _uniform_transport(images) -> list:
+    """One transport dtype for the list: uint8 if every image is uint8,
+    else float32 in [-1, 1] (the images are concatenated)."""
+    if all(im.dtype == np.uint8 for im in images):
+        return list(images)
+    return [_transport_to_signal(im) if im.dtype == np.uint8
+            else im * 2.0 - 1.0 for im in images]
+
+
+def numeric_state() -> tuple:
+    """The switches that change what the same weights compute: the int8
+    conv mode and its activation amax, Winograd, the exp2-folded flash, the
+    GroupNorm -> proj_in and LayerNorm -> projection fusions, and the int8
+    flash modes. A memoized device result keys on them."""
+    return (conv3x3_op.conv_int8_enabled(), conv3x3_op._CONV_INT8_ACT_AMAX,
+            conv3x3_op.winograd_enabled(), flash_op.exp2_fold_enabled(),
+            transformer_2d.gn_proj_fuse_enabled(),
+            attention.ln_matmul_fuse_mode(), attention.attention_int8_mode())
 
 
 def normalize_gs(gs_score, h: int, w: int) -> torch.Tensor:
@@ -124,7 +200,13 @@ class BlobNetPipeline:
         # encoded once (keys carry the param tree's version)
         self._prompt_cache = {}
         self._dino_cache = {}
+        # the conditioning-latent memo: the [fg; bg] VAE latents by pixels
+        self._cond_lat_cache = {}
         self._param_versions = {}
+        # the LoRA adapter that params.io.load_pipeline merged, recorded so
+        # set_lora_scale can rescale it
+        self._lora_tree, self._lora_alpha, self._lora_scale = None, None, 1.0
+        self._step_callback_warned = False
 
     def _conv_params(self, name: str):
         """The param tree ``name``, with derived weights beside its hot
@@ -211,7 +293,7 @@ class BlobNetPipeline:
                 key = (ids.numpy().tobytes(),
                        None if nids is None else nids.numpy().tobytes(),
                        nipp, clip_skip, do_cfg,
-                       self._params_version("clip_params"))
+                       self._params_version("clip_params"), numeric_state())
                 hit = self._prompt_cache.get(key)
                 if hit is not None:
                     return hit
@@ -263,7 +345,7 @@ class BlobNetPipeline:
                                         for x in images_u8),
                                digest_size=16).digest(),
                tuple(x.shape for x in images_u8), self.dino_image_size,
-               self._params_version("dino_params"))
+               self._params_version("dino_params"), numeric_state())
         hit = self._dino_cache.get(key)
         if hit is None:
             px = dino_lib.preprocess_u8(np.stack(images_u8),
@@ -284,6 +366,71 @@ class BlobNetPipeline:
         px = dino_lib.normalize_pixels(pixels_u8).to(self.dtype)
         return dino_lib.apply(self.dino_params, self.dino_cfg, px)[1].float()
 
+
+    def set_lora_scale(self, scale: float):
+        """The runtime LoRA scale (the reference reads it from
+        ``cross_attention_kwargs["scale"]``). The merge is linear in the
+        scale, so a rescale adds the increment (new - current) onto the
+        merged weights: exact up to one rounding to the compute dtype per
+        change. It replaces ``unet_params`` with a new tree, so every cached
+        derived weight (int8, Winograd) is derived anew. Needs the adapter
+        that ``params.io.load_pipeline`` records."""
+        if self._lora_tree is None:
+            raise ValueError(
+                "no LoRA adapter recorded on this pipeline: load it with "
+                "params.io.load_pipeline, or merge one with "
+                "models.lora.merge_lora(scale=...)")
+        if scale == self._lora_scale:
+            return
+        self.unet_params = lora_lib.merge_lora(
+            self.unet_params, self._lora_tree, scale=scale - self._lora_scale,
+            alpha=self._lora_alpha)
+        self._lora_scale = scale
+
+    def _variance_noise(self, i: int, shape) -> torch.Tensor:
+        """Step i's standard-normal noise for a stochastic sampler (DDIM
+        with eta > 0, sde-dpmsolver++): drawn in step order from the call's
+        own CPU generator, seeded from ``seed`` apart from the initial
+        latents, so the card and the CPU draw the same numbers."""
+        return torch.randn(tuple(shape), generator=self._noise_gen).to(
+            self.device)
+
+    def _cond_lat_key(self, fgbg: np.ndarray, height: int, width: int):
+        return (hashlib.blake2b(np.ascontiguousarray(fgbg).tobytes(),
+                                digest_size=16).digest(),
+                fgbg.shape, str(fgbg.dtype), height, width,
+                self._params_version("vae_params"), numeric_state())
+
+    def _cond_latents(self, fgbg: np.ndarray, height: int, width: int,
+                      vae_params) -> torch.Tensor:
+        """(2, h, w, 4) fp32 scaled VAE latents of the [fg; bg] transport
+        pair, memoized by its bytes: a repeated pair skips the upload and
+        the encode (an 8-entry FIFO)."""
+        key = self._cond_lat_key(fgbg, height, width)
+        hit = self._cond_lat_cache.get(key)
+        if hit is not None:
+            return hit
+        img = torch.as_tensor(fgbg, device=self.device)
+        if img.dtype == torch.uint8:
+            img = img.float() / 255.0 * 2.0 - 1.0
+        lat2 = vae_lib.encode_to_scaled_latents(
+            vae_params, self.vae_cfg, img.to(self.dtype)).float()
+        if len(self._cond_lat_cache) >= COND_LAT_MEMO:
+            self._cond_lat_cache.pop(next(iter(self._cond_lat_cache)))
+        self._cond_lat_cache[key] = lat2
+        return lat2
+
+    def _emit_step_callback(self, cb, i: int, t: int, latents):
+        """The read-only step callback, as the JAX package runs it: returned
+        tensor updates are ignored, with one warning per call."""
+        ret = cb(self, i, t, {"latents": latents.cpu().numpy()})
+        if ret and not self._step_callback_warned:
+            self._step_callback_warned = True
+            warnings.warn(
+                "callback_on_step_end returned tensor updates; they are "
+                "ignored: callbacks are read-only here, as in the JAX "
+                "package (the torch reference would re-inject 'latents')")
+
     @torch.inference_mode()
     def __call__(self, prompt=None, fg_image=None, bg_image=None,
                  gs_score=None, height: int = 512, width: int = 512,
@@ -298,34 +445,85 @@ class BlobNetPipeline:
                  blobnet_control_guidance_end: float = 1.0,
                  clip_skip: Optional[int] = None,
                  scheduler: str = "unipc",
+                 output_type: str = "np",
                  encoder_cache_interval: int = 0,
+                 encoder_cache_warmup: int = 5,
                  cfg_guidance_start: float = 0.0,
                  cfg_guidance_end: float = 1.0,
                  fg_dino_feats: Optional[np.ndarray] = None,
                  fg_vae_image=None,
-                 callback_on_step_end=None) -> PipelineOutput:
+                 ip_adapter_image=None,
+                 ip_adapter_image_embeds=None,
+                 timesteps: Optional[Sequence[int]] = None,
+                 eta: float = 0.0,
+                 cross_attention_kwargs: Optional[dict] = None,
+                 callback_on_step_end: Optional[Callable] = None,
+                 callback_on_step_end_tensor_inputs: Sequence[str] = (
+                     "latents",),
+                 callback_interval: int = 1,
+                 return_sample: bool = False) -> PipelineOutput:
         """One element-level edit. gs_score: (1, h, w, M+1) [bg, fg_1..fg_M]
         composited score layers (see ``blob.math``), NHWC or NCHW.
         prompt / negative_prompt: strings (through the tokenizer and CLIP),
         or prompt_embeds / negative_prompt_embeds (B, T, C). fg_image: the
         object image, or a list of M of them (one per blob), embedded by
         DINOv2 unless fg_dino_feats (M, Cd) are given; the VAE sees
-        fg_vae_image, else the first object image.
+        fg_vae_image, else the first object image. Images are uint8 or
+        float ndarrays (``preprocess_image_transport``).
 
         latents: (n, h, w, 4) initial noise. Without them the noise is drawn
         from ``torch.Generator().manual_seed(seed)`` on the CPU: the same
         numbers on every device, but by design not JAX's draw for that seed.
-        """
-        if scheduler != "unipc":
-            raise NotImplementedError(f"scheduler {scheduler!r}: only "
-                                      f"'unipc' is ported")
-        if encoder_cache_interval > 1:
-            raise NotImplementedError("encoder_cache_interval (the encoder "
-                                      "cache) is not ported")
-        if (cfg_guidance_start, cfg_guidance_end) != (0.0, 1.0):
-            raise NotImplementedError("guidance-interval CFG is not ported")
-        if callback_on_step_end is not None:
-            raise NotImplementedError("step callbacks are not ported")
+        The variance noise of a stochastic sampler comes from its own CPU
+        generator seeded from ``seed`` (``_variance_noise``).
+
+        scheduler: a name ``make_scheduler`` knows; timesteps:
+        a custom descending schedule for any of them; eta: DDIM's variance
+        (ignored by the others). output_type="latent" returns the final
+        latents. encoder_cache_interval > 1: BlobNet and the UNet encoder
+        run on key steps only (the first encoder_cache_warmup steps, every
+        interval-th step, the last one and the control window's edges).
+        cfg_guidance_start / _end: outside that window of steps only the
+        conditional UNet rows run. The two cannot be combined.
+        cross_attention_kwargs: only {"scale": s}, the runtime LoRA scale
+        (``set_lora_scale``). callback_on_step_end: cb(pipe, i, t,
+        {"latents": ndarray}) after the sampler's step i when i %
+        callback_interval == 0 and after the last step; read-only."""
+        if ip_adapter_image is not None or ip_adapter_image_embeds is not None:
+            raise NotImplementedError(
+                "IP-Adapter conditioning is not supported (the reference "
+                "exposes these arguments but its own path is broken: it reads "
+                "an undefined variable)")
+        if return_sample:
+            raise NotImplementedError(
+                "return_sample is a dead path in the reference: it calls "
+                "BlobNet output layers (conv_norm_out, conv_act, conv_out) "
+                "that BlobNetModel never defines")
+        if cross_attention_kwargs:
+            unknown = set(cross_attention_kwargs) - {"scale"}
+            if unknown:
+                raise NotImplementedError(
+                    f"cross_attention_kwargs keys {sorted(unknown)} are not "
+                    f"supported: the reference forwards them to attention "
+                    f"processors, whose only BlobCtrl use is the LoRA "
+                    f"'scale'")
+            if cross_attention_kwargs.get("scale") is not None:
+                self.set_lora_scale(float(cross_attention_kwargs["scale"]))
+        if int(callback_interval) < 1:
+            raise ValueError(
+                f"callback_interval must be >= 1, got {callback_interval}")
+        bad = set(callback_on_step_end_tensor_inputs) - {"latents"}
+        if bad:
+            raise ValueError(
+                f"callback_on_step_end_tensor_inputs must be within "
+                f"['latents'], got {sorted(bad)}")
+        custom_timesteps = None
+        if timesteps is not None:
+            custom_timesteps = tuple(int(t) for t in timesteps)
+            num_inference_steps = len(custom_timesteps)
+        sched = make_scheduler(scheduler, num_inference_steps,
+                               eta=eta if scheduler == "ddim" else 0.0,
+                               timesteps=custom_timesteps)
         dev, dtype = self.device, self.dtype
         do_cfg = guidance_scale > 1.0
         h, w = height // 8, width // 8
@@ -340,27 +538,33 @@ class BlobNetPipeline:
         cfg_batch = pe.shape[0]
         n = batch_size * num_images_per_prompt
 
+        if seed is None:
+            seed = int.from_bytes(os.urandom(4), "little")
         if latents is None:
-            if seed is None:
-                seed = int.from_bytes(os.urandom(4), "little")
             gen = torch.Generator().manual_seed(int(seed))
             latents = torch.randn((n, h, w, 4), generator=gen)
         latents = torch.as_tensor(np.asarray(latents, np.float32))
         if latents.shape[1] == 4 and latents.shape[-1] != 4:
             latents = latents.permute(0, 2, 3, 1)
         latents = latents.contiguous().to(dev)
+        # the variance noise's own stream, apart from the latents'
+        self._noise_gen = torch.Generator().manual_seed(int(
+            np.random.SeedSequence([int(seed), 0x5DE]).generate_state(
+                1, np.uint64)[0]))
 
-        # conditioning: fg and bg through one batched VAE encode
+        # conditioning: fg and bg through one batched VAE encode, memoized
         if fg_vae_image is None:
             fg_vae_image = (fg_image[0] if isinstance(fg_image, (list, tuple))
                             else fg_image)
-        fgbg = np.concatenate([
+        fg, bg = _uniform_transport([
             preprocess_image_transport(fg_vae_image, height, width),
             preprocess_image_transport(bg_image, height, width)])
-        img = torch.as_tensor(fgbg, device=dev).float() / 255.0 * 2.0 - 1.0
+        if fg.shape[0] != 1 or bg.shape[0] != 1:
+            raise ValueError("fg/bg conditioning images must be single "
+                             "images")
         vae_params = self._conv_params("vae_params")
-        lat2 = vae_lib.encode_to_scaled_latents(
-            vae_params, self.vae_cfg, img.to(dtype)).float()
+        lat2 = self._cond_latents(np.concatenate([fg, bg]), height, width,
+                                  vae_params)
 
         def tile(x):
             return x.repeat(cfg_batch, 1, 1, 1)
@@ -389,9 +593,39 @@ class BlobNetPipeline:
         cond_scales = (blobnet_keep_schedule(
             num_inference_steps, blobnet_control_guidance_start,
             blobnet_control_guidance_end) * float(blobnet_conditioning_scale))
-        final = self._denoise(latents, pe, fg_lat, bg_lat, fg_score, bg_score,
-                              fg_feats, cond_scales, float(guidance_scale),
-                              num_inference_steps, do_cfg)
+        # encoder cache: key steps run BlobNet and the UNet encoder; the
+        # warm-up, every interval-th step, the last step and the control
+        # window's edges are always keys
+        key_mask = np.ones(num_inference_steps, bool)
+        if encoder_cache_interval > 1:
+            for i in range(num_inference_steps):
+                key_mask[i] = (i < encoder_cache_warmup
+                               or i % encoder_cache_interval == 0
+                               or i == num_inference_steps - 1
+                               or cond_scales[i] != cond_scales[i - 1])
+        cfg_mask = blobnet_keep_schedule(num_inference_steps,
+                                         cfg_guidance_start,
+                                         cfg_guidance_end) > 0.0
+        if do_cfg and not cfg_mask.all() and encoder_cache_interval > 1:
+            raise ValueError(
+                "cfg_guidance interval cannot be combined with "
+                "encoder_cache_interval: the cached encoder state carries "
+                "the CFG batch dim that cond-only steps drop")
+        callback = None
+        if callback_on_step_end is not None:
+            self._step_callback_warned = False
+            every = int(callback_interval)
+
+            def callback(i, t, lat):
+                if i % every == 0 or i == num_inference_steps - 1:
+                    self._emit_step_callback(callback_on_step_end, i, t, lat)
+
+        final = self._denoise(sched, latents, pe, fg_lat, bg_lat, fg_score,
+                              bg_score, fg_feats, cond_scales,
+                              float(guidance_scale), do_cfg, key_mask,
+                              cfg_mask if do_cfg else None, callback)
+        if output_type == "latent":
+            return PipelineOutput(images=final.cpu().numpy())
         img = vae_lib.decode_from_scaled_latents(vae_params, self.vae_cfg,
                                                  final.to(dtype))
         img = torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
@@ -399,14 +633,19 @@ class BlobNetPipeline:
         u8 = torch.round(img * 255.0).to(torch.uint8).cpu().numpy()
         return PipelineOutput(images=u8.astype(np.float32) / 255.0)
 
-    def _denoise(self, latents, pe, fg_lat, bg_lat, fg_score, bg_score,
-                 fg_feats, cond_scales, guidance_scale, num_steps, do_cfg):
+    def _denoise(self, sched, latents, pe, fg_lat, bg_lat, fg_score,
+                 bg_score, fg_feats, cond_scales, guidance_scale, do_cfg,
+                 key_mask, cfg_mask, callback):
+        """The sampling loop. key_mask (S,): steps that run BlobNet and the
+        UNet encoder (all True without the encoder cache); on the others
+        the last key step's (x_mid, skips, up residuals) feed the decoder.
+        cfg_mask (S,) or None: steps under CFG; on the others the UNet runs
+        the conditional rows alone."""
         dtype = self.dtype
         ucfg, bcfg = self.unet_cfg, self.blobnet_cfg
         unet_params = self._conv_params("unet_params")
         blobnet_params = self._conv_params("blobnet_params")
         n = latents.shape[0]
-        sched = unipc_lib.make(num_steps)
         blob_cond_left = torch.cat([fg_lat[:n], fg_score[:n], fg_feats[:n]],
                                    -1).to(dtype)
         blob_cond_right_extras = torch.cat([fg_score[:n], fg_feats[:n]],
@@ -417,43 +656,82 @@ class BlobNetPipeline:
         def crop_right(r):
             return r[:, :, r.shape[2] - r.shape[1]:, :]
 
-        def bcast(r):
-            # BlobNet ran at the edit batch: one copy per CFG row
-            r = crop_right(r)
-            return torch.cat([r, r], 0) if do_cfg else r
+        def blobnet(i, t, sample_d):
+            """BlobNet's cropped residuals at the edit batch, or None
+            outside the control window (zeros would change nothing)."""
+            if cond_scales[i] == 0.0:
+                return None
+            blob_in = torch.cat(
+                [blob_cond_left,
+                 torch.cat([sample_d, blob_cond_right_extras], -1)], dim=2)
+            # the scale is rounded to the compute dtype, as the nets see it
+            scale = torch.tensor(float(cond_scales[i]), dtype=dtype).item()
+            res = blobnet_lib.blobnet_apply(blobnet_params, bcfg, blob_in, t,
+                                            conditioning_scale=scale)
+            d_res, m_res, u_res = res
+            return ([crop_right(r) for r in d_res], crop_right(m_res),
+                    [crop_right(r) for r in u_res])
 
-        state = unipc_lib.init_state(sched, latents)
-        for i in range(num_steps):
+        def encode(i, t, sample_d, rows, context):
+            """-> (x_mid, skips, up residuals) of the UNet encoder; rows is
+            the CFG batch the UNet runs at (BlobNet's residuals, at the
+            edit batch, are repeated for each group of n rows)."""
+            lmi = torch.cat([sample_d] * (rows // n), 0)
+            left = unet_cond_left[-rows:]
+            unet_in = torch.cat([left, torch.cat([lmi, bg_score_d[-rows:]],
+                                                 -1)], dim=2)
+            res = blobnet(i, t, sample_d)
+            down = mid = up = None
+            if res is not None:
+                def rep(r):
+                    return torch.cat([r] * (rows // n), 0) if rows > n else r
+                down = [rep(r) for r in res[0]]
+                mid = rep(res[1])
+                up = [rep(r) for r in res[2]]
+            x_mid, skips = unet_lib.unet_encode(
+                unet_params, ucfg, unet_in, t, context,
+                down_block_add_samples=down, mid_block_add_sample=mid)
+            return x_mid, skips, up
+
+        def decode(t, enc, context):
+            x_mid, skips, up = enc
+            out = unet_lib.unet_decode(unet_params, ucfg, x_mid, skips, t,
+                                       context, up_block_add_samples=up)
+            return out[:, :, out.shape[2] // 2:, :].float()
+
+        if isinstance(sched, unipc_lib.UniPCSchedule):
+            state = unipc_lib.init_state(sched, latents)
+        elif isinstance(sched, dpm_lib.DPMSchedule):
+            state = dpm_lib.init_state(sched, latents)
+        else:
+            state = (latents,)
+        enc = None
+        for i in range(sched.num_steps):
             t = float(sched.timesteps[i])
             sample_d = state[0].to(dtype)
-            lmi = torch.cat([sample_d] * 2, 0) if do_cfg else sample_d
-            unet_in = torch.cat([unet_cond_left,
-                                 torch.cat([lmi, bg_score_d], -1)], dim=2)
-            down = mid = up = None
-            if cond_scales[i] != 0.0:
-                blob_in = torch.cat(
-                    [blob_cond_left,
-                     torch.cat([sample_d, blob_cond_right_extras], -1)],
-                    dim=2)
-                # the scale is rounded to the compute dtype, as the nets see it
-                scale = torch.tensor(float(cond_scales[i]), dtype=dtype).item()
-                d_res, m_res, u_res = blobnet_lib.blobnet_apply(
-                    blobnet_params, bcfg, blob_in, t,
-                    conditioning_scale=scale)
-                down = [bcast(r) for r in d_res]
-                mid = bcast(m_res)
-                up = [bcast(r) for r in u_res]
-            # outside the control window BlobNet is skipped: its residuals
-            # would be zeros, and adding zeros changes nothing
-            x_mid, skips = unet_lib.unet_encode(
-                unet_params, ucfg, unet_in, t, pe,
-                down_block_add_samples=down, mid_block_add_sample=mid)
-            noise_pred = unet_lib.unet_decode(
-                unet_params, ucfg, x_mid, skips, t, pe,
-                up_block_add_samples=up)
-            noise_pred = noise_pred[:, :, noise_pred.shape[2] // 2:, :].float()
-            if do_cfg:
-                uncond, cond = noise_pred.chunk(2, 0)
-                noise_pred = uncond + guidance_scale * (cond - uncond)
-            state = unipc_lib.step(sched, i, noise_pred, state)
+            if cfg_mask is not None and not cfg_mask[i]:
+                # outside the guidance interval: the conditional rows only
+                noise_pred = decode(t, encode(i, t, sample_d, n, pe[n:]),
+                                    pe[n:])
+            else:
+                if enc is None or key_mask[i]:
+                    enc = encode(i, t, sample_d, pe.shape[0], pe)
+                noise_pred = decode(t, enc, pe)
+                if do_cfg:
+                    uncond, cond = noise_pred.chunk(2, 0)
+                    noise_pred = uncond + guidance_scale * (cond - uncond)
+            if isinstance(sched, unipc_lib.UniPCSchedule):
+                state = unipc_lib.step(sched, i, noise_pred, state)
+            elif isinstance(sched, dpm_lib.DPMSchedule):
+                state = dpm_lib.step(
+                    sched, i, noise_pred, state,
+                    noise=(self._variance_noise(i, state[0].shape)
+                           if sched.stochastic else None))
+            else:
+                state = (ddim_lib.step(
+                    sched, i, noise_pred, state[0],
+                    noise=(self._variance_noise(i, state[0].shape)
+                           if sched.eta > 0.0 else None)),)
+            if callback is not None:
+                callback(i, int(sched.timesteps[i]), state[0])
         return state[0]

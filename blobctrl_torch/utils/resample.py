@@ -8,13 +8,17 @@ machines need neither).
     ``PRECISION_BITS`` = 22 fractional bits and each sum rounded with a
     half-unit bias before it is clipped. BICUBIC (a = -0.5) and LANCZOS
     (a = 3).
+  * ``pil_resize_float``: the same resampler on a float32 image (PIL's
+    mode "F"): double coefficients, each sum accumulated in double and
+    rounded to float32 after each pass, no clipping.
   * ``cv2_resize_linear``: OpenCV's INTER_LINEAR for 8-bit images: float32
     source coordinates, 11-bit fixed-point weights, a horizontal pass into
     int sums and the vertical pass with its shift-and-round cast; an exact
     2x reduction is the 2x2 box average, as cv2 switches to INTER_AREA
     there.
 
-Images are (H, W) or (H, W, C) uint8 numpy arrays.
+Images are (H, W) or (H, W, C) numpy arrays: uint8, float32 for
+``pil_resize_float``.
 """
 
 from __future__ import annotations
@@ -53,10 +57,10 @@ def _lanczos(x: float) -> float:
 FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
 
 
-def _pil_coeffs(in_size: int, out_size: int, filt: str
-                ) -> Tuple[np.ndarray, np.ndarray]:
-    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` -> (index
-    (out, ksize), int64 weights (out, ksize)); unused taps weigh 0."""
+def _pil_weights(in_size: int, out_size: int, filt: str
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """PIL's ``precompute_coeffs`` -> (index (out, ksize), normalized
+    float64 weights (out, ksize)); unused taps weigh 0."""
     fn, support = FILTERS[filt]
     scale = filterscale = in_size / out_size
     if filterscale < 1.0:
@@ -64,7 +68,7 @@ def _pil_coeffs(in_size: int, out_size: int, filt: str
     support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     idx = np.zeros((out_size, ksize), np.int64)
-    kk = np.zeros((out_size, ksize), np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         ss = 1.0 / filterscale
@@ -73,10 +77,19 @@ def _pil_coeffs(in_size: int, out_size: int, filt: str
         w = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = sum(w)
         for x in range(xmax):
-            k = w[x] / ww if ww != 0.0 else w[x]
-            kk[xx, x] = int((-0.5 if k < 0 else 0.5) + k * (1 << PRECISION_BITS))
+            kk[xx, x] = w[x] / ww if ww != 0.0 else w[x]
             idx[xx, x] = xmin + x
     return idx, kk
+
+
+def _pil_coeffs(in_size: int, out_size: int, filt: str
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """``_pil_weights`` quantized as ``normalize_coeffs_8bpc`` does -> (index
+    (out, ksize), int64 weights (out, ksize))."""
+    idx, kk = _pil_weights(in_size, out_size, filt)
+    q = np.array([[int((-0.5 if k < 0 else 0.5) + k * (1 << PRECISION_BITS))
+                   for k in row] for row in kk], np.int64)
+    return idx, q.reshape(kk.shape)
 
 
 def _pil_pass(img: np.ndarray, axis: int, out_size: int, filt: str
@@ -109,6 +122,35 @@ def pil_resize(img: np.ndarray, size: Tuple[int, int],
             out = _pil_pass(out, 1, w, filt)
         if h != arr.shape[0]:
             out = _pil_pass(out, 0, h, filt)
+    return out[..., 0] if squeeze else out
+
+
+def _pil_pass_float(img: np.ndarray, axis: int, out_size: int, filt: str
+                    ) -> np.ndarray:
+    """One 32-bit float pass of PIL's resampler along ``axis`` of (H, W,
+    C): the taps summed in order in double, the sum rounded to float32."""
+    idx, kk = _pil_weights(img.shape[axis], out_size, filt)
+    src = np.moveaxis(img.astype(np.float64), axis, 0)     # (in, other, C)
+    acc = np.zeros((out_size,) + src.shape[1:], np.float64)
+    for k in range(idx.shape[1]):
+        acc += src[idx[:, k]] * kk[:, k][:, None, None]
+    return np.moveaxis(acc.astype(np.float32), 0, axis)
+
+
+def pil_resize_float(img: np.ndarray, size: Tuple[int, int],
+                     filt: str = "lanczos") -> np.ndarray:
+    """``Image.fromarray(img[..., c], mode="F").resize(size, filter)`` for
+    each channel c of a float32 image; size is (width, height)."""
+    arr = np.asarray(img, np.float32)
+    squeeze = arr.ndim == 2
+    if squeeze:
+        arr = arr[..., None]
+    w, h = size
+    out = arr.copy()
+    if w != arr.shape[1]:
+        out = _pil_pass_float(out, 1, w, filt)
+    if h != arr.shape[0]:
+        out = _pil_pass_float(out, 0, h, filt)
     return out[..., 0] if squeeze else out
 
 

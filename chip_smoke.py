@@ -38,6 +38,10 @@ script exits non-zero:
      edit, on the card with the kernels and on the CPU with the plain
      route; PSNR of card against CPU >= 40 dB; the mode's kernels launched,
      every int8 conv launch on the tensor cores (both dtypes run there).
+     Then this slice's samplers and options on the exact path, fp32, at
+     the same bar: DDIM with eta 0.5 and DPM-Solver++ 2M SDE Karras (their
+     variance noise drawn on the CPU generator, so both sides see the same
+     numbers) and the encoder cache (interval 3).
      Then the bf16 pass, which runs the bf16 tensor-core kernels on trained
      weights (fp32 keeps the SIMT flash, direct-conv, GEMM and Winograd
      kernels): the move edit, exact, fused and int8, loaded in bf16 on the
@@ -73,7 +77,28 @@ script exits non-zero:
      and the object image: an edit, another after a move (the prompt and
      DINOv2 memos hit), and a remove. Counters zeroed before, read after;
      every flash and conv3x3 launch on its tensor-core kernel.
-  6. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
+  6. A reference-layout checkpoint at full geometry: the SD-1.5 UNet (at
+     4 input channels, so the loader widens it), BlobNet, the VAE, CLIP
+     ViT-L/14 text and DINOv2-large drawn on the card in fp16 from a seed,
+     with a rank-16 PEFT LoRA over the UNet's attention projections, are
+     written as fp16 safetensors with their config.json files, the
+     DINOv2 preprocessor config and a tokenizer directory
+     (``params/export.write_models_root``, numpy and json only) into a
+     temporary directory, then loaded with ``params.io.load_pipeline(root,
+     dtype=torch.bfloat16)``: every leaf bit-equal to the drawn one cast to
+     bf16, each LoRA target bit-equal to the plain formula (fp32 merge on
+     the card, then the cast). Then REQUESTS at 512^2 from a text prompt
+     and the object image under the standard edit's kwargs: DPM++ 2M
+     Karras, a repeat of it (the conditioning memo hits: no VAE encode,
+     the same image), DPM++ 2M SDE Karras twice with one seed (bit-equal),
+     DDIM with eta 0.5, UniPC on 20 trailing timesteps, LoRA scale 0.5 and
+     back to 1.0 (the UNet's targets back within one bf16 rounding), the
+     encoder cache, guidance-interval CFG, and a callback every 10 steps
+     with the latents as output. Counters zeroed before
+     each request and read after it: flash and conv3x3 launch in each, all
+     on the tensor cores, and no other kernel; seconds, launches, VAE
+     encodes and peak memory are printed for each.
+  7. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those shapes.
 
@@ -103,12 +128,14 @@ view: H*W*3 uint8) written, bound it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -132,6 +159,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # less this margin
 BF16_MARGIN_DB = 3.0
 STEPS = 50  # UniPC steps of each full-width request
+LORA_RANK, LORA_ALPHA = 16, 8.0  # phase 6's PEFT adapter
 
 
 def log(*args):
@@ -779,6 +807,25 @@ def toy_phase():
             if mode == "int8":  # the int8 conv: tensor cores in fp32 too
                 check_tensor_cores(f"toy 256^2 fp32 int8 {name}", counts,
                                    ("conv3x3_int8",))
+    # this slice's samplers and options; the stochastic ones draw their
+    # variance noise from the CPU generator on both sides
+    for name, extra in (("ddim eta 0.5", dict(scheduler="ddim", eta=0.5,
+                                                seed=5)),
+                        ("dpm_sde_karras", dict(scheduler="dpm_sde_karras",
+                                                seed=6)),
+                        ("encoder cache 3", dict(encoder_cache_interval=3))):
+        kw = dict(edits["move"], **extra)
+        ops.reset_counts()
+        got = card(**kw).images
+        counts = launch_counts()
+        want = cpu(**kw).images
+        p = psnr(got, want)
+        ran = {k: counts[k] for k in EXACT}
+        log(f"  toy 256^2 exact move, {name}: PSNR card vs cpu {p:.2f} dB, "
+            f"launches {ran}")
+        if not (p >= 40.0 and min(ran.values()) > 0
+                and np.isfinite(got).all()):
+            raise AssertionError(f"toy {name}: PSNR {p}, launches {counts}")
     del card
     card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.bfloat16)
     cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.bfloat16)
@@ -836,6 +883,9 @@ def int8_workspace_mib(shapes) -> float:
 
 
 def run_request(pipe, kw):
+    # each request encodes its images, as before the conditioning memo, so
+    # its numbers stay comparable across runs
+    pipe._cond_lat_cache.clear()
     before = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1003,6 +1053,259 @@ def view_parts(sess, reps: int = 20):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: a reference-layout checkpoint at full geometry
+# ---------------------------------------------------------------------------
+
+def reference_configs():
+    """The nets as the downloaded checkpoints hold them: SD-1.5's UNet at 4
+    input channels (the loader widens it to 5), BlobNet, the VAE, CLIP
+    ViT-L/14 text and DINOv2-large."""
+    from blobctrl_torch.apps import flagship
+    return dict(unet=dataclasses.replace(flagship.sd15_unet_config(),
+                                         in_channels=4),
+                blobnet=flagship.blobctrl_blobnet_config(),
+                vae=flagship.sd15_vae_config(),
+                clip=flagship.clip_vit_l_config(),
+                dino=flagship.dinov2_large_config())
+
+
+def draw_reference_trees(cfgs, seed: int, device):
+    """The five trees drawn on ``device`` in fp16, the checkpoint's dtype
+    (the JAX init bounds), and a rank-16 LoRA over the UNet's attention
+    projections: A ~ N(0, 1/in), B ~ N(0, 0.02^2), stored in fp16."""
+    from blobctrl_torch.models import blobnet, clip_text, dinov2, unet, vae
+    from blobctrl_torch.params import export
+    f16 = torch.float16
+    trees = dict(
+        unet=unet.init_unet(cfgs["unet"], seed, device, f16),
+        blobnet=blobnet.init_blobnet(cfgs["blobnet"], seed + 1, device, f16,
+                                     zero_taps=False),
+        vae=vae.init_vae(cfgs["vae"], seed + 2, device, f16),
+        clip=clip_text.init(cfgs["clip"], seed + 3, device, f16),
+        dino=dinov2.init(cfgs["dino"], seed + 4, device, f16))
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    lora = {}
+    for path, k in export.flatten(trees["unet"]).items():
+        parts = path.split(".")
+        if parts[-1] == "kernel" and parts[-2] in ("to_q", "to_k", "to_v",
+                                                    "to_out"):
+            d_in, d_out = k.shape
+            a = torch.randn(d_in, LORA_RANK, generator=gen, device=device)
+            b = torch.randn(LORA_RANK, d_out, generator=gen, device=device)
+            lora["/".join(parts[:-1])] = {"A": (a / d_in ** 0.5).to(f16),
+                                          "B": (b * 0.02).to(f16)}
+    return trees, lora
+
+
+def check_loaded(pipe, trees, lora):
+    """Every loaded leaf bit-equal to the drawn one cast to bf16: conv_in
+    widened with a zero channel, each LoRA target equal to the plain
+    formula, the fp32 merge on the card, then the cast. -> merged count."""
+    from blobctrl_torch.params import export
+    bf16 = torch.bfloat16
+    eff = 1.0 * LORA_ALPHA / LORA_RANK
+    wrong, merged, leaves = [], 0, 0
+    for net in ("unet", "blobnet", "vae", "clip", "dino"):
+        got = export.flatten(getattr(pipe, net + "_params"))
+        want = export.flatten(trees[net])
+        if set(got) != set(want):
+            raise AssertionError(f"{net}: loaded keys differ: "
+                                 f"{sorted(set(got) ^ set(want))[:5]}")
+        for k, w in want.items():
+            g, leaves = got[k], leaves + 1
+            target = k.rsplit(".", 1)[0].replace(".", "/")
+            if net == "unet" and k == "conv_in.kernel":
+                ok = (g.shape[2] == w.shape[2] + 1
+                      and torch.equal(g[:, :, :-1], w.to(bf16))
+                      and not g[:, :, -1].any())
+            elif net == "unet" and k.endswith(".kernel") and target in lora:
+                ab = lora[target]
+                plain = (w.float() + (ab["A"].float() @ ab["B"].float())
+                         * eff).to(bf16)
+                ok, merged = torch.equal(g, plain), merged + 1
+            else:
+                ok = g.dtype == bf16 and torch.equal(g, w.to(bf16))
+            if not ok:
+                wrong.append(f"{net}:{k}")
+    if wrong or merged != len(lora):
+        raise AssertionError(f"loaded leaves differ from the drawn ones: "
+                             f"{wrong[:5]} ({len(wrong)}), {merged} of "
+                             f"{len(lora)} LoRA targets merged")
+    return leaves, merged
+
+
+def checkpoint_requests(size: int):
+    """The standard edit's kwargs from a text prompt and the object image,
+    under each sampler and option of this slice."""
+    from blobctrl_torch.schedulers import common
+    from blobctrl_torch.utils import benchkit
+    base = benchkit.standard_edit_kwargs(size, STEPS)
+    for k in ("prompt_embeds", "negative_prompt_embeds", "fg_dino_feats"):
+        del base[k]
+    base["prompt"] = PROMPT
+    first = dict(base, scheduler="dpm_karras", num_inference_steps=25)
+    sde = dict(base, scheduler="dpm_sde_karras", num_inference_steps=25,
+               seed=11)
+    trailing = [int(t) for t in common.make_timesteps(20,
+                                                      spacing="trailing")]
+    # the repeat comes before the LoRA rescale, which moves the UNet's
+    # weights by a bf16 rounding
+    return [("dpm_karras, 25 steps", first),
+            ("dpm_karras repeat (conditioning memo)", dict(first)),
+            ("dpm_sde_karras, 25 steps, seed 11", sde),
+            ("dpm_sde_karras again, seed 11", dict(sde)),
+            ("ddim, eta 0.5, 50 steps", dict(base, scheduler="ddim", eta=0.5,
+                                             seed=12)),
+            ("unipc, 20 trailing timesteps", dict(base, timesteps=trailing)),
+            ("unipc 20 steps, LoRA scale 0.5", dict(
+                base, num_inference_steps=20,
+                cross_attention_kwargs={"scale": 0.5})),
+            ("unipc 20 steps, LoRA scale back to 1.0", dict(
+                base, num_inference_steps=20,
+                cross_attention_kwargs={"scale": 1.0})),
+            ("unipc, encoder cache interval 3", dict(
+                base, encoder_cache_interval=3)),
+            ("unipc, guidance interval (0.0, 0.6)", dict(
+                base, cfg_guidance_start=0.0, cfg_guidance_end=0.6)),
+            ("unipc, callback every 10 steps, latents out", dict(
+                base, callback_interval=10, output_type="latent"))]
+
+
+def lora_reverted(loaded, half, now, lora) -> float:
+    """The UNet's LoRA targets after 1 -> 0.5 -> 1.0 against the loaded
+    ones, in bf16 ulps (2^-7 of the largest magnitude the leaf took on the
+    way): each rescale adds the rounded increment, and W - d + d rounds
+    twice, so the round trip lands within one ulp; -> the largest ratio.
+    Every other leaf must be the loaded tensor itself."""
+    from blobctrl_torch.params import export
+    trees = [export.flatten(t) for t in (loaded, half, now)]
+    worst = 0.0
+    for k, w in trees[0].items():
+        target = k.rsplit(".", 1)[0].replace(".", "/")
+        if not (k.endswith(".kernel") and target in lora):
+            if trees[2][k] is not w:
+                raise AssertionError(f"{k}: a non-target leaf was replaced")
+            continue
+        w, w1, g = (t[k].float() for t in trees)
+        ulp = torch.clamp(torch.maximum(torch.maximum(w.abs(), w1.abs()),
+                                        g.abs()), min=1e-30) * 2.0 ** -7
+        worst = max(worst, float(((g - w).abs() / ulp).max()))
+    return worst
+
+
+def checkpoint_phase(device="cuda", size: int = 512):
+    """Phase 6 (``device`` and ``size`` let it be rehearsed on the CPU at a
+    small size); -> per-request records."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.models import vae
+    from blobctrl_torch.params import export, io
+    from blobctrl_torch.utils import benchkit
+    cfgs = reference_configs()
+    trees, lora = draw_reference_trees(cfgs, 7, device)
+    with tempfile.TemporaryDirectory(prefix="models_root_") as root:
+        t0 = time.perf_counter()
+        nbytes = export.write_models_root(
+            root, unet=trees["unet"], unet_cfg=cfgs["unet"],
+            blobnet=trees["blobnet"], blobnet_cfg=cfgs["blobnet"],
+            vae=trees["vae"], vae_cfg=cfgs["vae"], clip=trees["clip"],
+            clip_cfg=cfgs["clip"], dino=trees["dino"], dino_cfg=cfgs["dino"],
+            lora=lora, lora_alpha=LORA_ALPHA,
+            tokenizer=benchkit.byte_level_tokenizer(),
+            float_dtype=torch.float16)
+        secs = time.perf_counter() - t0
+        gib = nbytes / 2 ** 30
+        log(f"  wrote {nbytes} bytes of fp16 safetensors ({gib:.2f} GiB) in "
+            f"{secs:.2f} s ({gib / secs:.2f} GiB/s)")
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        pipe, secs = timed(lambda: io.load_pipeline(
+            root, dtype=torch.bfloat16, device=device))
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if device != "cpu" else float("nan"))
+        log(f"  load_pipeline(bf16): {secs:.2f} s ({gib / secs:.2f} GiB/s of "
+            f"file), peak device memory {peak:.2f} GiB "
+            f"(the drawn fp16 trees included)")
+    leaves, merged = check_loaded(pipe, trees, lora)
+    log(f"  {leaves} leaves bit-equal to the drawn ones in bf16, {merged} "
+        f"LoRA targets bit-equal to the fp32 merge then the cast; conv_in "
+        f"widened 4 -> 5")
+    del trees
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    loaded_unet = pipe.unet_params
+    encodes = []
+    real_encode = vae.encode_to_scaled_latents
+
+    def counting_encode(*args, **kwargs):
+        encodes.append(1)
+        return real_encode(*args, **kwargs)
+    vae.encode_to_scaled_latents = counting_encode
+    records, outputs = [], {}
+    try:
+        for label, kw in checkpoint_requests(size):
+            fired = []
+            if kw.get("output_type") == "latent":
+                kw = dict(kw, callback_on_step_end=lambda p, i, t, x:
+                          fired.append((i, t, x["latents"].shape)))
+            before = len(encodes)
+            ops.reset_counts()
+            if device != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            res, secs = timed(lambda: pipe(**kw))
+            counts, tc = launch_counts(), tensor_core_counts()
+            peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                    if device != "cpu" else float("nan"))
+            out = res.images
+            outputs[label] = out
+            ran = {k: n for k, n in counts.items() if n}
+            rec = dict(label=label, secs=secs, flash=counts["flash_attention"],
+                       conv3x3=counts["conv3x3"],
+                       tc=(tc["flash_attention"], tc["conv3x3"]),
+                       encodes=len(encodes) - before, peak=peak)
+            records.append(rec)
+            log(f"  {label}: {secs:.3f} s, flash {rec['flash']} and conv3x3 "
+                f"{rec['conv3x3']} launches ({rec['tc'][0]} and {rec['tc'][1]}"
+                f" on the tensor cores), VAE encodes {rec['encodes']}, peak "
+                f"memory {peak:.2f} GiB" + (f", callbacks at steps "
+                                            f"{[i for i, _, _ in fired]}"
+                                            if fired else ""))
+            want_shape = ((1, size // 8, size // 8, 4) if fired
+                          else (1, size, size, 3))
+            if out.shape != want_shape or not np.isfinite(out).all():
+                raise AssertionError(f"{label}: bad output {out.shape}")
+            if (min(rec["flash"], rec["conv3x3"]) == 0
+                    or rec["tc"] != (rec["flash"], rec["conv3x3"])
+                    or set(ran) - set(EXACT)):
+                raise AssertionError(f"{label}: launches {ran}, tensor-core "
+                                     f"{rec['tc']}")
+            if rec["encodes"] != (1 if not records[:-1] else 0):
+                raise AssertionError(f"{label}: {rec['encodes']} VAE encodes")
+            if fired and ([i for i, _, _ in fired] != [0, 10, 20, 30, 40, 49]
+                          or fired[0][2] != want_shape):
+                raise AssertionError(f"{label}: callbacks {fired}")
+            if label.endswith("LoRA scale 0.5"):
+                half_unet = pipe.unet_params
+            if label.endswith("back to 1.0"):
+                worst = lora_reverted(loaded_unet, half_unet,
+                                      pipe.unet_params, lora)
+                log(f"  the UNet's LoRA targets after 1 -> 0.5 -> 1.0: "
+                    f"within {worst:.3f} bf16 ulp of the loaded ones")
+                if worst > 1.0:
+                    raise AssertionError(f"LoRA scale round trip: {worst} "
+                                         f"ulp")
+    finally:
+        vae.encode_to_scaled_latents = real_encode
+    labels = [r["label"] for r in records]
+    same = {"repeat": np.array_equal(outputs[labels[0]], outputs[labels[1]]),
+            "sde": np.array_equal(outputs[labels[2]], outputs[labels[3]])}
+    log(f"  dpm_sde_karras twice with one seed bit-equal: {same['sde']}; the "
+        f"repeat's image equals the first's: {same['repeat']}")
+    if not all(same.values()):
+        raise AssertionError(f"not reproducible: {same}")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1121,6 +1424,13 @@ def main() -> int:
     splat_device_times(results["blob_splat"], splat_calls)
 
     # -- phase 6 ------------------------------------------------------------
+    log("phase 6: a reference-layout checkpoint at full geometry, loaded in "
+        "bf16; requests at 512^2")
+    del pipe
+    torch.cuda.empty_cache()
+    checkpoint_phase()
+
+    # -- phase 7 ------------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
                                 "blobctrl_tpu/ops/flash_attention.py:80"),
             "conv3x3": ("blobctrl_torch/csrc/conv3x3.cu",

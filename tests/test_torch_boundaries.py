@@ -65,6 +65,7 @@ def test_entry_points_raise_without_cuda():
     from blobctrl_torch.apps import flagship, session
     from blobctrl_torch.blob import viz
     from blobctrl_torch.models import clip_text, dinov2, unet
+    from blobctrl_torch.params import io
     from blobctrl_torch.params.from_jax import from_jax
     from blobctrl_torch.pipeline import BlobNetPipeline
     from blobctrl_torch.train import toy
@@ -75,6 +76,9 @@ def test_entry_points_raise_without_cuda():
         from_jax({"w": [1.0]})
     with pytest.raises(RuntimeError):
         toy.load_toy(str(ROOT / "assets/toy_ckpt"))
+    for load in (io.load_pipeline, io.load_vae, io.load_lora_dir):
+        with pytest.raises(RuntimeError):
+            load(str(ROOT / "models"))
     up = unet.init_unet(ucfg, device="cpu")
     with pytest.raises(RuntimeError):
         BlobNetPipeline(unet_cfg=ucfg, unet_params=up, blobnet_cfg=bcfg,
@@ -102,10 +106,12 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_pipeline_rejects_what_is_not_ported():
-    """What stays unported raises NotImplementedError (a scheduler other
-    than UniPC, the encoder cache, guidance-interval CFG); a text prompt on
-    a pipeline without a tokenizer and CLIP raises a clear ValueError; an
-    image that needs a resize, which is ported, runs."""
+    """What stays unported or unsupported raises (IP-adapter inputs and
+    return_sample, as in the JAX package; SAM's loader; a scheduler name
+    the JAX package does not know); a text prompt on a pipeline without a
+    tokenizer and CLIP raises a clear ValueError; an image that needs a
+    resize, and a scheduler other than UniPC, which are ported, run."""
+    from blobctrl_torch.params import io
     from blobctrl_torch.train import toy
     from blobctrl_torch.utils import benchkit
     pipe, _ = toy.load_toy(str(ROOT / "assets/toy_ckpt"), device="cpu")
@@ -116,25 +122,29 @@ def test_pipeline_rejects_what_is_not_ported():
               fg_dino_feats=emb["appearance"][:1], height=128, width=128,
               num_inference_steps=1)
     with pytest.raises(NotImplementedError):
-        pipe(**{**kw, "scheduler": "ddim"})
+        pipe(**{**kw, "ip_adapter_image": kw["fg_image"]})
     with pytest.raises(NotImplementedError):
-        pipe(**{**kw, "encoder_cache_interval": 2})
+        pipe(**{**kw, "return_sample": True})
     with pytest.raises(NotImplementedError):
-        pipe(**{**kw, "cfg_guidance_end": 0.5})
+        io.load_sam("sam_vit_h_4b8939.pth")
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        pipe(**{**kw, "scheduler": "euler"})
     with pytest.raises(ValueError, match="tokenizer"):
         pipe(**{**kw, "prompt": "a red ball", "prompt_embeds": None})
     out = pipe(**{**kw, "fg_image": kw["fg_image"][:64]})  # resized
     assert out.images.shape == (1, 128, 128, 3)
+    out = pipe(**{**kw, "scheduler": "ddim"})
+    assert out.images.shape == (1, 128, 128, 3)
 
 
-FORBIDDEN = ("cv2", "PIL", "regex", "ftfy", "jax", "flax")
+FORBIDDEN = ("cv2", "PIL", "regex", "ftfy", "jax", "flax", "safetensors")
 
 
 @pytest.mark.parametrize("path", [str(p.relative_to(ROOT)) for p in SOURCES]
                          + ["chip_smoke.py"])
 def test_sources_import_no_host_image_or_text_library(path):
-    """The card's machine has no cv2, PIL, regex or ftfy: no source of the
-    port imports them, at the top or inside a function."""
+    """The card's machine has no cv2, PIL, regex, ftfy or safetensors: no
+    source of the port imports them, at the top or inside a function."""
     text = (ROOT / path).read_text()
     pat = r"^\s*(import|from)\s+(" + "|".join(FORBIDDEN) + r")\b"
     assert not re.search(pat, text, re.M), path
