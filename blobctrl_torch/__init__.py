@@ -28,6 +28,14 @@ import torch
 
 __version__ = "0.1.0"
 
+# MKL's vector math library, behind torch.exp, sin, log, erf ... on the CPU,
+# sets itself up lazily at its first call in a process. When that first call
+# is split over two or more threads (a float tensor of 4096 elements or
+# more), the threads race, and in about one process in fifty the second
+# thread computes its half with relative errors near 1e-4. One serial call
+# here settles the set-up before any parallel one.
+torch.exp(torch.zeros(1))
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. Never falls back to the CPU on its

@@ -14,14 +14,19 @@ Remove mode: run(remove=True) — bg = original with start region white,
   score forced to [bg=1, fg=0], control strength 0.
 
 The blob view splats on the pipeline's device (the hand-written splat
-kernel on the card). Not ported: SAM clicks (``click``), the tracking-point
-overlay (``add_tracking_point`` and the methods after it, which draw with
-``apps/ui_render``) and ``save_state``/``load_state`` (PNG files).
+kernel on the card). ``save_state`` / ``load_state`` write and read the
+reference demo's replayable state directories (``state/state.json`` and
+PNGs through ``utils/png.py``). Not ported: SAM clicks (``click``) and the
+tracking-point methods (``add_tracking_point`` and the ones after it,
+which draw with ``apps/ui_render``); the session keeps the points that
+``set_init_ellipse`` sets and the state files carry.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -30,7 +35,7 @@ import torch
 from blobctrl_torch.blob import editor as editor_lib
 from blobctrl_torch.blob import math as blob_math
 from blobctrl_torch.blob import viz as viz_lib
-from blobctrl_torch.utils import resample
+from blobctrl_torch.utils import png, resample
 
 
 def initialize_image(img: np.ndarray, size: int = 512) -> np.ndarray:
@@ -69,6 +74,8 @@ class BlobCtrlSession:
         self.mask: Optional[np.ndarray] = None
         self.fg_image: Optional[np.ndarray] = None
         self.editor = editor_lib.BlobEditor(height=size, width=size)
+        # click-to-move tracking points, [[x, y], ...]
+        self.tracking_points: List[List[int]] = []
         self._remove_inflated = False
         self._pre_remove_start = None
 
@@ -178,6 +185,9 @@ class BlobCtrlSession:
                   (nd1 * diag, nd2 * diag), ang)
         self.editor.init_compositional(target)
         self.mask = viz_lib.ellipse_mask(target, self.size, self.size)
+        self.tracking_points = [
+            [int(self.editor.initial[0][0]), int(self.editor.initial[0][1])],
+            [int(target[0][0]), int(target[0][1])]]
         return target
 
     def set_object_image(self, object_image: np.ndarray):
@@ -299,6 +309,87 @@ class BlobCtrlSession:
             plots.append(arr)
         return SessionResult(images=out.images, images_with_ellipse=plots,
                              final_ellipse=blobs[-1][0])
+
+    # ------------------------------------------------------------------
+    # replayable state (the reference demo's state.json schema)
+    # ------------------------------------------------------------------
+
+    def save_state(self, out_dir: str, prompt: str = "", **params):
+        """Write ``out_dir/state/state.json`` and the images beside it
+        (input_image, object_image_gallery, edited_result_gallery), in the
+        layout and schema the JAX package's session writes."""
+        os.makedirs(os.path.join(out_dir, "state"), exist_ok=True)
+        state = {
+            "scene_prompt": prompt,
+            "ellipse_lists": [[[list(e[0]), list(e[1]), e[2]], list(p), t]
+                              for e, p, t in self.editor.entries],
+            "remove_blob_box": bool(params.get("remove", False)),
+            "num_samples": int(params.get("num_samples", 1)),
+            "seed": int(params.get("seed", 1248464818)),
+            "guidance_scale": float(params.get("guidance_scale", 7.5)),
+            "num_inference_steps": int(params.get("num_inference_steps",
+                                                  50)),
+            "blobnet_control_strength": float(
+                params.get("blobnet_control_strength", 1.2)),
+            "blobnet_control_guidance_start": float(
+                params.get("blobnet_control_guidance_start", 0.0)),
+            "blobnet_control_guidance_end": float(
+                params.get("blobnet_control_guidance_end", 1.0)),
+            "tracking_points": params.get(
+                "tracking_points", [list(p) for p in self.tracking_points]),
+        }
+        with open(os.path.join(out_dir, "state", "state.json"), "w") as f:
+            json.dump(state, f)
+
+        def write(sub, name, arr):
+            d = os.path.join(out_dir, sub)
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(png.encode_png(np.asarray(arr, np.uint8)))
+
+        if self.original_image is not None:
+            write("input_image", "input_image.png", self.original_image)
+        if self.fg_image is not None:
+            write("object_image_gallery",
+                  "validation_object_region_center.png", self.fg_image)
+        if self.editor.entries and not params.get("remove", False):
+            write("edited_result_gallery", "edited_result_gallery_0.png",
+                  self.build_edited_background())
+        return out_dir
+
+    def load_state(self, demo_dir: str):
+        """Restore the editor entries, tracking points and images from a
+        state directory (``save_state``'s, or the JAX package's)."""
+        with open(os.path.join(demo_dir, "state", "state.json")) as f:
+            state = json.load(f)
+
+        def read(sub, name):
+            path = os.path.join(demo_dir, sub, name)
+            if not os.path.exists(path):
+                return None
+            with open(path, "rb") as fh:
+                return png.decode_png(fh.read())
+
+        img = read("input_image", "input_image.png")
+        if img is not None:
+            self.original_image = img
+        obj = read("object_image_gallery",
+                   "validation_object_region_center.png")
+        if obj is not None:
+            self.fg_image = obj
+        self.editor.entries = [
+            (((e[0][0][0], e[0][0][1]), (e[0][1][0], e[0][1][1]), e[0][2]),
+             tuple(e[1]), e[2])
+            for e in state["ellipse_lists"]]
+        self.tracking_points = [list(p)
+                                for p in state.get("tracking_points", [])]
+        # the saved ellipses already hold any remove-mode inflation: mark
+        # it applied, so a later set_remove_mode(True) does not inflate the
+        # restored geometry again ("remove_blob_box", the reference's key)
+        self._remove_inflated = bool(state.get("remove_blob_box",
+                                               state.get("remove", False)))
+        self._pre_remove_start = None
+        return state
 
     def run(self, prompt: str, num_samples: int = 1, seed: int = 1248464818,
             guidance_scale: float = 7.5, num_inference_steps: int = 50,

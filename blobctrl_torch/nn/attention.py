@@ -150,9 +150,19 @@ def attention(params, x: torch.Tensor, heads: int,
     if norm is not None and not fuse:
         x = layers.layer_norm(norm, x)
     if context is None and "bias" not in params["to_q"]:
-        # self-attention: the three projections as one matmul
-        w_qkv = torch.cat([params[n]["kernel"] for n in ("to_q", "to_k",
-                                                         "to_v")], dim=1)
+        # self-attention: the three projections as one matmul (in the int8
+        # linear path, of the pre-quantized kernels and their scales)
+        names = ("to_q", "to_k", "to_v")
+        if layers.linear_int8_enabled() and "kernel_q" in params["to_q"]:
+            if fuse:  # the int8 product has no LayerNorm prologue
+                x = layers.layer_norm(norm, x)
+            qkv = layers.matmul_i8(
+                x, torch.cat([params[n]["kernel_q"] for n in names], dim=1),
+                torch.cat([params[n]["w_scale"] for n in names]), None,
+                x.dtype)
+            q, k, v = qkv.chunk(3, dim=-1)
+            return _attend(params, q, k, v, heads)
+        w_qkv = torch.cat([params[n]["kernel"] for n in names], dim=1)
         if fuse:
             qkv = _ln_linear(norm, x, {"kernel": w_qkv})
         else:
@@ -164,6 +174,11 @@ def attention(params, x: torch.Tensor, heads: int,
         src = context if context is not None else x
         k = layers.linear(params["to_k"], src)
         v = layers.linear(params["to_v"], src)
+    return _attend(params, q, k, v, heads)
+
+
+def _attend(params, q, k, v, heads: int) -> torch.Tensor:
+    """The heads' attention, then the output projection."""
     out_h = multi_head_attention(q, k, v, heads, return_heads=True)
     # output projection over (head, d): the head merge folds into the matmul
     b, h, sq, d = out_h.shape

@@ -11,7 +11,7 @@ GroupNorm and LayerNorm statistics are fp32 whatever the compute dtype.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -77,7 +77,70 @@ def init_norm(init: ParamInit, c: int):
 # Linear / Conv2D (NHWC x HWIO)
 # ---------------------------------------------------------------------------
 
+# The opt-in int8 linear path (the JAX package's, off by default there and
+# here, and outside the int8-everything bundle): activations quantize under
+# a static amax, the weights arrive pre-quantized per output channel
+# (``kernel_q`` / ``w_scale``, from ``ops.conv3x3.quantize_conv_tree``), the
+# product accumulates exactly in int32. No Pallas kernel backs it in the JAX
+# package, so it stays plain torch.
+_LINEAR_INT8 = False
+_LINEAR_INT8_AMAX = 12.0
+
+
+def set_linear_int8(flag: bool, amax: float = -1.0):
+    """Toggle the int8 linear path; amax > 0 overrides the static
+    activation amax (values beyond saturate)."""
+    global _LINEAR_INT8, _LINEAR_INT8_AMAX
+    _LINEAR_INT8 = bool(flag)
+    if amax > 0:
+        _LINEAR_INT8_AMAX = float(amax)
+
+
+def linear_int8_enabled() -> bool:
+    return _LINEAR_INT8
+
+
+def quantize_act_i8(x: torch.Tensor, amax: Optional[float] = None):
+    """x -> (int8 values, scalar fp32 scale) under the static amax:
+    clip(round(x / xs), +-127) with xs = fp32(amax / 127) and a true
+    division rounded half to even, as the JAX package computes it."""
+    if amax is None:
+        amax = _LINEAR_INT8_AMAX
+    xs = torch.tensor(amax / 127.0, dtype=torch.float32, device=x.device)
+    xq = torch.clamp(torch.round(x.float() / xs), -127, 127)
+    return xq.to(torch.int8), xs
+
+
+def _int_mm_ok(m: int, k: int, n: int, device) -> bool:
+    """Whether ``torch._int_mm`` takes the (m, k) x (k, n) int8 product:
+    on the card, for m > 16 and k, n multiples of 8 (its shape rules)."""
+    return device.type == "cuda" and m > 16 and k % 8 == 0 and n % 8 == 0
+
+
+def matmul_i8(x: torch.Tensor, kernel_q: torch.Tensor,
+              w_scale: torch.Tensor, bias, out_dtype) -> torch.Tensor:
+    """(..., K) float x (K, N) int8 -> (..., N): quantize x statically, sum
+    the int8 products exactly in int32 (``torch._int_mm`` on the card where
+    its shape rules allow, else an fp64 product, exact: |sum| <= 127^2 K
+    is far below 2^53), rescale by (x_scale * w_scale[n]) in fp32, add the
+    bias, cast to ``out_dtype``."""
+    xq, xs = quantize_act_i8(x)
+    lead, k = xq.shape[:-1], xq.shape[-1]
+    x2 = xq.reshape(-1, k)
+    if _int_mm_ok(x2.shape[0], k, kernel_q.shape[1], x.device):
+        acc = torch._int_mm(x2, kernel_q)
+    else:
+        acc = torch.matmul(x2.double(), kernel_q.double()).to(torch.int32)
+    y = acc.reshape(*lead, -1).float() * (w_scale.float() * xs)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
 def linear(params, x: torch.Tensor) -> torch.Tensor:
+    if _LINEAR_INT8 and "kernel_q" in params:
+        return matmul_i8(x, params["kernel_q"], params["w_scale"],
+                         params.get("bias"), x.dtype)
     y = torch.matmul(x, params["kernel"].to(x.dtype))
     if "bias" in params:
         y = y + params["bias"].to(x.dtype)
@@ -99,7 +162,14 @@ def _pads(padding: Padding):
 def conv2d(params, x: torch.Tensor, stride: int = 1,
            padding: Padding = 0) -> torch.Tensor:
     """2-D convolution of an NHWC input with an HWIO kernel; returns a
-    contiguous NHWC tensor."""
+    contiguous NHWC tensor. In the int8 linear path a 1x1 stride-1 conv
+    with pre-quantized weights (the transformers' proj_in / proj_out) is
+    the channel product ``matmul_i8``."""
+    if (_LINEAR_INT8 and "kernel_q" in params and stride == 1
+            and tuple(params["kernel_q"].shape[:2]) == (1, 1)):
+        kq = params["kernel_q"]
+        return matmul_i8(x, kq.reshape(kq.shape[2:]), params["w_scale"],
+                         params.get("bias"), x.dtype).contiguous()
     w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
     xn = x.permute(0, 3, 1, 2)
     (pt, pb), (pl, pr) = _pads(padding)

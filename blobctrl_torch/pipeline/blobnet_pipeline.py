@@ -9,7 +9,8 @@ width-concat inputs; for each step run BlobNet (at the edit batch, its
 residuals broadcast to both CFG rows, skipped outside the control window)
 and the UNet with the right-half injections, combine under CFG and step
 the scheduler (UniPC, DDIM or the DPM-Solver++ family); VAE-decode;
-transport the image as uint8. The loop runs eagerly; the hot convs and
+transport the image as uint8. ``edit_batch`` runs B distinct requests
+through the same loop at once (the server's micro-batches). The loop runs eagerly; the hot convs and
 attentions go through the hand-written kernels (``blobctrl_torch.ops``)
 when the pipeline runs on the card.
 
@@ -26,7 +27,7 @@ import dataclasses
 import hashlib
 import os
 import warnings
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,7 +39,7 @@ from blobctrl_torch.models import dinov2 as dino_lib
 from blobctrl_torch.models import lora as lora_lib
 from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.models import vae as vae_lib
-from blobctrl_torch.nn import attention, transformer_2d
+from blobctrl_torch.nn import attention, layers, transformer_2d
 from blobctrl_torch.ops import conv3x3 as conv3x3_op
 from blobctrl_torch.ops import flash_attention as flash_op
 from blobctrl_torch.ops import winograd as winograd_op
@@ -48,12 +49,18 @@ from blobctrl_torch.schedulers import unipc as unipc_lib
 from blobctrl_torch.utils import resample
 
 COND_LAT_MEMO = 8   # entries of the conditioning-latent memo (FIFO)
+VARIANCE_SEED_TAG = 0x5DE  # seeds a request's variance-noise stream
+
+# the names make_scheduler knows, as the JAX package lists them
+SCHEDULER_NAMES = ("unipc", "ddim", "dpm", "dpm_karras", "dpm_sde",
+                   "dpm_sde_karras", "dpm_heun")
 
 
 @dataclasses.dataclass
 class PipelineOutput:
     images: np.ndarray  # (B, H, W, 3) float32 in [0, 1]; the final
     # (B, h, w, 4) latents with output_type="latent"
+    nsfw_content_detected: Optional[np.ndarray] = None  # no safety checker
 
 
 def make_scheduler(name: str, num_steps: int, eta: float = 0.0,
@@ -136,12 +143,14 @@ def _uniform_transport(images) -> list:
 def numeric_state() -> tuple:
     """The switches that change what the same weights compute: the int8
     conv mode and its activation amax, Winograd, the exp2-folded flash, the
-    GroupNorm -> proj_in and LayerNorm -> projection fusions, and the int8
-    flash modes. A memoized device result keys on them."""
+    GroupNorm -> proj_in and LayerNorm -> projection fusions, the int8
+    flash modes and the int8 linear path. A memoized device result keys on
+    them."""
     return (conv3x3_op.conv_int8_enabled(), conv3x3_op._CONV_INT8_ACT_AMAX,
             conv3x3_op.winograd_enabled(), flash_op.exp2_fold_enabled(),
             transformer_2d.gn_proj_fuse_enabled(),
-            attention.ln_matmul_fuse_mode(), attention.attention_int8_mode())
+            attention.ln_matmul_fuse_mode(), attention.attention_int8_mode(),
+            layers.linear_int8_enabled(), layers._LINEAR_INT8_AMAX)
 
 
 def normalize_gs(gs_score, h: int, w: int) -> torch.Tensor:
@@ -212,25 +221,27 @@ class BlobNetPipeline:
         """The param tree ``name``, with derived weights beside its hot
         kernels while a mode that reads them is on: the pre-quantized int8
         weights (``kernel_q``/``w_scale``, ``ops.conv3x3.quantize_conv_tree``)
-        in the int8 conv mode, else the Winograd-domain ``u``
-        (``ops.winograd.transform_conv_tree``) with the Winograd switch on.
-        Derived once per tree and mode, cached by identity, so a 50-step
-        edit transforms no weight inside its loop; ``self.*_params`` stay as
-        they are. With the modes off the derived copies are dropped, so the
-        exact edit holds none in device memory."""
+        in the int8 conv mode or the int8 linear mode, as the JAX package
+        derives them for either, and the Winograd-domain ``u``
+        (``ops.winograd.transform_conv_tree``) with the Winograd switch on
+        outside the int8 conv mode. Derived once per tree and mode, cached
+        by identity, so a 50-step edit transforms no weight inside its loop;
+        ``self.*_params`` stay as they are. With the modes off the derived
+        copies are dropped, so the exact edit holds none in device
+        memory."""
         p = getattr(self, name)
-        if conv3x3_op.conv_int8_enabled():
-            mode = "int8"
-        elif conv3x3_op.winograd_enabled():
-            mode = "winograd"
-        else:
+        conv_int8 = conv3x3_op.conv_int8_enabled()
+        mode = (conv_int8 or layers.linear_int8_enabled(),
+                conv3x3_op.winograd_enabled() and not conv_int8)
+        if not any(mode):
             self._param_cache.clear()
             return p
         ent = self._param_cache.get(name)
         if ent is None or ent[0] is not p or ent[1] != mode:
-            ent = self._param_cache[name] = (p, mode, (
-                conv3x3_op.quantize_conv_tree(p) if mode == "int8"
-                else winograd_op.transform_conv_tree(p, self.dtype)))
+            tree = conv3x3_op.quantize_conv_tree(p) if mode[0] else p
+            if mode[1]:
+                tree = winograd_op.transform_conv_tree(tree, self.dtype)
+            ent = self._param_cache[name] = (p, mode, tree)
         return ent[2]
 
     def _params_version(self, name: str) -> tuple:
@@ -337,23 +348,31 @@ class BlobNetPipeline:
             images = [fg_image]
         return [np.asarray(im, np.uint8) for im in images]
 
+    def _dino_key(self, images_u8) -> tuple:
+        """The DINOv2 memo's key: the pixels, the crop size, the params'
+        version and the numeric switches."""
+        return (hashlib.blake2b(b"".join(np.ascontiguousarray(x).tobytes()
+                                         for x in images_u8),
+                                digest_size=16).digest(),
+                tuple(x.shape for x in images_u8), self.dino_image_size,
+                self._params_version("dino_params"), numeric_state())
+
+    def _dino_remember(self, key, pooled: torch.Tensor):
+        if len(self._dino_cache) >= 32:
+            self._dino_cache.pop(next(iter(self._dino_cache)))
+        self._dino_cache[key] = pooled
+
     def _dino_pooled_cached(self, images_u8) -> torch.Tensor:
         """(M, Cd) fp32 pooled DINOv2 embeddings of uint8 object images,
         memoized by pixel content: the object of a multi-round edit is
         encoded once."""
-        key = (hashlib.blake2b(b"".join(np.ascontiguousarray(x).tobytes()
-                                        for x in images_u8),
-                               digest_size=16).digest(),
-               tuple(x.shape for x in images_u8), self.dino_image_size,
-               self._params_version("dino_params"), numeric_state())
+        key = self._dino_key(images_u8)
         hit = self._dino_cache.get(key)
         if hit is None:
             px = dino_lib.preprocess_u8(np.stack(images_u8),
                                         size=self.dino_image_size)
             hit = self._encode_dino(torch.as_tensor(px, device=self.device))
-            if len(self._dino_cache) >= 32:
-                self._dino_cache.pop(next(iter(self._dino_cache)))
-            self._dino_cache[key] = hit
+            self._dino_remember(key, hit)
         return hit
 
     def _encode_dino(self, pixels_u8: torch.Tensor) -> torch.Tensor:
@@ -387,13 +406,48 @@ class BlobNetPipeline:
             alpha=self._lora_alpha)
         self._lora_scale = scale
 
+    @staticmethod
+    def _seed_noise(seed: int, shape) -> tuple:
+        """One request's noise for ``seed``: its initial latents of
+        ``shape``, drawn from ``torch.Generator().manual_seed(seed)`` on the
+        CPU, and ``draw(i, shape)``, its variance noise of step i, from a CPU
+        generator of its own seeded from (seed, VARIANCE_SEED_TAG). The card
+        and the CPU draw the same numbers (by design not JAX's)."""
+        latents = torch.randn(tuple(shape),
+                              generator=torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(int(
+            np.random.SeedSequence([int(seed), VARIANCE_SEED_TAG])
+            .generate_state(1, np.uint64)[0]))
+
+        def draw(i: int, shape) -> torch.Tensor:
+            return torch.randn(tuple(shape), generator=gen)
+        return latents, draw
+
     def _variance_noise(self, i: int, shape) -> torch.Tensor:
         """Step i's standard-normal noise for a stochastic sampler (DDIM
-        with eta > 0, sde-dpmsolver++): drawn in step order from the call's
-        own CPU generator, seeded from ``seed`` apart from the initial
-        latents, so the card and the CPU draw the same numbers."""
-        return torch.randn(tuple(shape), generator=self._noise_gen).to(
-            self.device)
+        with eta > 0, sde-dpmsolver++), drawn in step order from the call's
+        stream(s) (``_seed_noise``): one draw at ``shape`` for a single
+        edit, one row per request for ``edit_batch``."""
+        return self._noise_draw(i, shape).to(self.device)
+
+    def _encode_images(self, images: np.ndarray, vae_params) -> torch.Tensor:
+        """(N, H, W, 3) transport images (uint8, or float in [-1, 1]) ->
+        (N, h, w, 4) fp32 scaled VAE latents, in one upload and one
+        encode."""
+        img = torch.as_tensor(images, device=self.device)
+        if img.dtype == torch.uint8:
+            img = img.float() / 255.0 * 2.0 - 1.0
+        return vae_lib.encode_to_scaled_latents(
+            vae_params, self.vae_cfg, img.to(self.dtype)).float()
+
+    def _decode_images(self, final: torch.Tensor, vae_params) -> np.ndarray:
+        """Final latents -> (N, H, W, 3) float32 in [0, 1], through a uint8
+        transport to the host."""
+        img = vae_lib.decode_from_scaled_latents(vae_params, self.vae_cfg,
+                                                 final.to(self.dtype))
+        img = torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
+        u8 = torch.round(img * 255.0).to(torch.uint8).cpu().numpy()
+        return u8.astype(np.float32) / 255.0
 
     def _cond_lat_key(self, fgbg: np.ndarray, height: int, width: int):
         return (hashlib.blake2b(np.ascontiguousarray(fgbg).tobytes(),
@@ -410,11 +464,7 @@ class BlobNetPipeline:
         hit = self._cond_lat_cache.get(key)
         if hit is not None:
             return hit
-        img = torch.as_tensor(fgbg, device=self.device)
-        if img.dtype == torch.uint8:
-            img = img.float() / 255.0 * 2.0 - 1.0
-        lat2 = vae_lib.encode_to_scaled_latents(
-            vae_params, self.vae_cfg, img.to(self.dtype)).float()
+        lat2 = self._encode_images(fgbg, vae_params)
         if len(self._cond_lat_cache) >= COND_LAT_MEMO:
             self._cond_lat_cache.pop(next(iter(self._cond_lat_cache)))
         self._cond_lat_cache[key] = lat2
@@ -524,7 +574,7 @@ class BlobNetPipeline:
         sched = make_scheduler(scheduler, num_inference_steps,
                                eta=eta if scheduler == "ddim" else 0.0,
                                timesteps=custom_timesteps)
-        dev, dtype = self.device, self.dtype
+        dev = self.device
         do_cfg = guidance_scale > 1.0
         h, w = height // 8, width // 8
 
@@ -540,17 +590,13 @@ class BlobNetPipeline:
 
         if seed is None:
             seed = int.from_bytes(os.urandom(4), "little")
+        drawn, self._noise_draw = self._seed_noise(int(seed), (n, h, w, 4))
         if latents is None:
-            gen = torch.Generator().manual_seed(int(seed))
-            latents = torch.randn((n, h, w, 4), generator=gen)
+            latents = drawn
         latents = torch.as_tensor(np.asarray(latents, np.float32))
         if latents.shape[1] == 4 and latents.shape[-1] != 4:
             latents = latents.permute(0, 2, 3, 1)
         latents = latents.contiguous().to(dev)
-        # the variance noise's own stream, apart from the latents'
-        self._noise_gen = torch.Generator().manual_seed(int(
-            np.random.SeedSequence([int(seed), 0x5DE]).generate_state(
-                1, np.uint64)[0]))
 
         # conditioning: fg and bg through one batched VAE encode, memoized
         if fg_vae_image is None:
@@ -626,12 +672,149 @@ class BlobNetPipeline:
                               cfg_mask if do_cfg else None, callback)
         if output_type == "latent":
             return PipelineOutput(images=final.cpu().numpy())
-        img = vae_lib.decode_from_scaled_latents(vae_params, self.vae_cfg,
-                                                 final.to(dtype))
-        img = torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
-        # uint8 transport to the host; the public contract is float32 [0, 1]
-        u8 = torch.round(img * 255.0).to(torch.uint8).cpu().numpy()
-        return PipelineOutput(images=u8.astype(np.float32) / 255.0)
+        return PipelineOutput(images=self._decode_images(final, vae_params))
+
+    @torch.inference_mode()
+    def edit_batch(self, requests: List[dict], height: int = 512,
+                   width: int = 512, num_inference_steps: int = 50,
+                   guidance_scale: float = 7.5,
+                   blobnet_conditioning_scale: float = 1.0,
+                   blobnet_control_guidance_start: float = 0.0,
+                   blobnet_control_guidance_end: float = 1.0,
+                   clip_skip: Optional[int] = None,
+                   scheduler: str = "unipc",
+                   output_type: str = "np") -> PipelineOutput:
+        """B distinct edits in one batched run: the serving path of dynamic
+        micro-batching (``apps/server.py``). Every step runs BlobNet, the
+        UNet and the sampler once over all B requests' CFG rows, so the
+        fixed costs (encodes, decode, per-step launches and host work) are
+        paid once for the batch.
+
+        requests: dicts with prompt (str) and negative_prompt (optional),
+        or prompt_embeds and negative_prompt_embeds; fg_image, bg_image,
+        gs_score, seed (optional), fg_dino_feats (optional (M, Cd)),
+        fg_vae_image (optional). They share the sampler configuration (the
+        keyword arguments) and carry the same blob count M.
+
+        Each request draws its initial and variance noise from its own seed
+        exactly as ``__call__`` does (``_seed_noise``), so a batched edit,
+        stochastic samplers included, is its solo edit up to the rounding
+        of batched operations. The 2B images go through one VAE encode
+        (the conditioning-latent memo stays off: a serving batch's images
+        differ), the DINOv2 cache misses through one encode. There is no
+        safety checker: ``nsfw_content_detected`` is None."""
+        n = len(requests)
+        if n == 0:
+            raise ValueError("edit_batch needs at least one request")
+        sched = make_scheduler(scheduler, num_inference_steps)
+        dev = self.device
+        do_cfg = guidance_scale > 1.0
+        h, w = height // 8, width // 8
+
+        if any("prompt_embeds" in r for r in requests):
+            def row(r, key):
+                v = r.get(key)
+                if v is None:
+                    raise ValueError(f"all requests must carry {key} when "
+                                     "any does (mixed batches would need a "
+                                     "tokenizer for the rest)")
+                v = np.asarray(v, np.float32)
+                return v[0] if v.ndim == 3 else v
+            pe_arr = np.stack([row(r, "prompt_embeds") for r in requests])
+            npe_arr = (np.stack([row(r, "negative_prompt_embeds")
+                                 for r in requests]) if do_cfg else None)
+            pe = self.encode_prompt(None, None, 1, do_cfg, clip_skip,
+                                    pe_arr, npe_arr)
+        else:
+            pe = self.encode_prompt(
+                [r.get("prompt") or "" for r in requests],
+                [r.get("negative_prompt") or "" for r in requests],
+                1, do_cfg, clip_skip)
+
+        lats, draws = [], []
+        for r in requests:
+            seed = r.get("seed")
+            if seed is None:
+                seed = int.from_bytes(os.urandom(4), "little")
+            lat, draw = self._seed_noise(int(seed), (1, h, w, 4))
+            lats.append(lat)
+            draws.append(draw)
+        latents = torch.cat(lats).to(dev)
+        self._noise_draw = lambda i, shape: torch.cat(
+            [d(i, (1,) + tuple(shape[1:])) for d in draws])
+
+        fgs, bgs, gss = [], [], []
+        for r in requests:
+            fg_vae = r.get("fg_vae_image")
+            if fg_vae is None:
+                fg_vae = (r["fg_image"][0]
+                          if isinstance(r["fg_image"], (list, tuple))
+                          else r["fg_image"])
+            fgs.append(preprocess_image_transport(fg_vae, height, width))
+            bgs.append(preprocess_image_transport(r["bg_image"], height,
+                                                  width))
+            gss.append(normalize_gs(r["gs_score"], h, w))
+        num_blobs = gss[0].shape[-1] - 1
+        if any(g.shape[-1] - 1 != num_blobs for g in gss):
+            raise ValueError("all requests in a batch must carry the same "
+                             "blob count M")
+        vae_params = self._conv_params("vae_params")
+        # [all fg rows; all bg rows] in one upload and one encode
+        lat2 = self._encode_images(
+            np.concatenate(_uniform_transport(fgs + bgs)), vae_params)
+
+        # appearance: the DINOv2 cache misses of the whole batch in one
+        # encode, hits and given features in none
+        pooled_rows = [None] * n
+        misses, to_encode = [], []
+        for b, r in enumerate(requests):
+            feats = r.get("fg_dino_feats")
+            if feats is not None:
+                f = torch.as_tensor(np.asarray(feats, np.float32), device=dev)
+                if f.dim() == 3:
+                    f = f[:, 0]
+                pooled_rows[b] = f[None] if f.dim() == 1 else f
+                continue
+            imgs = self._dino_uint8_list(r["fg_image"])
+            key = self._dino_key(imgs)
+            pooled_rows[b] = self._dino_cache.get(key)
+            if pooled_rows[b] is None:
+                misses.append((b, len(imgs), key))
+                to_encode.extend(imgs)
+        if to_encode:
+            px = dino_lib.preprocess_u8(np.stack(to_encode),
+                                        size=self.dino_image_size)
+            enc = self._encode_dino(torch.as_tensor(px, device=dev))
+            off = 0
+            for b, m, key in misses:
+                pooled_rows[b] = enc[off:off + m]
+                self._dino_remember(key, pooled_rows[b])
+                off += m
+        for b, f in enumerate(pooled_rows):
+            if f.shape[0] == 1 and num_blobs > 1:
+                pooled_rows[b] = f = f.expand(num_blobs, -1)
+            if f.shape[0] != num_blobs:
+                raise ValueError(f"request {b}: {f.shape[0]} appearance "
+                                 f"embeddings for {num_blobs} blobs")
+        pooled = torch.stack(pooled_rows)  # (B, M, Cd)
+
+        def tile(x):  # the B request rows, once per CFG group
+            return x.repeat(pe.shape[0] // n, 1, 1, 1)
+
+        gs = torch.cat(gss).to(dev)
+        fg_layers = gs[..., 1:]
+        fg_feats = tile(torch.einsum("nhwm,nmc->nhwc", fg_layers, pooled))
+        cond_scales = (blobnet_keep_schedule(
+            num_inference_steps, blobnet_control_guidance_start,
+            blobnet_control_guidance_end) * float(blobnet_conditioning_scale))
+        final = self._denoise(
+            sched, latents, pe, tile(lat2[:n]), tile(lat2[n:]),
+            tile(fg_layers.sum(-1, keepdim=True)), tile(gs[..., 0:1]),
+            fg_feats, cond_scales, float(guidance_scale), do_cfg,
+            np.ones(num_inference_steps, bool), None, None)
+        if output_type == "latent":
+            return PipelineOutput(images=final.cpu().numpy())
+        return PipelineOutput(images=self._decode_images(final, vae_params))
 
     def _denoise(self, sched, latents, pe, fg_lat, bg_lat, fg_score,
                  bg_score, fg_feats, cond_scales, guidance_scale, do_cfg,

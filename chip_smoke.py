@@ -98,13 +98,34 @@ script exits non-zero:
      each request and read after it: flash and conv3x3 launch in each, all
      on the tensor cores, and no other kernel; seconds, launches, VAE
      encodes and peak memory are printed for each.
-  7. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
+  7. Serving, on phase 6's loaded pipeline: ``edit_batch`` of 1, 2 and 4
+     distinct 512^2 requests (text prompts, own images, ellipses and
+     seeds; STEPS steps), warm, with seconds a batch and an image, peak
+     memory and every K1 and K6 launch on the tensor cores, each row of
+     the batch of four against its solo ``__call__`` (PSNR, for
+     information); the toy 256^2 checkpoint in fp32, three batched rows
+     against their solo edits, >= 40 dB; ``apps.server.serve`` with
+     ``max_batch=4`` and ``preview_every=10``, warmed at STEPS steps (the
+     seconds until ``/healthz`` is 200), then a solo request from PNG
+     images, four concurrent requests that must come back as one batch
+     of 4, a remove request, a preview request with ``/v1/progress`` seen
+     mid-edit and a 400 for a cold shape; one traced 20-step edit
+     (``utils/observability.profile_op_breakdown``: the top kernels, the
+     hand-written kernels' share of device time, the device's busy share
+     of the untraced edit's wall time, the device time by kind); the
+     int8-everything edit without and with the int8 linear path
+     (``matmul_i8`` on the card bit-equal to the CPU's first). Phase 2
+     checks every K1 and K6 shape of the batches (one-step batches at B
+     = 2 and 4 record them). Counters zeroed at the start of the phase
+     and read at its end; K1, K6, K5 and K8 must each have run.
+  8. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those shapes.
 
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
 kernels' from the exact requests, the int8 kernels' from the int8 one, the
-fused-kernel edit's four from the fused one);
+fused-kernel edit's four from the fused one), ``served_launches`` phase
+7's;
 the splat's from phase 5 (its views), with ``device_ms`` beside its wall
 ``ms``;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
@@ -127,15 +148,18 @@ view: H*W*3 uint8) written, bound it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -431,11 +455,11 @@ def shape_label(name, key) -> str:
     return label + (f" amax={key[7]}" if name == "conv3x3_int8" else "")
 
 
-def check_kernels(shapes):
+def check_kernels(shapes, timing: bool = True):
     """shapes: {kernel name: recorded keys}. Every key in bf16 and fp32, in
-    every mode, kernel against plain; bf16 timings of each mode (the first
-    mode is the main path's; ``<label>:ms`` and ``<label>:plain_ms`` the
-    others'). -> per-kernel {key: numbers}."""
+    every mode, kernel against plain; with ``timing``, bf16 timings of each
+    mode (the first mode is the main path's; ``<label>:ms`` and
+    ``<label>:plain_ms`` the others'). -> per-kernel {key: numbers}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {name: {} for name in shapes}
     for name, keys in shapes.items():
@@ -465,13 +489,13 @@ def check_kernels(shapes):
                     if not ok:
                         raise AssertionError(f"{tag}: rel {rel}")
                     row["max_abs_err"] = max(row["max_abs_err"], abs_err)
-                    if dtype == torch.bfloat16:
+                    if dtype == torch.bfloat16 and timing:
                         pre = f"{case['labels'][i]}:" if i else ""
                         row[pre + "ms"] = time_ms(
                             lambda: case["kernel"](mode))
                         row[pre + "plain_ms"] = time_ms(
                             lambda: case["plain"](mode))
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and timing:
                     row["library_ms"] = (time_ms(case["library"])
                                          if case["library"] else None)
                     row["ops_ms"] = case["ops_ms"]
@@ -1196,7 +1220,7 @@ def lora_reverted(loaded, half, now, lora) -> float:
 
 def checkpoint_phase(device="cuda", size: int = 512):
     """Phase 6 (``device`` and ``size`` let it be rehearsed on the CPU at a
-    small size); -> per-request records."""
+    small size); -> (per-request records, the loaded pipeline)."""
     from blobctrl_torch import ops
     from blobctrl_torch.models import vae
     from blobctrl_torch.params import export, io
@@ -1303,7 +1327,409 @@ def checkpoint_phase(device="cuda", size: int = 512):
         f"repeat's image equals the first's: {same['repeat']}")
     if not all(same.values()):
         raise AssertionError(f"not reproducible: {same}")
-    return records
+    return records, pipe
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving (edit_batch, the HTTP server), a traced edit, int8 linears
+# ---------------------------------------------------------------------------
+
+SERVE_PROMPTS = ("a red ball on a table", "a blue cup on a desk",
+                 "a green hat on a chair", "a yellow lamp by a window")
+SERVE_SHARED = dict(guidance_scale=7.5, blobnet_conditioning_scale=1.6,
+                    blobnet_control_guidance_end=0.9)
+BATCH_SIZES = (1, 2, 4)
+TRACE_STEPS = 20
+# the traced edit's kernels by kind: (kind, regex on the kernel's name; None:
+# the hand-written kernels), first match wins
+TRACE_KINDS = (("hand-written", None),
+               ("reductions (norm statistics)", r"reduce_kernel"),
+               ("cuDNN convs", r"fprop|onvolve|cudnn|nhwc"),
+               ("cuBLAS GEMMs", r"nvjet|gemm|Kernel2<cutlass"),
+               ("copies and casts", r"copy|Memcpy|Memset|CatArray"),
+               ("elementwise", r"elementwise"))
+
+
+def serving_requests(size: int, n: int, text: bool = True):
+    """n distinct edit_batch requests: own images, ellipse and seed, and a
+    text prompt (phase 7's loaded pipeline has CLIP and DINOv2) or the
+    embeddings (phase 2's pipeline has neither)."""
+    from blobctrl_torch.utils import benchkit
+    keep = ("fg_image", "bg_image", "gs_score") + (
+        () if text else ("prompt_embeds", "negative_prompt_embeds",
+                         "fg_dino_feats"))
+    reqs = []
+    for b in range(n):
+        kw = benchkit.make_edit_inputs(size, seed=20 + b, ellipse=(
+            (size * (0.4 + 0.06 * b), size * 0.5),
+            (size * 0.25, size * 0.38), 25.0 * b))
+        req = {k: kw[k] for k in keep}
+        if text:
+            req["prompt"] = SERVE_PROMPTS[b % len(SERVE_PROMPTS)]
+        req["seed"] = 20 + b
+        reqs.append(req)
+    return reqs
+
+
+def record_batch_shapes(pipe):
+    """Phase 2's part of phase 7: one-step edit_batch runs at B = 2 and 4
+    (exact), so that phase 2 checks every kernel shape phase 7 launches."""
+    for n in BATCH_SIZES[1:]:
+        pipe.edit_batch(serving_requests(512, n, text=False), height=512,
+                        width=512, num_inference_steps=1,
+                        **dict(SERVE_SHARED, blobnet_control_guidance_end=1.0))
+
+
+def hand_kernel_names():
+    """The __global__ functions of blobctrl_torch/csrc, as the profiler
+    names the hand-written kernels."""
+    import glob
+    import re
+    names = set()
+    for path in glob.glob(os.path.join(ROOT, "blobctrl_torch", "csrc",
+                                       "*.cu*")):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", f.read()))
+    return names
+
+
+def batch_scaling(pipe, size, steps, tally):
+    """edit_batch at each B of BATCH_SIZES (distinct requests), warm; ->
+    ({B: images}, [solo images]). ``tally`` banks the counters and zeroes
+    them."""
+    reqs = serving_requests(size, max(BATCH_SIZES))
+    shared = dict(SERVE_SHARED, height=size, width=size)
+    for n in BATCH_SIZES:  # warm: allocator, library heuristics, memos
+        pipe.edit_batch(reqs[:n], num_inference_steps=2, **shared)
+    out = {}
+    for n in BATCH_SIZES:
+        tally()
+        torch.cuda.reset_peak_memory_stats()
+        res, secs = timed(lambda: pipe.edit_batch(
+            reqs[:n], num_inference_steps=steps, **shared))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  edit_batch B={n}, {steps} steps: {secs:.3f} s a batch, "
+            f"{secs / n:.3f} s an image, peak memory {peak:.2f} GiB, "
+            f"flash {counts['flash_attention']} and conv3x3 "
+            f"{counts['conv3x3']} launches")
+        check_tensor_cores(f"edit_batch B={n}", counts, EXACT)
+        ran = {k: v for k, v in counts.items() if v}
+        if (set(ran) != set(EXACT) or res.images.shape != (n, size, size, 3)
+                or not np.isfinite(res.images).all()
+                or res.nsfw_content_detected is not None):
+            raise AssertionError(f"edit_batch B={n}: launches {ran}, "
+                                 f"output {res.images.shape}")
+        out[n] = res.images
+    solo = []
+    for b, req in enumerate(reqs):
+        res, secs = timed(lambda: pipe(**req, num_inference_steps=steps,
+                                       **shared))
+        solo.append(res.images)
+        log(f"  solo __call__ of request {b}: {secs:.3f} s; PSNR of its "
+            f"row in the B={max(BATCH_SIZES)} batch against it "
+            f"{psnr(out[max(BATCH_SIZES)][b:b + 1], res.images):.2f} dB "
+            f"(bf16, for information)")
+    return out, solo
+
+
+def toy_batch_against_solo():
+    """The trained toy 256^2 checkpoint in fp32 on the card: three
+    requests batched, each row against its solo edit, >= 40 dB."""
+    from blobctrl_torch.blob import math as blob_math
+    from blobctrl_torch.train import toy
+    card, _ = toy.load_toy(os.path.join(ROOT, "assets", "toy_ckpt_256"),
+                           device="cuda", dtype=torch.float32)
+    move = toy_edits(256, 20)["move"]
+    shared = {k: move[k] for k in ("height", "width", "num_inference_steps",
+                                   "guidance_scale")}
+    reqs = []
+    for b in range(3):
+        dst = ((256 * (0.55 + 0.05 * b), 256 * 0.55), (77.0, 102.0),
+               20.0 + 30 * b)
+        reqs.append(dict(
+            {k: move[k] for k in ("fg_image", "bg_image", "prompt_embeds",
+                                  "negative_prompt_embeds",
+                                  "fg_dino_feats")},
+            gs_score=blob_math.blob_score_from_ellipse(
+                dst, 256, 256, (32, 32)).numpy(), seed=30 + b))
+    batch = card.edit_batch(reqs, **shared).images
+    for b, req in enumerate(reqs):
+        p = psnr(batch[b:b + 1], card(**req, **shared).images)
+        log(f"  toy 256^2 fp32 edit_batch row {b} against its solo edit: "
+            f"{p:.2f} dB")
+        if not p >= 40.0:
+            raise AssertionError(f"toy batched row {b}: {p} dB")
+    del card
+
+
+def _http(url, payload=None, timeout=900):
+    """-> (status, body bytes) of a GET, or of a POST of ``payload``."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data, {"Content-Type":
+                                             "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def server_phase(pipe, size, steps, batched):
+    """``apps.server.serve`` on the card (max_batch=4, preview_every=10,
+    warmup at ``steps``): warmup seconds until /healthz is 200, a solo
+    request from a text prompt, an ellipse and PNG images, four concurrent
+    requests (one batch of 4), a remove request, a preview request with
+    /v1/progress seen mid-edit, a 400 for a cold shape."""
+    import base64
+    from blobctrl_torch.apps import server
+    from blobctrl_torch.utils import png
+    reqs = serving_requests(size, 4)
+
+    def payload(b, **extra):
+        r = reqs[b]
+        (cx, cy), (d1, d2), ang = ((size * (0.4 + 0.06 * b), size * 0.5),
+                                   (size * 0.25, size * 0.38), 25.0 * b)
+        return dict({"prompt": r["prompt"], "seed": r["seed"], "size": size,
+                     "num_inference_steps": steps,
+                     "guidance_scale": SERVE_SHARED["guidance_scale"],
+                     "blobnet_conditioning_scale":
+                         SERVE_SHARED["blobnet_conditioning_scale"],
+                     "blobnet_control_guidance_end":
+                         SERVE_SHARED["blobnet_control_guidance_end"],
+                     "ellipse": [cx, cy, d1, d2, ang],
+                     "fg_image": base64.b64encode(png.encode_png(
+                         r["fg_image"])).decode(),
+                     "bg_image": base64.b64encode(png.encode_png(
+                         r["bg_image"])).decode()}, **extra)
+
+    def images(body):
+        resp = json.loads(body)
+        return resp, np.stack([png.decode_png(base64.b64decode(b)).astype(
+            np.float32) / 255.0 for b in resp["images"]])
+
+    service, httpd = server.serve(pipe, host="127.0.0.1", port=0, size=size,
+                                  warmup_steps=steps, max_batch=4,
+                                  batch_window_ms=1500.0, preview_every=10)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    from blobctrl_torch.utils import observability
+    http_log = observability.logger
+    level = http_log.level
+    http_log.setLevel(logging.WARNING)  # a line per request otherwise
+    try:
+        t0 = time.perf_counter()
+        while _http(base + "/healthz")[0] != 200:
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("warmup did not finish in 600 s")
+            time.sleep(0.25)
+        log(f"  server warmup ({steps} steps: standard, preview, remove, "
+            f"batches of 2 and 4): {time.perf_counter() - t0:.2f} s until "
+            f"/healthz is 200")
+        code, body = _http(base + "/v1/info")
+        info = json.loads(body)
+        log(f"  /v1/info: device {info['device']}, warm_steps "
+            f"{info['warm_steps']}, max_batch {info['max_batch']}")
+        if code != 200 or info["device"] != torch.cuda.get_device_name():
+            raise AssertionError(f"info {code} {info}")
+        t0 = time.perf_counter()
+        code, body = _http(base + "/v1/edit", payload(0))
+        wall = time.perf_counter() - t0
+        resp, img = images(body)
+        log(f"  solo request (text prompt, ellipse, PNG images): {code}, "
+            f"server {resp['seconds']:.3f} s (batch of "
+            f"{resp.get('batch_size')}), client {wall:.3f} s with the "
+            f"1.5 s batch window")
+        if code != 200 or img.shape != (1, size, size, 3):
+            raise AssertionError(f"solo request {code}")
+        results = [None] * 4
+
+        def worker(b):
+            t = time.perf_counter()
+            c, bd = _http(base + "/v1/edit", payload(b))
+            results[b] = (c, bd, time.perf_counter() - t)
+        threads = [threading.Thread(target=worker, args=(b,))
+                   for b in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for b, (c, bd, wall) in enumerate(results):
+            resp, img = images(bd) if c == 200 else (json.loads(bd), None)
+            if c != 200 or resp.get("batch_size") != 4:
+                raise AssertionError(f"concurrent request {b}: {c} {resp}")
+            log(f"  concurrent request {b}: batch of {resp['batch_size']}, "
+                f"server {resp['seconds']:.3f} s, client {wall:.3f} s, "
+                f"PSNR against edit_batch B=4 in this phase "
+                f"{psnr(img, batched[b:b + 1]):.2f} dB")
+        if service.batches_run != 2:   # the solo request's, and this one
+            raise AssertionError(f"batches run {service.batches_run}")
+        rm = payload(1, remove=True)
+        del rm["ellipse"]
+        code, body = _http(base + "/v1/edit", rm)
+        resp, img = images(body)
+        log(f"  remove request: {code}, {resp['seconds']:.3f} s")
+        if code != 200 or "batch_size" in resp or not np.isfinite(img).all():
+            raise AssertionError(f"remove request {code}")
+        seen, done = [], threading.Event()
+
+        def poll():
+            while not done.is_set():
+                prog = json.loads(_http(base + "/v1/progress")[1])
+                if prog["active"] and prog["step"]:
+                    seen.append(prog["step"])
+                time.sleep(0.05)
+        poller = threading.Thread(target=poll)
+        poller.start()
+        try:
+            code, body = _http(base + "/v1/edit", payload(2, preview=True))
+        finally:
+            done.set()
+            poller.join()
+        resp, img = images(body)
+        log(f"  preview request: {code}, {resp['seconds']:.3f} s, previews "
+            f"at steps {resp['preview_steps']}, /v1/progress saw steps "
+            f"{sorted(set(seen))}")
+        every = [i for i in range(steps) if i % 10 == 0 or i == steps - 1]
+        if code != 200 or resp["preview_steps"] != every or not seen:
+            raise AssertionError(f"preview request {code} {seen}")
+        code, body = _http(base + "/v1/edit", payload(3, size=size // 2))
+        log(f"  cold shape (size {size // 2}): {code} "
+            f"{json.loads(body)['error'][:60]!r}")
+        if code != 400:
+            raise AssertionError(f"cold shape answered {code}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        http_log.setLevel(level)
+
+
+def traced_edit(pipe, size):
+    """One TRACE_STEPS-step solo edit under ``torch.profiler``: the top
+    device kernels, and the hand-written kernels' share of device time."""
+    import re
+    from blobctrl_torch.utils import observability
+    kw = dict(serving_requests(size, 1)[0], height=size, width=size,
+              num_inference_steps=TRACE_STEPS, **SERVE_SHARED)
+    ops_ms = observability.profile_op_breakdown(lambda: pipe(**kw),
+                                                repeats=1, top_k=100000)
+    _, wall = timed(lambda: pipe(**kw))
+    # the profiler names them e.g. "void (anonymous namespace)::
+    # conv3x3_kernel_tc<true>(...)"
+    pat = re.compile(r"(^|[\s:])(" + "|".join(sorted(hand_kernel_names()))
+                     + r")[<(]")
+    total = sum(ops_ms.values())
+    hand = sum(v for k, v in ops_ms.items() if pat.search(k))
+    log(f"  traced {TRACE_STEPS}-step edit: device time {total:.1f} ms over "
+        f"{len(ops_ms)} kernels; the same edit untraced {1e3 * wall:.1f} ms "
+        f"wall, so the device is busy {100 * total / (1e3 * wall):.1f} % of "
+        f"it; hand-written kernels {hand:.1f} ms "
+        f"({100 * hand / total:.1f} % of device time), plain torch "
+        f"{total - hand:.1f} ms ({100 * (total - hand) / total:.1f} %)")
+    for name, ms in list(ops_ms.items())[:15]:
+        log(f"    {ms:9.2f} ms  {'hand ' if pat.search(name) else 'torch'} "
+            f"{name[:90]}")
+    kinds = collections.Counter()
+    for name, ms in ops_ms.items():
+        kinds[next((kind for kind, rx in TRACE_KINDS
+                    if (pat if rx is None else re.compile(rx)).search(name)),
+                   "other")] += ms
+    log("  device time by kind: " + ", ".join(
+        f"{kind} {ms:.1f} ms ({100 * ms / total:.1f} %)"
+        for kind, ms in kinds.most_common()))
+    if not hand > 0:
+        raise AssertionError("the trace shows no hand-written kernel")
+
+
+def int8_linear_edit(pipe, size, steps, exact, tally):
+    """One edit in the int8-everything mode without and with the int8
+    linear path; PSNR against the exact edit and between the two."""
+    from blobctrl_torch.nn import layers
+    from blobctrl_torch.ops import conv3x3
+    from blobctrl_torch.utils import benchkit
+    # the card's int32 products against the CPU's exact fp64 ones
+    gen = torch.Generator().manual_seed(9)
+    for m, k, n in ((8192, 320, 960), (154, 768, 320), (8, 1280, 1280)):
+        x = torch.randn(m, k, generator=gen) * 4
+        w = torch.randn(k, n, generator=gen) / k ** 0.5
+        kq, ws = conv3x3.quantize_kernel_i8(w)
+        want = layers.matmul_i8(x, kq, ws, None, torch.float32)
+        got = layers.matmul_i8(x.cuda(), kq.cuda(), ws.cuda(), None,
+                               torch.float32).cpu()
+        route = ("torch._int_mm" if layers._int_mm_ok(m, k, n, torch.device(
+            "cuda")) else "fp64 product")
+        log(f"  matmul_i8 ({m}, {k}) x ({k}, {n}) on the card ({route}) "
+            f"against the CPU: bit-equal {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"matmul_i8 at {(m, k, n)} differs")
+    kw = dict(serving_requests(size, 1)[0], height=size, width=size,
+              num_inference_steps=steps, **SERVE_SHARED)
+    outs = {}
+    for label, linear in (("int8-everything", False),
+                          ("int8-everything + int8 linears", True)):
+        pipe._param_cache.clear()
+        tally()
+        with benchkit.int8_everything():
+            layers.set_linear_int8(linear)
+            try:
+                res, secs = timed(lambda: pipe(**kw))
+            finally:
+                layers.set_linear_int8(False)
+        counts = launch_counts()
+        check_tensor_cores(label, counts, INT8)
+        outs[label] = res.images
+        log(f"  {label}: {secs:.3f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, PSNR against the "
+            f"exact edit {psnr(res.images, exact):.2f} dB")
+        if min(counts[k] for k in INT8) == 0 or not np.isfinite(
+                res.images).all():
+            raise AssertionError(f"{label}: launches {counts}")
+    pipe._param_cache.clear()
+    log(f"  int8 + int8 linears against int8 alone: "
+        f"{psnr(*outs.values()):.2f} dB")
+
+
+def serving_phase(pipe, size: int = 512, steps: int = STEPS):
+    """Phase 7 on phase 6's loaded pipeline; -> ({kernel: {shape:
+    launches}}, {kernel: launches}) over the whole phase."""
+    from blobctrl_torch import ops
+    totals = collections.Counter()
+    shapes = {}
+
+    def tally():
+        for name, n in launch_counts().items():
+            totals[name] += n
+        for name, per in launch_shapes().items():
+            for key, n in per.items():
+                shapes.setdefault(name, {}).setdefault(key, 0)
+                shapes[name][key] += n
+        ops.reset_counts()
+
+    ops.reset_counts()
+    log("  7.1 batch scaling")
+    batched, solo = batch_scaling(pipe, size, steps, tally)
+    tally()
+    log("  7.2 batched against solo, toy 256^2 fp32 on the card")
+    toy_batch_against_solo()
+    # the toy's fp32 launches are off the main path: held batch against solo
+    # only, not against the plain versions
+    ops.reset_counts()
+    log("  7.3 (phase 2 checked every kernel shape of this phase)")
+    log("  7.4 the HTTP server")
+    server_phase(pipe, size, steps, batched[max(BATCH_SIZES)])
+    check_tensor_cores("server", launch_counts(), EXACT)
+    tally()
+    log("  7.5 one traced edit")
+    traced_edit(pipe, size)
+    tally()
+    log("  7.6 the int8 linear path")
+    int8_linear_edit(pipe, size, steps, solo[0], tally)
+    tally()
+    return shapes, dict(totals)
 
 
 def main() -> int:
@@ -1353,7 +1779,18 @@ def main() -> int:
     shapes = {name: set(keys) for name, keys in launch_shapes().items()}
     log("  recorded shapes from a one-step edit, exact, int8 and fused: "
         + ", ".join(f"{name} {len(keys)}" for name, keys in shapes.items()))
+    ops.reset_counts()
+    record_batch_shapes(pipe)
+    batch_shapes = {name: set(launch_shapes()[name]) - shapes[name]
+                    for name in EXACT}
+    log(f"  and from one-step edit_batch runs at B = "
+        f"{', '.join(map(str, BATCH_SIZES[1:]))} (phase 7's), shapes not "
+        f"above: " + ", ".join(f"{name} {len(keys)}"
+                               for name, keys in batch_shapes.items()))
     results = check_kernels(shapes)
+    log("  phase 7's batched shapes, checked without timing:")
+    for name, rows in check_kernels(batch_shapes, timing=False).items():
+        results[name].update(rows)
     results["blob_splat"], splat_calls = check_splat()
 
     # -- phase 3 ------------------------------------------------------------
@@ -1428,9 +1865,25 @@ def main() -> int:
         "bf16; requests at 512^2")
     del pipe
     torch.cuda.empty_cache()
-    checkpoint_phase()
+    _, pipe = checkpoint_phase()
 
     # -- phase 7 ------------------------------------------------------------
+    log(f"phase 7: serving on phase 6's loaded pipeline: edit_batch at B = "
+        f"{', '.join(map(str, BATCH_SIZES))}, the HTTP server, a traced "
+        f"edit, the int8 linear path")
+    served_shapes, served = serving_phase(pipe)
+    for name in EXACT + INT8:
+        missing = set(served_shapes.get(name, ())) - set(results[name])
+        if missing:
+            raise AssertionError(f"{name}: phase 7 shapes not checked in "
+                                 f"phase 2: {missing}")
+    log(f"  phase 7 launches: {dict(served)}")
+    if min(served.get(k, 0) for k in EXACT + INT8) == 0:
+        raise AssertionError(f"a kernel of phase 7 never ran: {served}")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # -- phase 8 ------------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
                                 "blobctrl_tpu/ops/flash_attention.py:80"),
             "conv3x3": ("blobctrl_torch/csrc/conv3x3.cu",
@@ -1464,6 +1917,7 @@ def main() -> int:
                        for k, n in counts[name].items())
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": totals[name],
+                 "served_launches": served.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"]
                                     for r in results[name].values())}
         for field in ("ms", "plain_ms", "bound_ms", "library_ms"):

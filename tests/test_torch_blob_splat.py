@@ -58,6 +58,42 @@ def test_plain_matches_pallas_kernel_in_interpret_mode(n, m, hw):
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
+# A fresh interpreter that imports the port, then makes its first parallel
+# exp (8192 floats over two threads): the splat's plain version did so in
+# its first case, and without the port's serial first call (blobctrl_torch/
+# __init__.py) about one process in fifty got a second half ~1e-4 off.
+FIRST_EXP = """
+import numpy as np, torch
+import blobctrl_torch
+torch.set_num_threads(2)
+x = torch.linspace(0.5, 6.0, 8192, dtype=torch.float32)
+want = np.exp(x.double().numpy()).astype(np.float32).view(np.int32)
+print(int(np.abs(torch.exp(x).numpy().view(np.int32) - want).max()))
+"""
+
+
+def test_first_parallel_exp_after_the_port_import_is_accurate():
+    """32 fresh processes, 8 at a time: every one within 1 ulp of the
+    correctly rounded exp (MKL's accurate mode), where the race put
+    thousands of ulps into half of the tensor."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2")
+    ulps = []
+    for _ in range(4):
+        procs = [subprocess.Popen([sys.executable, "-c", FIRST_EXP], cwd=root,
+                                  env=env, stdout=subprocess.PIPE, text=True)
+                 for _ in range(8)]
+        for proc in procs:
+            out, _ = proc.communicate(timeout=120)
+            assert proc.returncode == 0
+            ulps.append(int(out.split()[-1]))
+    assert max(ulps) <= 1, ulps
+
+
 @pytest.mark.parametrize("n,m,hw", CASES)
 def test_plain_matches_jax_splat(n, m, hw):
     """atol 1e-5: the pure-JAX splat divides by W and H where the kernel
