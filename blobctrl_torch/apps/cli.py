@@ -1,8 +1,8 @@
 """Inference CLI of the PyTorch port (counterpart of
 ``blobctrl_tpu/apps/cli.py``): loads the checkpoint layout, builds the blob
 score from an ellipse list, runs the pipeline, saves the results (optionally
-with the ellipse drawn). Images are PNG, read and written by the port's own
-codec (``utils/png.py``); JPEG inputs are not decoded yet.
+with the ellipse drawn). Input images are PNG or JPEG, read by the port's
+own decoders (``utils/image.py``); outputs are PNG.
 
 Usage:
   python -m blobctrl_torch.apps.cli \\
@@ -24,6 +24,7 @@ import torch
 
 from blobctrl_torch.pipeline.blobnet_pipeline import SCHEDULER_NAMES
 from blobctrl_torch.utils import png
+from blobctrl_torch.utils.image import read_image
 
 
 def parse_ellipse(spec: str):
@@ -37,15 +38,10 @@ def parse_ellipse(spec: str):
     return ((parts[0], parts[1]), (parts[2], parts[3]), parts[4])
 
 
-def read_png(path: str) -> np.ndarray:
-    """A PNG file -> (H, W, 3) uint8 (PIL's ``convert("RGB")``)."""
-    with open(path, "rb") as f:
-        return png.decode_png(f.read())
-
-
 def to_luma(rgb: np.ndarray) -> np.ndarray:
     """(H, W, 3) uint8 -> (H, W) uint8, PIL's ``convert("L")`` (ITU-R
-    601-2 luma in its 16-bit fixed point)."""
+    601-2 luma in its 16-bit fixed point). A gray image decoded to RGB
+    (equal channels) comes back unchanged."""
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
     return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(
         np.uint8)
@@ -104,14 +100,14 @@ def run(args) -> list:
     pipe = params_io.load_pipeline(args.models_root, dtype=dtype,
                                    device=args.device)
 
-    fg_image = read_png(args.object_image)
+    fg_image = read_image(args.object_image)
     height, width = fg_image.shape[:2]
     lh, lw = height // 8, width // 8
 
     if not args.remove:
         assert args.edited_background, \
             "--edited_background required unless --remove"
-        bg_image = read_png(args.edited_background)
+        bg_image = read_image(args.edited_background)
         final_ellipse = args.ellipse[-1]
         gs_score = blob_math.blob_score_from_ellipse(final_ellipse, width,
                                                      height, (lh, lw))
@@ -119,8 +115,8 @@ def run(args) -> list:
     else:
         assert args.original_image and args.ellipse_mask, \
             "--remove needs --original_image and --ellipse_mask"
-        orig = read_png(args.original_image)
-        mask = to_luma(read_png(args.ellipse_mask)) > 0
+        orig = read_image(args.original_image)
+        mask = to_luma(read_image(args.ellipse_mask)) > 0
         bg_image = np.where(mask[..., None], 255, orig).astype(np.uint8)
         final_ellipse = args.ellipse[0]
         gs_score = blob_math.removal_score((lh, lw))

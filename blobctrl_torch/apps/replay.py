@@ -8,7 +8,8 @@ PSNR outside the edit ellipses against the recorded results.
     python -m blobctrl_torch.apps.replay --models_root models \\
         --demo_root assets/results/demo --all --score
 
-Images are PNG (``utils/png.py``).
+Images are PNG or JPEG (``utils/image.py``). ``--score_ui`` scores the
+recorded UI goldens with ``apps/ui_render`` and needs no checkpoint.
 """
 
 from __future__ import annotations
@@ -37,9 +38,8 @@ def _ellipse_from_state(entry) -> tuple:
 
 
 def _read(path: str) -> np.ndarray:
-    from blobctrl_torch.utils import png
-    with open(path, "rb") as f:
-        return png.decode_png(f.read())
+    from blobctrl_torch.utils import image
+    return image.read_image(path)
 
 
 def load_images(demo_dir: str):
@@ -214,13 +214,17 @@ def main(argv=None):
     p.add_argument("--cfg_window", default=None, metavar="START,END",
                    help="score under guidance-interval CFG, e.g. 0.15,0.75")
     p.add_argument("--score_ui", action="store_true",
-                   help="score the recorded UI goldens: needs the renderer "
-                        "of apps/ui_render.py, not ported yet (ROADMAP "
-                        "Queue A)")
+                   help="score the weight-independent recorded UI goldens "
+                        "(blob view, edited backgrounds, ellipse masks); "
+                        "needs no checkpoint")
     args = p.parse_args(argv)
+
     if args.score_ui:
-        p.error("--score_ui needs the renderer of apps/ui_render.py, which "
-                "the port does not have yet (ROADMAP Queue A)")
+        from blobctrl_torch.apps import ui_render
+        ui_render.print_ui_score_table(
+            ui_render.score_ui_all(args.demo_root, args.name))
+        if not args.score:
+            return
 
     if args.int8:
         # the int8-everything bundle (the int8 linears stay out, as in the

@@ -1,7 +1,7 @@
 """Stateless HTTP serving of BlobCtrl edits from the PyTorch port
 (counterpart of ``blobctrl_tpu/apps/server.py``, with the same HTTP
-contract). stdlib only (``http.server``); images are PNG through the port's
-own codec (``utils/png.py``).
+contract). stdlib only (``http.server``); request images are PNG or JPEG
+(``utils/image.decode_image``, the port's own decoders), responses PNG.
 
 Endpoints
   GET  /healthz     -> 200 "ok" once the model is warm, else 503
@@ -12,8 +12,8 @@ Endpoints
       {
         "prompt": str | ["p1", ...],            (or "prompt_embeds": nested list)
         "negative_prompt": str | [...],          (optional)
-        "fg_image": base64 PNG,                  (object on white canvas)
-        "bg_image": base64 PNG,                  (edited background)
+        "fg_image": base64 PNG or JPEG,          (object on white canvas)
+        "bg_image": base64 PNG or JPEG,          (edited background)
         "ellipse": [cx, cy, d1, d2, angle_deg],  (pixel units; OR "gs_score":
                                                   nested [h][w][M+1] floats)
         "remove": bool,                          (remove mode: strength 0,
@@ -30,7 +30,8 @@ Endpoints
       }
       -> {"images": [base64 PNG, ...], "seconds": float,
           "previews": [base64 PNG, ...], "preview_steps": [int, ...]}
-  JPEG inputs are not decoded yet (a 400 that says so).
+  Input that neither decoder supports (another format, a CMYK or
+  arithmetic-coded JPEG, truncated data, ...) is a 400 that names it.
 
 Design notes
   * The card is one exclusive resource: edits serialize through a lock
@@ -80,12 +81,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from blobctrl_torch.utils import png
+from blobctrl_torch.utils import image, png
 
 
 def _decode_image(b64: str, field: str = "image") -> np.ndarray:
     try:
-        return png.decode_png(base64.b64decode(b64))
+        return image.decode_image(base64.b64decode(b64))
     except (binascii.Error, ValueError, TypeError) as e:
         raise ValueError(f"{field} is not decodable base64 image data: {e}")
 

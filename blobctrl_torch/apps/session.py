@@ -3,23 +3,28 @@ decoupled from any UI (counterpart of ``blobctrl_tpu/apps/session.py``).
 
 Flow:
   1. set_image(img)             — aspect check, resize + center-crop to 512^2
-  2. set_mask(mask)             — the object's mask (SAM clicks are not
-                                  ported)
+  2. click(x, y) / set_mask     — point-click segmentation through an
+                                  attached predictor, or the object's mask
   3. generate_blob()            — mask -> ellipse (1.05x inflate), object crop
                                   on white canvas, blob viz
-  4. move/resize/rotate/...     — multi-round edits (BlobEditor)
+  4. move/resize/rotate/...     — multi-round edits (BlobEditor), or the
+                                  click-to-move tracking points
+                                  (add_tracking_point, undo/reset,
+                                  tracking_overlay)
   5. run(prompt, ...)           — build edited background (start region white,
                                   target region black), splat score, pipeline
 Remove mode: run(remove=True) — bg = original with start region white,
   score forced to [bg=1, fg=0], control strength 0.
 
-The blob view splats on the pipeline's device (the hand-written splat
-kernel on the card). ``save_state`` / ``load_state`` write and read the
-reference demo's replayable state directories (``state/state.json`` and
-PNGs through ``utils/png.py``). Not ported: SAM clicks (``click``) and the
-tracking-point methods (``add_tracking_point`` and the ones after it,
-which draw with ``apps/ui_render``); the session keeps the points that
-``set_init_ellipse`` sets and the state files carry.
+The blob view splats on the session's device (the pipeline's, or
+``device``; the hand-written splat kernel on the card). The tracking
+overlay renders on the host in float64 through ``apps/ui_render``, bit for
+bit what the JAX session draws. ``pipeline`` may be None for the UI-only
+flows. A predictor is any object with ``set_image(img)`` and
+``predict(points, labels, multimask_output=False)`` returning (masks,
+scores, logits), as SAM's. ``save_state`` / ``load_state`` write and read
+the reference demo's replayable state directories (``state/state.json``
+and images, PNG written, PNG or JPEG read through ``utils/image.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +40,7 @@ import torch
 from blobctrl_torch.blob import editor as editor_lib
 from blobctrl_torch.blob import math as blob_math
 from blobctrl_torch.blob import viz as viz_lib
-from blobctrl_torch.utils import png, resample
+from blobctrl_torch.utils import image, png, resample
 
 
 def initialize_image(img: np.ndarray, size: int = 512) -> np.ndarray:
@@ -66,29 +71,48 @@ class SessionResult:
 
 
 class BlobCtrlSession:
-    def __init__(self, pipeline, size: int = 512):
+    def __init__(self, pipeline, sam_predictor=None, size: int = 512,
+                 device=None):
         self.pipeline = pipeline
-        self.device = pipeline.device
+        self.sam = sam_predictor
+        if device is None:
+            device = getattr(pipeline, "device", None) or "cuda"
+        self.device = device
         self.size = size
         self.original_image: Optional[np.ndarray] = None
         self.mask: Optional[np.ndarray] = None
         self.fg_image: Optional[np.ndarray] = None
         self.editor = editor_lib.BlobEditor(height=size, width=size)
+        self.selected_points: List[Tuple[float, float, int]] = []
         # click-to-move tracking points, [[x, y], ...]
         self.tracking_points: List[List[int]] = []
         self._remove_inflated = False
         self._pre_remove_start = None
 
     # ------------------------------------------------------------------
-    # steps 1-2: image + mask
+    # steps 1-2: image + segmentation
     # ------------------------------------------------------------------
 
     def set_image(self, img: np.ndarray) -> np.ndarray:
         self.original_image = initialize_image(np.asarray(img), self.size)
         self.mask = None
         self.fg_image = None
+        self.selected_points = []
         self.editor = editor_lib.BlobEditor(height=self.size, width=self.size)
+        if self.sam is not None:
+            self.sam.set_image(self.original_image)
         return self.original_image
+
+    def click(self, x: float, y: float, label: int = 1) -> np.ndarray:
+        """Add a point and re-run the predictor over all points so far."""
+        assert self.sam is not None, "no SAM predictor attached"
+        self.selected_points.append((x, y, label))
+        pts = np.asarray([(p[0], p[1]) for p in self.selected_points],
+                         np.float32)
+        lbs = np.asarray([p[2] for p in self.selected_points], np.int32)
+        masks, _, _ = self.sam.predict(pts, lbs, multimask_output=False)
+        self.mask = (masks[0] * 255).astype(np.uint8)
+        return self.mask
 
     def set_mask(self, mask: np.ndarray):
         """The object's segmentation mask."""
@@ -144,6 +168,56 @@ class BlobCtrlSession:
     def blob_visualization(self) -> np.ndarray:
         return viz_lib.blob_vis_from_ellipse(self.editor.current, self.size,
                                              self.size, device=self.device)
+
+    # ------------------------------------------------------------------
+    # click-to-move tracking points
+    # ------------------------------------------------------------------
+
+    def add_tracking_point(self, x: float, y: float):
+        """The first valid click selects the blob (it must land inside the
+        start ellipse; the point kept is the start ellipse's center, not
+        the click); each later click moves the blob by the delta between
+        the last two points. Returns (overlay_image, warning_or_None)."""
+        if not self.editor.entries:
+            return None, "Please generate the blob first"
+        if not self.tracking_points:
+            if not editor_lib.is_point_in_ellipse((x, y), self.editor.initial):
+                return (viz_lib.blob_vis_from_ellipse(
+                    self.editor.initial, self.size, self.size,
+                    device=self.device),
+                    "Please click a point inside the blob first")
+            xc, yc = self.editor.initial[0]
+            self.tracking_points.append([int(xc), int(yc)])
+        else:
+            self.tracking_points.append([int(x), int(y)])
+            last, prev = self.tracking_points[-1], self.tracking_points[-2]
+            self.editor.move((last[0] - prev[0], last[1] - prev[1]))
+        return self.tracking_overlay(), None
+
+    def undo_tracking_point(self):
+        """Pop the last point and its move."""
+        if len(self.tracking_points) > 1:
+            self.tracking_points.pop()
+            self.editor.undo()
+        elif self.tracking_points:
+            self.tracking_points.pop()
+        else:
+            return self.reset_tracking_points()
+        return self.tracking_overlay()
+
+    def reset_tracking_points(self):
+        """Clear the points and truncate the edits to the start."""
+        self.tracking_points = []
+        self.editor.reset()
+        return self.tracking_overlay()
+
+    def tracking_overlay(self) -> np.ndarray:
+        """The 'Editable Blob' view: blob splat + start marker + move
+        polyline/arrow + current-ellipse outline, from the pixel-exact
+        renderer (host float64)."""
+        from blobctrl_torch.apps import ui_render
+        return ui_render.render_editable_blob(
+            self.tracking_points, self.editor.entries, self.size, self.size)
 
     # ------------------------------------------------------------------
     # preview galleries (the demo's 'Original Preview' / 'Edited Preview')
@@ -367,8 +441,7 @@ class BlobCtrlSession:
             path = os.path.join(demo_dir, sub, name)
             if not os.path.exists(path):
                 return None
-            with open(path, "rb") as fh:
-                return png.decode_png(fh.read())
+            return image.read_image(path)
 
         img = read("input_image", "input_image.png")
         if img is not None:

@@ -174,6 +174,11 @@ def fit_ellipse(points: np.ndarray) -> Ellipse:
     gfp = np.linalg.lstsq(np.stack([px * px, py * py, px * py], 1),
                           np.ones(n), rcond=None)[0]
     ang = -0.5 * math.atan2(gfp[2], gfp[1] - gfp[0])
+    if abs(gfp[2]) <= 1e-8:
+        # axis-aligned (or circular): cv2 reports angle 0 before its
+        # width/height swap, not +-90 from the sign of a rounding-level
+        # cross term
+        ang = 0.0
     t = (gfp[2] / math.sin(-2.0 * ang) if abs(gfp[2]) > 1e-8
          else gfp[1] - gfp[0])
     r2 = abs(gfp[0] + gfp[1] - t)

@@ -1,4 +1,4 @@
-"""Blob math: ellipse -> Gaussian, Gaussian splatting to score maps and
+"""Blob math: ellipse <-> Gaussian, Gaussian splatting to score maps and
 depth-ordered alpha compositing, feature splatting (counterpart of
 ``blobctrl_tpu/blob/math.py``).
 
@@ -12,12 +12,17 @@ channels-last (N, H, W, M+1) with slot 0 the background layer.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from blobctrl_torch.nn import layers
+
+
+def rotation_matrix(theta: float) -> np.ndarray:
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, s], [-s, c]])
 
 
 def ellipse_to_gaussian(x: float, y: float, a: float, b: float,
@@ -33,6 +38,25 @@ def ellipse_to_gaussian(x: float, y: float, a: float, b: float,
     cov[0, 1] *= -1.0
     cov[1, 0] *= -1.0
     return mean, cov
+
+
+def gaussian_to_ellipse(mean: np.ndarray, cov: np.ndarray
+                        ) -> Tuple[float, float, float, float, float]:
+    """Inverse of ellipse_to_gaussian: (x, y, a, b, angle_deg) with
+    angle_deg the clockwise angle of the SHORT axis in [0, 180). The
+    eigenpairs come from ``eigh`` of the symmetrized matrix, so they stay
+    real on near-degenerate covariances."""
+    x, y = float(mean[0]), float(mean[1])
+    cov = np.asarray(cov, dtype=np.float64)
+    eigenvalues, eigenvectors = np.linalg.eigh((cov + cov.T) / 2.0)
+    eigenvalues = np.maximum(eigenvalues, 0.0)
+    b = float(np.sqrt(np.max(eigenvalues)))
+    a = float(np.sqrt(np.min(eigenvalues)))
+    min_vec = eigenvectors[:, int(np.argmin(eigenvalues))]
+    angle = math.degrees(math.atan2(min_vec[1], min_vec[0]))
+    if angle < 0:
+        angle += 180.0
+    return x, y, a, b, angle
 
 
 def short_axis_angle_to_major_theta(angle_clockwise_short_axis: float) -> float:
@@ -54,6 +78,13 @@ def normalize_gaussian(mean: np.ndarray, cov: np.ndarray, width: int,
     nmean = np.asarray(mean, dtype=np.float64) / np.array([width, height])
     diag2 = float(width) ** 2 + float(height) ** 2
     return nmean, np.asarray(cov, dtype=np.float64) / diag2
+
+
+def ellipse_from_normalized_gaussian(mean, cov, width: int, height: int):
+    """Normalized (mean, cov) -> cv2-style pixel ellipse."""
+    x, y, a, b, angle = gaussian_to_ellipse(np.asarray(mean), np.asarray(cov))
+    diag = math.sqrt(width ** 2 + height ** 2)
+    return ((x * width, y * height), (2 * a * diag, 2 * b * diag), angle)
 
 
 def composite_scores(scores: torch.Tensor) -> torch.Tensor:
@@ -102,6 +133,17 @@ def splat_features_from_scores(scores: torch.Tensor, features: torch.Tensor,
     if size and scores.shape[1] != size:
         scores = layers.bilinear_resize(scores, size, size)
     return torch.einsum("nhwm,nmc->nhwc", scores, features.to(scores.dtype))
+
+
+def pyramid_resize(img: torch.Tensor, cutoff: int) -> Dict[int, torch.Tensor]:
+    """Bilinear half-resolution pyramid of a square NHWC image keyed by
+    its spatial size, down to ``cutoff``, on the image's device."""
+    out = {img.shape[2]: img}
+    while img.shape[2] > cutoff:
+        s = img.shape[2] // 2
+        img = layers.bilinear_resize(img, s, s)
+        out[s] = img
+    return out
 
 
 def removal_score(score_hw: Tuple[int, int]) -> torch.Tensor:

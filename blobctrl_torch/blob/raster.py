@@ -13,12 +13,21 @@ point, so the pixels agree bit for bit with the cv2 the JAX package calls:
   * a filled ellipse is that polygon through ``fill_convex_poly`` (its
     edges drawn by ``line2``, then the scanlines between them);
   * an outline of thickness > 1 is ``poly_line``: each segment a filled
-    quadrilateral, each joint a filled circle of radius (thickness + 1) // 2.
+    quadrilateral, each joint a filled circle of radius (thickness + 1) // 2
+    (a ``lineType`` of -1 draws the same, as cv2 draws it);
+  * ``line``, ``arrowed_line`` and ``draw_marker`` are ``cv2.line``,
+    ``cv2.arrowedLine`` and ``cv2.drawMarker`` (cross and triangle-up) on
+    integer points: thickness 1 the integer 8-connected ``LineIterator``
+    walk, thicker lines the quadrilateral and the end circles above;
+  * ``alpha_composite`` is PIL's ``Image.alpha_composite`` for uint8 RGBA,
+    in the integer arithmetic of its ``AlphaComposite.c``.
 
 Only the 8-connected line type is drawn. OpenCV draws LINE_AA only into
 8-bit images; the JAX package asks for it on a float32 mask, where cv2
 draws LINE_8 instead, so LINE_8 is what its masks hold.
 
+Each call draws in place into float64 4-channel images (an RGBA colour, as
+the tracking-point renderer draws) and into uint8 3-channel ones.
 Host-side numpy, as in the JAX package: these are UI rasters, not device
 work. Plain Python loops over edge pixels and scanlines (a 512^2 ellipse
 takes milliseconds).
@@ -325,9 +334,137 @@ def poly_line(img, v: List[Point], color, thickness: int):
 def ellipse(img: np.ndarray, box, color, thickness: int = 1) -> np.ndarray:
     """``cv2.ellipse(img, ((cx, cy), (w, h), angle), color, thickness)``
     with LINE_8, drawn in place: filled for thickness < 0, else an outline
-    (thickness > 1)."""
+    (thickness > 1; cv2 draws a ``lineType`` of -1 there as LINE_8)."""
     if box[1][0] < 0 or box[1][1] < 0:
         raise ValueError(f"negative ellipse size {box[1]}")
     center, axes, angle = _fixed_box(box)
     _ellipse_ex(img, center, axes, angle, color, thickness)
     return img
+
+
+# ---------------------------------------------------------------------------
+# cv2.line / cv2.arrowedLine / cv2.drawMarker on integer points
+# ---------------------------------------------------------------------------
+
+def _line_iter(img, p0: Point, p1: Point, color):
+    """OpenCV's ``Line``: the 8-connected ``LineIterator`` walk from the
+    left end point, after ``clipLine`` to the image."""
+    h, w = img.shape[:2]
+    a, b = [int(p0[0]), int(p0[1])], [int(p1[0]), int(p1[1])]
+    if not (0 <= a[0] < w and 0 <= b[0] < w and 0 <= a[1] < h
+            and 0 <= b[1] < h):
+        if not clip_line(w, h, a, b):
+            return
+    dx, dy = b[0] - a[0], b[1] - a[1]
+    if dx < 0:                      # left to right
+        a, b, dx, dy = b, a, -dx, -dy
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    x, y = a
+    for _ in range(dx + 1):
+        img[y, x] = color
+        step_minor = err < 0
+        err += -2 * dy + (2 * dx if step_minor else 0)
+        if vert:
+            y += sy
+            x += 1 if step_minor else 0
+        else:
+            x += 1
+            y += sy if step_minor else 0
+
+
+def line(img: np.ndarray, p0: Point, p1: Point, color,
+         thickness: int = 1) -> np.ndarray:
+    """``cv2.line(img, p0, p1, color, thickness)`` (LINE_8, integer points),
+    in place."""
+    if not 0 < thickness <= 32767:
+        raise ValueError(f"line thickness {thickness} out of range")
+    if thickness == 1:
+        _line_iter(img, p0, p1, color)
+        return img
+    # cv2 5.0 first clips the segment to the image grown by the thickness
+    # on every side (integer clipLine), then draws it from the clipped ends
+    h, w = img.shape[:2]
+    t = thickness
+    a = [int(p0[0]) + t, int(p0[1]) + t]
+    b = [int(p1[0]) + t, int(p1[1]) + t]
+    if not clip_line(w + 2 * t, h + 2 * t, a, b):
+        return img
+    thick_line(img, ((a[0] - t) << XY_SHIFT, (a[1] - t) << XY_SHIFT),
+               ((b[0] - t) << XY_SHIFT, (b[1] - t) << XY_SHIFT), color,
+               thickness, 3)
+    return img
+
+
+def arrowed_line(img: np.ndarray, p0: Point, p1: Point, color,
+                 thickness: int = 1, tip_length: float = 0.1) -> np.ndarray:
+    """``cv2.arrowedLine``: the line, then the two tip strokes from points
+    ``tip_length`` times the line's length away from ``p1`` at +-45
+    degrees, rounded half to even as cvRound rounds."""
+    tip = math.sqrt(float(p0[0] - p1[0]) ** 2
+                    + float(p0[1] - p1[1]) ** 2) * tip_length
+    line(img, p0, p1, color, thickness)
+    ang = math.atan2(float(p0[1] - p1[1]), float(p0[0] - p1[0]))
+    for a in (ang + math.pi / 4, ang - math.pi / 4):
+        p = (_round(p1[0] + tip * math.cos(a)),
+             _round(p1[1] + tip * math.sin(a)))
+        line(img, p, p1, color, thickness)
+    return img
+
+
+MARKER_CROSS, MARKER_TRIANGLE_UP = 0, 5
+
+
+def draw_marker(img: np.ndarray, position: Point, color,
+                marker_type: int = MARKER_CROSS, marker_size: int = 20,
+                thickness: int = 1) -> np.ndarray:
+    """``cv2.drawMarker`` for the cross and the upward triangle (the two
+    markers the demo draws)."""
+    x, y = int(position[0]), int(position[1])
+    s = marker_size // 2
+    if marker_type == MARKER_CROSS:
+        segs = [((x - s, y), (x + s, y)), ((x, y - s), (x, y + s))]
+    elif marker_type == MARKER_TRIANGLE_UP:
+        segs = [((x - s, y + s), (x + s, y + s)), ((x + s, y + s), (x, y - s)),
+                ((x, y - s), (x - s, y + s))]
+    else:
+        raise ValueError(f"marker type {marker_type} is not drawn here "
+                         f"(cross {MARKER_CROSS}, triangle-up "
+                         f"{MARKER_TRIANGLE_UP})")
+    for a, b in segs:
+        line(img, a, b, color, thickness)
+    return img
+
+
+# ---------------------------------------------------------------------------
+# PIL's Image.alpha_composite
+# ---------------------------------------------------------------------------
+
+def alpha_composite(dst: np.ndarray, src: np.ndarray) -> np.ndarray:
+    """``Image.alpha_composite(dst, src)`` on (H, W, 4) uint8 RGBA arrays:
+    ``AlphaComposite.c``'s integer blend (7 extra bits, divisions by 255
+    rounded by its shift form); pixels where ``src`` is transparent are
+    ``dst`` unchanged."""
+    if dst.shape != src.shape or dst.shape[-1] != 4:
+        raise ValueError(f"alpha_composite takes two (H, W, 4) images of "
+                         f"one size, got {dst.shape} and {src.shape}")
+    d = dst.astype(np.uint64)
+    s = src.astype(np.uint64)
+    sa, da = s[..., 3:], d[..., 3:]
+    blend = da * (255 - sa)
+    outa255 = sa * 255 + blend
+    safe = np.maximum(outa255, 1)
+    coef1 = sa * 255 * 255 * (1 << 7) // safe
+    coef2 = 255 * (1 << 7) - coef1
+
+    def div255(a):
+        return ((a >> 8) + a) >> 8
+
+    rgb = div255(s[..., :3] * coef1 + d[..., :3] * coef2 + (0x80 << 7)) >> 7
+    alpha = div255(outa255 + 0x80)
+    out = np.concatenate([rgb, alpha], -1).astype(np.uint8)
+    return np.where(sa == 0, dst, out)

@@ -13,8 +13,9 @@ no PIL, so the port keeps this codec instead. ``decode_png`` gives what
 - 16-bit colour reduced to its high byte, 16-bit gray clipped to 255 (PIL
   opens it as mode "I;16" and converts by clipping, not by scaling).
 
-Anything else raises ``ValueError`` naming what is not supported, JPEG
-included, and so does a decompression bomb: an image of more than
+Anything else raises ``ValueError`` naming what is not supported (JPEG
+bytes go to ``utils/jpeg.py`` through ``utils/image.decode_image``), and
+so does a decompression bomb: an image of more than
 ``MAX_PIXELS`` pixels (PIL's ``DecompressionBombError`` bound), or image
 data that inflates past the size its header implies. The data is inflated
 only that far, so a small body cannot claim more memory than its image.
@@ -42,7 +43,8 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
 def _chunks(data: bytes):
     """-> [(type, payload)] up to IEND, CRCs checked."""
     if data[:2] == b"\xff\xd8":
-        raise ValueError("JPEG data: only PNG decoding is supported")
+        raise ValueError("JPEG data: decode_png reads PNG only "
+                         "(utils.image.decode_image reads both)")
     if data[:8] != _SIGNATURE:
         raise ValueError("not PNG data (bad signature)")
     out, pos = [], 8

@@ -7,6 +7,14 @@ script exits non-zero:
 
   1. Environment: the card's name and power limit, versions, and the build
      of every CUDA kernel from ``blobctrl_torch/csrc`` (nvcc, in parallel).
+     Then the JPEG decoder on the card's host, which has no PIL: every
+     fixture of ``tests/data/jpeg`` (gray, 4:4:4, 4:2:2, 4:2:0,
+     progressive, restart intervals, a 512^2 photo-like 4:2:0 file)
+     decoded by ``utils/jpeg.decode_jpeg`` bit-equal to PIL's decode
+     committed beside it as a PNG; the decode seconds of the 512^2 file
+     and of ``assets/jpeg_timing``'s 4032x3024 4:2:0 file (textured,
+     quality 90, 2.5 bits a pixel, as a phone photo), with the host CPU's
+     model.
   2. Kernels against their plain versions on the card, at every shape a
      512^2 edit launches (recorded through the wrappers by a one-step
      full-width edit, once exact, once in the int8-everything mode and once
@@ -77,6 +85,18 @@ script exits non-zero:
      and the object image: an edit, another after a move (the prompt and
      DINOv2 memos hit), and a remove. Counters zeroed before, read after;
      every flash and conv3x3 launch on its tensor-core kernel.
+     Then the demo's editing flow in a new session with a stand-in
+     predictor (the port's raster ellipse around the clicks):
+     ``set_image`` from the 512^2 JPEG fixture through ``decode_image``,
+     two ``click``s, ``generate_blob``, the tracking points (a first click
+     outside the blob, refused with the blob view within one level of the
+     CPU's; one inside; two moves; an undo; a move), each overlay's ms
+     logged (the overlays are host float64 numpy, no device op: the last
+     one equal to a CPU session's is logged as host determinism), and
+     one STEPS-step run from the tracked state (counters zeroed before,
+     read after: K1 and K6, all on the tensor cores). The move (with its
+     tracking points and editable-blob golden) and a remove state are
+     saved for the checkpoint day.
   6. A reference-layout checkpoint at full geometry: the SD-1.5 UNet (at
      4 input channels, so the loader widens it), BlobNet, the VAE, CLIP
      ViT-L/14 text and DINOv2-large drawn on the card in fp16 from a seed,
@@ -108,7 +128,10 @@ script exits non-zero:
      ``max_batch=4`` and ``preview_every=10``, warmed at STEPS steps (the
      seconds until ``/healthz`` is 200), then a solo request from PNG
      images, four concurrent requests that must come back as one batch
-     of 4, a remove request, a preview request with ``/v1/progress`` seen
+     of 4, the solo request from the 512^2 JPEG fixture's bytes against
+     the one from its PNG (the same image back; K1 and K6 only, on the
+     tensor cores, counted as differences, so the phase's tally keeps
+     every request) and a truncated JPEG (400), a remove request, a preview request with ``/v1/progress`` seen
      mid-edit and a 400 for a cold shape; one traced 20-step edit
      (``utils/observability.profile_op_breakdown``: the top kernels, the
      hand-written kernels' share of device time, the device's busy share
@@ -118,6 +141,13 @@ script exits non-zero:
      checks every K1 and K6 shape of the batches (one-step batches at B
      = 2 and 4 record them). Counters zeroed at the start of the phase
      and read at its end; K1, K6, K5 and K8 must each have run.
+     After phase 7, the checkpoint day (``apps/checkpoint_day``) on phase
+     6's models root, bf16, over phase 5's two states at CKPT_DAY_STEPS
+     steps and one sample: every stage ``ok`` (download skipped, load, UI
+     goldens all bit-exact, exact, int8, cfg_window, encoder_cache,
+     int8_cache), each stage's seconds and PSNR drop logged; counters
+     zeroed before each scoring stage and read after it: K5 and K8 in the
+     int8 stages, K1 and K6 in the others, all on the tensor cores.
   8. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those shapes.
@@ -677,6 +707,75 @@ def no_plain_view():
 
 
 # ---------------------------------------------------------------------------
+# phase 1: the JPEG decoder on the card's host
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+JPEG_TIMING = os.path.join(ROOT, "assets", "jpeg_timing",
+                           "photo_4032x3024_420.jpg")
+JPEG_PHOTO = "photo_512_420"  # the session's and the server's JPEG
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo describes it: model name (which a
+    virtual machine may hide), vendor, family/model/stepping, clock and
+    vector extensions, and the count of logical CPUs."""
+    fields = {}
+    count = 0
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            key, _, val = ln.partition(":")
+            key = key.strip()
+            count += key == "processor"
+            fields.setdefault(key, val.strip())
+    flags = set(fields.get("flags", "").split())
+    vec = ",".join(x for x in ("avx2", "avx512f", "avx512_bf16", "amx_tile")
+                   if x in flags)
+    return (f"{fields.get('model name', '?')}, {fields.get('vendor_id', '?')}"
+            f" family {fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')} stepping "
+            f"{fields.get('stepping', '?')}, {fields.get('cpu MHz', '?')} "
+            f"MHz, {vec or 'no avx2'}, {count} logical CPUs")
+
+
+def jpeg_phase():
+    """Every committed JPEG fixture decoded by ``utils/jpeg.decode_jpeg``
+    bit-equal to PIL's decode of it (the committed PNG beside it, read by
+    the port's PNG decoder: this host has no PIL); the decode seconds of
+    the 512^2 and the 4032x3024 4:2:0 files (best of 3)."""
+    from blobctrl_torch.utils import image, jpeg, png
+    log(f"  host CPU: {host_cpu()}")
+    names = sorted(n[:-4] for n in os.listdir(JPEG_FIXTURES)
+                   if n.endswith(".jpg"))
+    for name in names:
+        with open(os.path.join(JPEG_FIXTURES, name + ".jpg"), "rb") as f:
+            data = f.read()
+        with open(os.path.join(JPEG_FIXTURES, name + ".png"), "rb") as f:
+            want = png.decode_png(f.read())
+        got = jpeg.decode_jpeg(data)
+        if got.shape != want.shape or not np.array_equal(got, want) or \
+                not np.array_equal(image.decode_image(data), want):
+            raise AssertionError(f"JPEG fixture {name}: not PIL's decode")
+        log(f"  {name}.jpg {want.shape[1]}x{want.shape[0]}: bit-equal to "
+            f"PIL's decode")
+    for path in (os.path.join(JPEG_FIXTURES, JPEG_PHOTO + ".jpg"),
+                 JPEG_TIMING):
+        with open(path, "rb") as f:
+            data = f.read()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = jpeg.decode_jpeg(data)
+            best = min(best, time.perf_counter() - t0)
+        log(f"  decode {os.path.basename(path)} ({len(data)} bytes, "
+            f"{img.shape[1]}x{img.shape[0]}): {best:.3f} s (best of 3)")
+        if not np.isfinite(img.astype(np.float32)).all() or img.ndim != 3:
+            raise AssertionError(f"{path}: bad decode {img.shape}")
+    if len(names) < 7:
+        raise AssertionError(f"JPEG fixtures missing: {names}")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: trained toy checkpoint, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -757,10 +856,11 @@ def tensor_core_counts():
             for name, (mod, count) in TENSOR_CORE.items()}
 
 
-def check_tensor_cores(what, totals, names):
+def check_tensor_cores(what, totals, names, tc=None):
     """Every bf16 launch of ``names`` (all of ``totals``) ran on the
-    tensor-core kernel."""
-    tc = tensor_core_counts()
+    tensor-core kernel; ``tc`` the tensor-core counts over the same span
+    as ``totals`` (by default those since the last reset)."""
+    tc = tensor_core_counts() if tc is None else tc
     log(f"  {what}: tensor-core launches " + ", ".join(
         f"{k} {tc[k]} of {totals[k]}" for k in names if k in tc))
     wrong = {k: (tc[k], totals[k]) for k in names
@@ -1037,6 +1137,125 @@ def session_phase(pipe, steps: int):
     return splat_shapes, totals["blob_splat"]
 
 
+class EllipsePredictor:
+    """A stand-in for SAM: the mask is the port's raster ellipse around the
+    mean of the positive clicks."""
+
+    def set_image(self, img):
+        self.hw = img.shape[:2]
+
+    def predict(self, points, labels, multimask_output=False):
+        from blobctrl_torch.blob import viz
+        pos = np.asarray(points, np.float64)[np.asarray(labels) > 0]
+        cx, cy = pos.mean(0) if len(pos) else (self.hw[1] / 2,
+                                               self.hw[0] / 2)
+        h, w = self.hw
+        m = viz.ellipse_mask(((float(cx), float(cy)), (0.3 * w, 0.45 * h),
+                              20.0), h, w) > 0
+        return m[None], np.ones(1, np.float32), m[None].astype(np.float32)
+
+
+def tracking_phase(pipe, steps: int, demo_root: str):
+    """The demo's editing flow at full width: ``set_image`` from the 512^2
+    JPEG fixture through ``decode_image``, two clicks through the stand-in
+    predictor, ``generate_blob``, then the tracking points (a first click
+    outside the blob, one inside, two moves, an undo, a move), each
+    overlay timed; the refused click's K9 view held within one level of
+    the CPU's view. The overlays themselves are host float64 numpy with
+    no device op (the renderer is bit-equal to the JAX one in the CPU
+    tests), so the last one against a CPU session's is a host-determinism
+    log, not a card result. One ``steps``-step run from the tracked state
+    with every K1 and K6 launch on the tensor cores. Writes two demo states into
+    ``demo_root`` (the move with its tracking points and editable-blob
+    golden, and a remove), each with a results gallery, for the
+    checkpoint-day run."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.apps import session
+    from blobctrl_torch.utils import image, png
+    size = SESSION_SIZE
+    with open(os.path.join(JPEG_FIXTURES, JPEG_PHOTO + ".jpg"), "rb") as f:
+        photo = image.decode_image(f.read())
+    sess = session.BlobCtrlSession(pipe, sam_predictor=EllipsePredictor(),
+                                   size=size)
+    ops.reset_counts()
+    _, secs = timed(lambda: sess.set_image(photo))
+    log(f"  set_image from the {photo.shape[1]}x{photo.shape[0]} JPEG: "
+        f"{secs:.3f} s")
+    for x, y in ((240, 250), (280, 270)):
+        m, secs = timed(lambda: sess.click(x, y))
+        log(f"  click({x}, {y}): {secs:.3f} s, mask {int((m > 0).sum())} px")
+    ellipse, secs = timed(sess.generate_blob)
+    log(f"  generate_blob: {secs:.3f} s, ellipse {ellipse}")
+    cx, cy = (int(v) for v in sess.editor.initial[0])
+    steps_ = (("add_tracking_point outside the blob", lambda: sess.
+               add_tracking_point(5, 5)),
+              ("add_tracking_point inside (selects)", lambda: sess.
+               add_tracking_point(cx + 3, cy - 2)),
+              ("move to (+60, -25)", lambda: sess.add_tracking_point(
+                  cx + 60, cy - 25)),
+              ("move to (+90, +40)", lambda: sess.add_tracking_point(
+                  cx + 90, cy + 40)),
+              ("undo_tracking_point", sess.undo_tracking_point),
+              ("move to (-40, +55)", lambda: sess.add_tracking_point(
+                  cx - 40, cy + 55)))
+    for label, step in steps_:
+        out, secs = timed(step)
+        overlay, warning = out if isinstance(out, tuple) else (out, None)
+        log(f"  {label}: {1e3 * secs:.1f} ms"
+            + (f", warning {warning!r}" if warning else ""))
+        if label.endswith("outside the blob"):
+            if warning is None or sess.tracking_points:
+                raise AssertionError("the first click outside the blob was "
+                                     "not refused")
+            want = session.BlobCtrlSession(None, size=size, device="cpu")
+            want.editor.entries = list(sess.editor.entries)
+            view = want.blob_visualization()
+            diff = int(np.abs(overlay.astype(int) - view.astype(int)).max())
+            log(f"  the refused click's view (K9 on the card) against the "
+                f"CPU's: max {diff} uint8 level(s)")
+            if diff > 1:
+                raise AssertionError(f"warning view: {diff} levels off")
+        elif warning is not None or overlay.shape != (size, size, 3):
+            raise AssertionError(f"{label}: {warning} {overlay.shape}")
+    cpu = session.BlobCtrlSession(None, size=size, device="cpu")
+    cpu.editor.entries = list(sess.editor.entries)
+    cpu.tracking_points = [list(p) for p in sess.tracking_points]
+    if not np.array_equal(cpu.tracking_overlay(), overlay):
+        raise AssertionError("tracking overlay differs from the CPU's")
+    log(f"  tracking points {sess.tracking_points}; the overlay (host "
+        f"float64, no device op) equals a CPU session's: host determinism "
+        f"only")
+    before = launch_counts()
+    res, secs = timed(lambda: sess.run(PROMPT, num_inference_steps=steps))
+    totals = {k: n - before[k] for k, n in launch_counts().items()}
+    log(f"  run from the tracked state: {secs:.3f} s, launches "
+        f"{ {k: n for k, n in totals.items() if n} }")
+    if res.images.shape != (1, size, size, 3) or \
+            not np.isfinite(res.images).all():
+        raise AssertionError(f"tracked run: bad output {res.images.shape}")
+    if min(totals[k] for k in EXACT) == 0 or any(
+            n for k, n in totals.items() if k not in EXACT + SESSION):
+        raise AssertionError(f"tracked run launches {totals}")
+    check_tensor_cores("tracked run", launch_counts(), EXACT)
+
+    def gallery(d, arr):
+        os.makedirs(os.path.join(d, "results_gallery"), exist_ok=True)
+        with open(os.path.join(d, "results_gallery", "result_0.png"),
+                  "wb") as f:
+            f.write(png.encode_png(arr))
+    d = os.path.join(demo_root, DEMO_STATES[0])
+    sess.save_state(d, prompt=PROMPT, num_inference_steps=steps, seed=7)
+    os.makedirs(os.path.join(d, "editable_blob"))
+    with open(os.path.join(d, "editable_blob", "editable_blob.png"),
+              "wb") as f:
+        f.write(png.encode_png(overlay))
+    gallery(d, (res.images[0] * 255).astype(np.uint8))
+    sess.set_remove_mode(True)
+    d = os.path.join(demo_root, DEMO_STATES[1])
+    sess.save_state(d, prompt=PROMPT, remove=True, seed=8)
+    gallery(d, sess.original_image)
+
+
 def view_parts(sess, reps: int = 20):
     """-> {part: microseconds a call} of the session's blob view: the
     host's ellipse -> Gaussian math, the one upload of the inputs and
@@ -1218,38 +1437,38 @@ def lora_reverted(loaded, half, now, lora) -> float:
     return worst
 
 
-def checkpoint_phase(device="cuda", size: int = 512):
+def checkpoint_phase(root: str, device="cuda", size: int = 512):
     """Phase 6 (``device`` and ``size`` let it be rehearsed on the CPU at a
-    small size); -> (per-request records, the loaded pipeline)."""
+    small size); -> (per-request records, the loaded pipeline). The models
+    root is written into the directory ``root``, which the caller owns."""
     from blobctrl_torch import ops
     from blobctrl_torch.models import vae
     from blobctrl_torch.params import export, io
     from blobctrl_torch.utils import benchkit
     cfgs = reference_configs()
     trees, lora = draw_reference_trees(cfgs, 7, device)
-    with tempfile.TemporaryDirectory(prefix="models_root_") as root:
-        t0 = time.perf_counter()
-        nbytes = export.write_models_root(
-            root, unet=trees["unet"], unet_cfg=cfgs["unet"],
-            blobnet=trees["blobnet"], blobnet_cfg=cfgs["blobnet"],
-            vae=trees["vae"], vae_cfg=cfgs["vae"], clip=trees["clip"],
-            clip_cfg=cfgs["clip"], dino=trees["dino"], dino_cfg=cfgs["dino"],
-            lora=lora, lora_alpha=LORA_ALPHA,
-            tokenizer=benchkit.byte_level_tokenizer(),
-            float_dtype=torch.float16)
-        secs = time.perf_counter() - t0
-        gib = nbytes / 2 ** 30
-        log(f"  wrote {nbytes} bytes of fp16 safetensors ({gib:.2f} GiB) in "
-            f"{secs:.2f} s ({gib / secs:.2f} GiB/s)")
-        if device != "cpu":
-            torch.cuda.reset_peak_memory_stats()
-        pipe, secs = timed(lambda: io.load_pipeline(
-            root, dtype=torch.bfloat16, device=device))
-        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
-                if device != "cpu" else float("nan"))
-        log(f"  load_pipeline(bf16): {secs:.2f} s ({gib / secs:.2f} GiB/s of "
-            f"file), peak device memory {peak:.2f} GiB "
-            f"(the drawn fp16 trees included)")
+    t0 = time.perf_counter()
+    nbytes = export.write_models_root(
+        root, unet=trees["unet"], unet_cfg=cfgs["unet"],
+        blobnet=trees["blobnet"], blobnet_cfg=cfgs["blobnet"],
+        vae=trees["vae"], vae_cfg=cfgs["vae"], clip=trees["clip"],
+        clip_cfg=cfgs["clip"], dino=trees["dino"], dino_cfg=cfgs["dino"],
+        lora=lora, lora_alpha=LORA_ALPHA,
+        tokenizer=benchkit.byte_level_tokenizer(),
+        float_dtype=torch.float16)
+    secs = time.perf_counter() - t0
+    gib = nbytes / 2 ** 30
+    log(f"  wrote {nbytes} bytes of fp16 safetensors ({gib:.2f} GiB) in "
+        f"{secs:.2f} s ({gib / secs:.2f} GiB/s)")
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    pipe, secs = timed(lambda: io.load_pipeline(
+        root, dtype=torch.bfloat16, device=device))
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device != "cpu" else float("nan"))
+    log(f"  load_pipeline(bf16): {secs:.2f} s ({gib / secs:.2f} GiB/s of "
+        f"file), peak device memory {peak:.2f} GiB "
+        f"(the drawn fp16 trees included)")
     leaves, merged = check_loaded(pipe, trees, lora)
     log(f"  {leaves} leaves bit-equal to the drawn ones in bf16, {merged} "
         f"LoRA targets bit-equal to the fp32 merge then the cast; conv_in "
@@ -1568,6 +1787,7 @@ def server_phase(pipe, size, steps, batched):
                 f"{psnr(img, batched[b:b + 1]):.2f} dB")
         if service.batches_run != 2:   # the solo request's, and this one
             raise AssertionError(f"batches run {service.batches_run}")
+        jpeg_requests(base, payload, images, size)
         rm = payload(1, remove=True)
         del rm["ellipse"]
         code, body = _http(base + "/v1/edit", rm)
@@ -1606,6 +1826,125 @@ def server_phase(pipe, size, steps, batched):
         httpd.shutdown()
         httpd.server_close()
         http_log.setLevel(level)
+
+
+def jpeg_requests(base, payload, images, size):
+    """A solo request whose fg_image and bg_image are the 512^2 JPEG
+    fixture's bytes against the same request with the PNG of the same
+    pixels (PIL's decode, committed beside it): the same image back; a
+    truncated JPEG: 400. Each request's launches are the counters'
+    differences around it (no reset: phase 7's tally and its "server"
+    check keep them): K1 and K6 only, on the tensor cores."""
+    import base64
+    if size != 512:
+        return
+    with open(os.path.join(JPEG_FIXTURES, JPEG_PHOTO + ".jpg"), "rb") as f:
+        jpg = f.read()
+    with open(os.path.join(JPEG_FIXTURES, JPEG_PHOTO + ".png"), "rb") as f:
+        pngb = f.read()
+    out = {}
+    for kind, data in (("JPEG", jpg), ("PNG", pngb)):
+        b64 = base64.b64encode(data).decode()
+        before, tc_before = launch_counts(), tensor_core_counts()
+        t0 = time.perf_counter()
+        code, body = _http(base + "/v1/edit", payload(0, fg_image=b64,
+                                                      bg_image=b64))
+        wall = time.perf_counter() - t0
+        totals = {k: n - before[k] for k, n in launch_counts().items()}
+        tc = {k: n - tc_before[k] for k, n in tensor_core_counts().items()}
+        resp, out[kind] = images(body) if code == 200 else (
+            json.loads(body), None)
+        log(f"  solo request from the {kind} fixture ({len(data)} bytes): "
+            f"{code}, server {resp.get('seconds', 0):.3f} s, client "
+            f"{wall:.3f} s, launches "
+            f"{ {k: n for k, n in totals.items() if n} }")
+        if code != 200 or min(totals[k] for k in EXACT) == 0 or any(
+                n for k, n in totals.items() if k not in EXACT):
+            raise AssertionError(f"{kind} request {code} {totals}")
+        check_tensor_cores(f"{kind} request", totals, EXACT, tc)
+    if not np.array_equal(out["JPEG"], out["PNG"]):
+        raise AssertionError("the JPEG request's edit differs from the "
+                             "PNG request's")
+    log("  the JPEG request's image equals the PNG request's")
+    bad = base64.b64encode(jpg[:len(jpg) // 2]).decode()
+    code, body = _http(base + "/v1/edit", payload(0, fg_image=bad))
+    log(f"  truncated JPEG: {code} {json.loads(body)['error'][:70]!r}")
+    if code != 400:
+        raise AssertionError(f"truncated JPEG answered {code}")
+
+
+# ---------------------------------------------------------------------------
+# after phase 7: the checkpoint-day dry run on phase 6's models root
+# ---------------------------------------------------------------------------
+
+CKPT_DAY_STEPS = 10
+DEMO_STATES = ["move_tracked", "remove_tracked"]  # written by phase 5
+
+
+def checkpoint_day_phase(models_root: str, demo_root: str):
+    """``apps/checkpoint_day.run_checkpoint_day`` at full width, bf16, on
+    phase 6's models root over the demo states phase 5 wrote, at
+    CKPT_DAY_STEPS steps and one sample: every stage ``ok``; counters
+    zeroed before each scoring stage and read after it: the int8 stages
+    launch K5 and K8, the others K1 and K6, every launch on the tensor
+    cores."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.apps import checkpoint_day, replay
+    from blobctrl_torch.ops import conv3x3
+    real = replay.score_all
+    per_stage = []
+
+    def counted(*args, **kwargs):
+        ops.reset_counts()
+        rows = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        per_stage.append((conv3x3.conv_int8_enabled(), launch_counts(),
+                          tensor_core_counts()))
+        return rows
+    replay.score_all = counted
+    try:
+        report = checkpoint_day.run_checkpoint_day(
+            models_root=models_root, demo_root=demo_root,
+            steps=CKPT_DAY_STEPS, num_samples=1, names=DEMO_STATES)
+    finally:
+        replay.score_all = real
+    for row in report["stages"]:
+        p, d = row.get("mean_psnr_db"), row.get("psnr_drop_db")
+        log(f"  {row['stage']}: ok {row['ok']}, {row['seconds']:.2f} s"
+            + (f", mean PSNR {p:.2f} dB" if p is not None else "")
+            + (f", drop {d:+.2f} dB" if d is not None else "")
+            + (f", {row['total_params']} parameters"
+               if "total_params" in row else "")
+            + (f", {row['bit_exact']} of {row['artifacts']} UI artifacts "
+               f"bit-exact" if "artifacts" in row else "")
+            + (f", error {row['error']}" if "error" in row else ""))
+    log(f"  gates (random weights; for information): {report['gates']}")
+    names = [r["stage"] for r in report["stages"]]
+    want = ["download", "load", "ui_goldens", "exact",
+            *checkpoint_day.FAST_MODES]
+    if names != want or not all(r["ok"] for r in report["stages"]):
+        raise AssertionError(f"checkpoint day: stages {names}, not all ok")
+    ui = report["stages"][2]
+    if ui["artifacts"] < 2 or ui["bit_exact"] != ui["artifacts"]:
+        raise AssertionError(f"checkpoint day UI goldens: {ui}")
+    if len(per_stage) != 5:
+        raise AssertionError(f"{len(per_stage)} scoring stages counted")
+    for row in report["stages"][3:]:
+        if [r["name"] for r in row["rows"]] != DEMO_STATES or not all(
+                np.isfinite(r["psnr_db"]) for r in row["rows"]):
+            raise AssertionError(f"checkpoint day {row['stage']}: rows "
+                                 f"{row['rows']}")
+    for stage, (int8, totals, tc) in zip(want[3:], per_stage):
+        names = INT8 if stage.startswith("int8") else EXACT
+        log(f"  {stage}: launches {({k: n for k, n in totals.items() if n})}"
+            f", tensor-core {({k: tc[k] for k in names if k in tc})}")
+        if int8 != stage.startswith("int8") or min(
+                totals[k] for k in names) == 0 or any(
+                n for k, n in totals.items() if k not in names) or any(
+                tc[k] != totals[k] for k in names if k in tc):
+            raise AssertionError(f"checkpoint day {stage}: launches "
+                                 f"{totals}, tensor-core {tc}")
+    json.dumps(report)
 
 
 def traced_edit(pipe, size):
@@ -1760,6 +2099,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"  kernel build {time.perf_counter() - t0:.2f} s")
+    jpeg_phase()
     torch.backends.cudnn.allow_tf32 = False  # fp32 references in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1859,13 +2199,22 @@ def main() -> int:
         log(f"  launches {shape_label('blob_splat', key)}: {n}")
     log("  the splat's device time (torch.profiler), phase 2's keys:")
     splat_device_times(results["blob_splat"], splat_calls)
+    log(f"  the tracking-point flow from the JPEG fixture, one {STEPS}-step "
+        f"run")
+    # the demo states and phase 6's models root; removed when the script
+    # exits, however it exits
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    demo_root = os.path.join(work.name, "demo")
+    tracking_phase(pipe, STEPS, demo_root)
 
     # -- phase 6 ------------------------------------------------------------
     log("phase 6: a reference-layout checkpoint at full geometry, loaded in "
         "bf16; requests at 512^2")
     del pipe
     torch.cuda.empty_cache()
-    _, pipe = checkpoint_phase()
+    models_root = os.path.join(work.name, "models_root")
+    os.makedirs(models_root)
+    _, pipe = checkpoint_phase(models_root)
 
     # -- phase 7 ------------------------------------------------------------
     log(f"phase 7: serving on phase 6's loaded pipeline: edit_batch at B = "
@@ -1882,6 +2231,9 @@ def main() -> int:
         raise AssertionError(f"a kernel of phase 7 never ran: {served}")
     del pipe
     torch.cuda.empty_cache()
+    log(f"checkpoint day on phase 6's models root, bf16, over phase 5's two "
+        f"states, {CKPT_DAY_STEPS} steps")
+    checkpoint_day_phase(models_root, demo_root)
 
     # -- phase 8 ------------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",

@@ -148,3 +148,12 @@ def test_sources_import_no_host_image_or_text_library(path):
     text = (ROOT / path).read_text()
     pat = r"^\s*(import|from)\s+(" + "|".join(FORBIDDEN) + r")\b"
     assert not re.search(pat, text, re.M), path
+
+
+@pytest.mark.parametrize("path", [str(p.relative_to(ROOT)) for p in SOURCES]
+                         + ["chip_smoke.py"])
+def test_gradio_imported_only_inside_functions(path):
+    """gradio is on neither machine: the Gradio app imports it inside
+    ``build_demo`` alone, so every module imports without it."""
+    text = (ROOT / path).read_text()
+    assert not re.search(r"^(import|from)\s+gradio\b", text, re.M), path
