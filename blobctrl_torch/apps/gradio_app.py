@@ -379,9 +379,11 @@ def main(argv=None):
     sam_path = f"{args.models_root}/sam/sam_vit_h_4b8939.pth"
     if os.path.exists(sam_path):
         # a present checkpoint that cannot be loaded fails loudly instead of
-        # degrading the demo to no-SAM silently (the port's load_sam raises
-        # until SAM is ported)
-        sam_pred = params_io.load_sam(sam_path)
+        # degrading the demo to no-SAM silently
+        from blobctrl_torch.models import sam as sam_lib
+        sam_pred = sam_lib.SamPredictor(
+            params_io.load_sam(sam_path, device=args.device),
+            device=args.device)
     else:
         print(f"SAM checkpoint not found at {sam_path}; "
               "mask-from-click disabled")

@@ -59,6 +59,13 @@ Design notes
     so that a client sees the same contract as from the JAX package's
     server, and no request allocates an unwarmed working set under the
     lock. ``num_samples`` is bounded by ``MAX_SAMPLES``.
+  * Request images decode in worker processes (``DecodePool``), never on
+    the handler thread: the port's decoders are pure Python and would hold
+    the interpreter lock for seconds on a large JPEG while the batcher and
+    the denoise loop wait. The pool starts with the service (its workers
+    come up in the warmup), uses the ``spawn`` start method (the parent
+    holds a CUDA context) and has no in-process fallback: a worker that
+    dies fails its request with a 500 and the pool is replaced.
   * Input validation mirrors the pipeline's own errors; client mistakes are
     400s with the message, not 500s.
   * Deployment: http.server performs only basic security checks. Run this
@@ -73,10 +80,13 @@ import base64
 import binascii
 import collections
 import json
+import multiprocessing
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures.process import BrokenProcessPool
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,10 +95,61 @@ from blobctrl_torch.utils import image, png
 
 
 def _decode_image(b64: str, field: str = "image") -> np.ndarray:
+    """Base64 PNG or JPEG -> (H, W, 3) uint8; what a ``DecodePool`` worker
+    runs. Undecodable data raises ValueError naming ``field``."""
     try:
         return image.decode_image(base64.b64decode(b64))
     except (binascii.Error, ValueError, TypeError) as e:
         raise ValueError(f"{field} is not decodable base64 image data: {e}")
+
+
+class DecodePool:
+    """Request images decoded in ``workers`` spawned processes. A decoder
+    error comes back as the worker raised it (a ValueError: a 400). A worker
+    that dies breaks the pool: the requests it held fail with RuntimeError
+    (a 500) and a new pool takes its place; nothing decodes in-process."""
+
+    def __init__(self, workers: int):
+        self.workers = workers
+        self.replaced = 0
+        self._lock = threading.Lock()
+        self._pool = self._new_pool()
+
+    def _new_pool(self) -> ProcessPoolExecutor:
+        # spawn, never fork: the parent holds a CUDA context and threads
+        return ProcessPoolExecutor(
+            self.workers, mp_context=multiprocessing.get_context("spawn"))
+
+    def decode(self, items: Sequence[Tuple[str, str]]) -> List[np.ndarray]:
+        """[(base64 data, field name), ...] -> the decoded images, decoded
+        in parallel."""
+        with self._lock:
+            pool = self._pool
+        try:
+            futures = [pool.submit(_decode_image, b64, field)
+                       for b64, field in items]
+            return [f.result() for f in futures]
+        except BrokenProcessPool as e:
+            with self._lock:
+                if self._pool is pool:
+                    pool.shutdown(wait=False, cancel_futures=True)
+                    self._pool = self._new_pool()
+                    self.replaced += 1
+            raise RuntimeError(f"an image decoder process died ({e}); the "
+                               "pool was replaced") from e
+
+    def start(self) -> float:
+        """Bring every worker up (each imports the package, torch with it)
+        by one small decode apiece; -> seconds."""
+        t0 = time.perf_counter()
+        tiny = base64.b64encode(png.encode_png(
+            np.zeros((1, 1, 3), np.uint8))).decode()
+        self.decode([(tiny, "warmup")] * self.workers)
+        return time.perf_counter() - t0
+
+    def close(self):
+        with self._lock:
+            self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 def _encode_image(arr: np.ndarray) -> str:
@@ -126,6 +187,7 @@ class EditService:
     MAX_SAMPLES = 4
     MAX_STEPS = 200
     BATCH_WAIT_TIMEOUT_S = 1800.0       # queued request gives up (500)
+    DECODE_WORKERS = 2                  # a request's fg and bg in parallel
 
     def __init__(self, pipeline, size: int = 512, strict_shapes: bool = True,
                  max_body_bytes: Optional[int] = None,
@@ -133,6 +195,11 @@ class EditService:
                  preview_every: int = 0):
         self.pipeline = pipeline
         self.size = size
+        self.decoder = DecodePool(self.DECODE_WORKERS)
+        self.decoder_start_s: Optional[float] = None
+        # the handler thread's CPU seconds and the wall seconds of the last
+        # request's image decode
+        self.last_decode: Optional[Tuple[float, float]] = None
         self.lock = threading.Lock()
         self.warm = False
         self.requests_served = 0
@@ -166,8 +233,10 @@ class EditService:
         """Run the standard edit, its preview variant, the remove-mode edit
         and a batch at each warm size before accepting traffic (on the
         card: the kernels' build, the libraries' first-call heuristics, the
-        allocator's growth), then pin the warm shapes."""
+        allocator's growth), then pin the warm shapes. The image decoders
+        come up first."""
         from blobctrl_torch.blob import math as blob_math
+        self.decoder_start_s = self.decoder.start()
         size = self.size
         blank = np.full((size, size, 3), 255, np.uint8)
         gs = blob_math.blob_score_from_ellipse(
@@ -266,8 +335,11 @@ class EditService:
         self._validate_cold_graph(req)
         if "fg_image" not in req or "bg_image" not in req:
             raise ValueError("fg_image and bg_image (base64) are required")
-        fg = _decode_image(req["fg_image"], "fg_image")
-        bg = _decode_image(req["bg_image"], "bg_image")
+        t0, c0 = time.perf_counter(), time.thread_time()
+        fg, bg = self.decoder.decode([(req["fg_image"], "fg_image"),
+                                      (req["bg_image"], "bg_image")])
+        self.last_decode = (time.thread_time() - c0,
+                            time.perf_counter() - t0)
 
         lh, lw = size // 8, size // 8
         remove = bool(req.get("remove"))
@@ -515,6 +587,10 @@ class EditService:
             "mesh": None,               # no mesh yet (ROADMAP item 17)
             "hybrid_cfg_data": False,
         }
+
+    def close(self):
+        """Stop the image decoders."""
+        self.decoder.close()
 
 
 def make_handler(service: EditService):

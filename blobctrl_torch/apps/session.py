@@ -20,9 +20,10 @@ The blob view splats on the session's device (the pipeline's, or
 ``device``; the hand-written splat kernel on the card). The tracking
 overlay renders on the host in float64 through ``apps/ui_render``, bit for
 bit what the JAX session draws. ``pipeline`` may be None for the UI-only
-flows. A predictor is any object with ``set_image(img)`` and
-``predict(points, labels, multimask_output=False)`` returning (masks,
-scores, logits), as SAM's. ``save_state`` / ``load_state`` write and read
+flows. The predictor is ``models.sam.SamPredictor`` (SAM ViT-H, whose
+image embedding stays on the device between clicks), or any object with
+``set_image(img)`` and ``predict(points, labels, multimask_output=False)``
+returning (masks, scores, logits), as SAM's. ``save_state`` / ``load_state`` write and read
 the reference demo's replayable state directories (``state/state.json``
 and images, PNG written, PNG or JPEG read through ``utils/image.py``).
 """

@@ -10,6 +10,7 @@ GroupNorm and LayerNorm statistics are fp32 whatever the compute dtype.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple, Union
 
@@ -71,6 +72,26 @@ def init_conv(init: ParamInit, kh: int, kw: int, c_in: int, c_out: int,
 
 def init_norm(init: ParamInit, c: int):
     return {"scale": init.ones((c,)), "bias": init.zeros((c,))}
+
+
+@contextlib.contextmanager
+def strict_fp32(device):
+    """For the body of the ``with``, fp32 means fp32 on the card: cuDNN and
+    cuBLAS would otherwise run fp32 convs and products in TF32. Both
+    switches are restored on the way out; nothing changes for another
+    device."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -161,6 +162,103 @@ def lora_state_dict(lora: Dict[str, Any]) -> Dict[str, Any]:
             a, b = _permute(a, (1, 0)), _permute(b, (1, 0))
         sd[f"base_model.model.{body}.lora_A.weight"] = a
         sd[f"base_model.model.{body}.lora_B.weight"] = b
+    return sd
+
+
+# the SAM tree's path fragments -> the original segment_anything keys, in
+# order (the neck's norms before the blocks' generic ones)
+SAM_RENAMES = (
+    (".vision.patch_embed.", ".image_encoder.patch_embed.proj."),
+    (".vision.layers.", ".image_encoder.blocks."),
+    (".vision.neck.conv1.", ".image_encoder.neck.0."),
+    (".vision.neck.layer_norm1.", ".image_encoder.neck.1."),
+    (".vision.neck.conv2.", ".image_encoder.neck.2."),
+    (".vision.neck.layer_norm2.", ".image_encoder.neck.3."),
+    (".layer_norm1.", ".norm1."), (".layer_norm2.", ".norm2."),
+    (".layer_norm3.", ".norm3."), (".layer_norm4.", ".norm4."),
+    (".layer_norm_final_attn.", ".norm_final_attn."),
+    (".decoder.upscale_conv1.", ".decoder.output_upscaling.0."),
+    (".decoder.upscale_layer_norm.", ".decoder.output_upscaling.1."),
+    (".decoder.upscale_conv2.", ".decoder.output_upscaling.3."),
+    (".decoder.", ".mask_decoder."),
+)
+# leaves stored as they are in the tree, or with a leading axis of one
+SAM_TABLES = {
+    "vision.pos_embed": ("image_encoder.pos_embed", True),
+    "prompt.shared_embedding": (
+        "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix", False),
+    "prompt.not_a_point_embed": ("prompt_encoder.not_a_point_embed.weight",
+                                 True),
+    "prompt.no_mask_embed": ("prompt_encoder.no_mask_embed.weight", True),
+    "decoder.iou_token": ("mask_decoder.iou_token.weight", False),
+    "decoder.mask_tokens": ("mask_decoder.mask_tokens.weight", False),
+}
+
+
+def sam_state_dict(tree) -> Dict[str, Any]:
+    """A SAM tree -> the original ``segment_anything`` checkpoint's keys and
+    layouts (``sam_vit_h_4b8939.pth``): the inverse of the converter's
+    original-format path. The transposed convs' (kh, kw, c_out, c_in)
+    kernels go back to torch's (c_in, c_out, kh, kw)."""
+    sd = {}
+    for path, x in flatten(tree).items():
+        if path in SAM_TABLES:
+            key, lead = SAM_TABLES[path]
+            sd[key] = x[None] if lead else x
+            continue
+        if path == "prompt.point_embed":
+            for i in range(x.shape[0]):
+                sd[f"prompt_encoder.point_embeddings.{i}.weight"] = x[i:i + 1]
+            continue
+        if path.endswith((".rel_pos_h", ".rel_pos_w")):
+            k, v = path, x
+        else:
+            k, v = _torch_layout(path, x)
+        k = "." + k
+        for old, new in SAM_RENAMES:
+            k = k.replace(old, new)
+        # the MLP heads: head.j -> head.layers.j
+        k = re.sub(r"(output_hypernetworks_mlps\.\d+|iou_prediction_head)"
+                   r"\.(\d+)\.", r"\1.layers.\2.", k)
+        sd[k[1:]] = v
+    return sd
+
+
+def save_sam(path: str, tree) -> int:
+    """Write a SAM tree as the original checkpoint file, a ``torch.save``d
+    state dict of contiguous CPU tensors in the tree's dtype, one leaf
+    copied to the host at a time. -> the file's bytes."""
+    sd = {k: _as_torch(v).contiguous().cpu()
+          for k, v in sam_state_dict(tree).items()}
+    torch.save(sd, path)
+    return os.path.getsize(path)
+
+
+def safety_checker_state_dict(tree) -> Dict[str, Any]:
+    """A safety-checker tree -> diffusers' StableDiffusionSafetyChecker keys
+    (the SD-1.5 ``safety_checker/`` weights): the CLIP vision tower under
+    ``vision_model.``, the projection, the concept and special-care
+    embeddings and their thresholds."""
+    prefix = "vision_model.vision_model."   # transformers' CLIPVisionModel
+    sd = {}
+    for path, x in flatten(tree["vision"]).items():
+        if path == "class_embedding":
+            sd[prefix + "embeddings.class_embedding"] = x
+            continue
+        if path == "position_embedding":
+            sd[prefix + "embeddings.position_embedding.weight"] = x
+            continue
+        if path.startswith("patch_embed."):
+            path = path.replace("patch_embed.", "embeddings.patch_embedding.")
+        if path.startswith("layers."):
+            path = "encoder." + path
+        k, v = _torch_layout(path, x)
+        sd[prefix + k] = v
+    sd["visual_projection.weight"] = _permute(
+        tree["visual_projection"]["kernel"], (1, 0))
+    for k in ("concept_embeds", "concept_embeds_weights",
+              "special_care_embeds", "special_care_embeds_weights"):
+        sd[k] = tree[k]
     return sd
 
 

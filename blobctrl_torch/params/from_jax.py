@@ -1,11 +1,12 @@
 """Weights carried across from the JAX package's parameter pytrees.
 
 A JAX param tree is nested dicts and lists of arrays whose key names are
-those of ``init_unet`` / ``init_blobnet`` / ``init_vae``; the port's
-modules read exactly those names and layouts (conv kernels HWIO, linear
-kernels (in, out)), so the conversion is one walk that turns every leaf
-into a tensor on the target device and dtype. This is the one place where
-a layout change would go.
+those of ``init_unet`` / ``init_blobnet`` / ``init_vae`` and of the JAX
+converters (the encoders, SAM, the safety checker); the port's modules
+read exactly those names and layouts (conv kernels HWIO, linear kernels
+(in, out), SAM's transposed-conv kernels (kh, kw, c_out, c_in)), so the
+conversion is one walk that turns every leaf into a tensor on the target
+device and dtype. This is the one place where a layout change would go.
 
 ``load_safetensors`` is the numpy-only reader of ``params.io``, named here
 for the toy checkpoints' loader.

@@ -22,6 +22,7 @@ import collections
 import dataclasses
 import json
 import os
+import zipfile
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, Iterator, Optional
 
@@ -31,7 +32,7 @@ import torch
 from blobctrl_torch import resolve_device
 from blobctrl_torch.apps import flagship
 from blobctrl_torch.models import lora as lora_lib
-from blobctrl_torch.params import config_io, convert
+from blobctrl_torch.params import config_io, convert, convert_sam
 from blobctrl_torch.pipeline import BlobNetPipeline
 from blobctrl_torch.tokenizer import clip_bpe
 
@@ -168,10 +169,19 @@ def load_dinov2(dinov2_dir: str, device="cuda", dtype=torch.float32):
     return _load_tree(dinov2_dir, convert.convert_dinov2, device, dtype)
 
 
-def load_sam(path: str):
-    raise NotImplementedError(
-        "SAM is not ported yet (ROADMAP Queue A, item 15: models/sam.py and "
-        "params/convert_sam.py)")
+def load_sam(path: str, device="cuda"):
+    """A SAM checkpoint (a torch pickle in the original segment_anything
+    key format, ``sam/sam_vit_h_4b8939.pth`` in the reference's layout, or
+    transformers') -> the SAM param tree on ``device``, in fp32, as the
+    predictor runs it. The file is read through a memory map where its
+    format allows, each leaf moved to the device on its own."""
+    leaf = _device_leaf(device, torch.float32)  # refuse a missing card first
+    sd = torch.load(path, map_location="cpu", weights_only=True,
+                    mmap=zipfile.is_zipfile(path))
+    if isinstance(sd, dict) and "state_dict" in sd and all(
+            hasattr(v, "shape") for v in sd["state_dict"].values()):
+        sd = sd["state_dict"]
+    return convert_sam.convert_sam(sd, leaf=leaf)
 
 
 def load_lora_dir(lora_dir: str, alpha: Optional[float] = None,

@@ -37,6 +37,7 @@ from blobctrl_torch.models import blobnet as blobnet_lib
 from blobctrl_torch.models import clip_text as clip_lib
 from blobctrl_torch.models import dinov2 as dino_lib
 from blobctrl_torch.models import lora as lora_lib
+from blobctrl_torch.models import safety_checker as safety_checker_lib
 from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.models import vae as vae_lib
 from blobctrl_torch.nn import attention, layers, transformer_2d
@@ -60,7 +61,8 @@ SCHEDULER_NAMES = ("unipc", "ddim", "dpm", "dpm_karras", "dpm_sde",
 class PipelineOutput:
     images: np.ndarray  # (B, H, W, 3) float32 in [0, 1]; the final
     # (B, h, w, 4) latents with output_type="latent"
-    nsfw_content_detected: Optional[np.ndarray] = None  # no safety checker
+    # (N,) bool from the safety checker; None without one
+    nsfw_content_detected: Optional[np.ndarray] = None
 
 
 def make_scheduler(name: str, num_steps: int, eta: float = 0.0,
@@ -184,7 +186,10 @@ class BlobNetPipeline:
                  tokenizer: Optional[Callable[[Sequence[str]],
                                               np.ndarray]] = None,
                  dtype=torch.float32, device="cuda",
-                 dino_image_size: int = 224, safety_checker=None):
+                 dino_image_size: int = 224,
+                 safety_checker: Optional[Callable[[np.ndarray],
+                                                   np.ndarray]] = None,
+                 blackout_nsfw: bool = False):
         self.device = resolve_device(device)
         leaf = unet_params["conv_in"]["kernel"]
         if leaf.device.type != self.device.type:
@@ -201,8 +206,12 @@ class BlobNetPipeline:
         self.dino_cfg, self.dino_params = dino_cfg, dino_params
         self.tokenizer = tokenizer
         self.dino_image_size = dino_image_size
-        if safety_checker is not None:
-            raise NotImplementedError("the safety checker is not ported")
+        # the explicit safety policy: the reference registers a checker but
+        # comments out its call; here it runs iff one is given (images ->
+        # (N,) bool, e.g. functools.partial(models.safety_checker.check,
+        # params, cfg)), and blackout_nsfw zeroes the flagged images
+        self.safety_checker = safety_checker
+        self.blackout_nsfw = blackout_nsfw
         self.dtype = dtype
         self._param_cache = {}
         # encoder memos: a prompt or object repeated across edit rounds is
@@ -449,6 +458,17 @@ class BlobNetPipeline:
         u8 = torch.round(img * 255.0).to(torch.uint8).cpu().numpy()
         return u8.astype(np.float32) / 255.0
 
+    def _screened(self, images: np.ndarray) -> PipelineOutput:
+        """The decoded images through the safety checker, if there is one:
+        its flags in ``nsfw_content_detected``, the flagged images zeroed
+        under ``blackout_nsfw``."""
+        has_nsfw = None
+        if self.safety_checker is not None:
+            has_nsfw = np.asarray(self.safety_checker(images), bool)
+            if self.blackout_nsfw:
+                images = safety_checker_lib.blackout(images, has_nsfw)
+        return PipelineOutput(images=images, nsfw_content_detected=has_nsfw)
+
     def _cond_lat_key(self, fgbg: np.ndarray, height: int, width: int):
         return (hashlib.blake2b(np.ascontiguousarray(fgbg).tobytes(),
                                 digest_size=16).digest(),
@@ -672,7 +692,7 @@ class BlobNetPipeline:
                               cfg_mask if do_cfg else None, callback)
         if output_type == "latent":
             return PipelineOutput(images=final.cpu().numpy())
-        return PipelineOutput(images=self._decode_images(final, vae_params))
+        return self._screened(self._decode_images(final, vae_params))
 
     @torch.inference_mode()
     def edit_batch(self, requests: List[dict], height: int = 512,
@@ -701,8 +721,8 @@ class BlobNetPipeline:
         stochastic samplers included, is its solo edit up to the rounding
         of batched operations. The 2B images go through one VAE encode
         (the conditioning-latent memo stays off: a serving batch's images
-        differ), the DINOv2 cache misses through one encode. There is no
-        safety checker: ``nsfw_content_detected`` is None."""
+        differ), the DINOv2 cache misses through one encode. The safety
+        checker, if any, screens the B images, one flag each."""
         n = len(requests)
         if n == 0:
             raise ValueError("edit_batch needs at least one request")
@@ -814,7 +834,7 @@ class BlobNetPipeline:
             np.ones(num_inference_steps, bool), None, None)
         if output_type == "latent":
             return PipelineOutput(images=final.cpu().numpy())
-        return PipelineOutput(images=self._decode_images(final, vae_params))
+        return self._screened(self._decode_images(final, vae_params))
 
     def _denoise(self, sched, latents, pe, fg_lat, bg_lat, fg_score,
                  bg_score, fg_feats, cond_scales, guidance_scale, do_cfg,

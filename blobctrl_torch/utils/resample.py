@@ -31,6 +31,11 @@ import numpy as np
 PRECISION_BITS = 32 - 8 - 2
 
 
+def _bilinear(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
 def _bicubic(x: float) -> float:
     a = -0.5
     x = abs(x)
@@ -54,7 +59,8 @@ def _lanczos(x: float) -> float:
     return 0.0
 
 
-FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+FILTERS = {"bilinear": (_bilinear, 1.0), "bicubic": (_bicubic, 2.0),
+           "lanczos": (_lanczos, 3.0)}
 
 
 def _pil_weights(in_size: int, out_size: int, filt: str

@@ -96,7 +96,27 @@ script exits non-zero:
      one STEPS-step run from the tracked state (counters zeroed before,
      read after: K1 and K6, all on the tensor cores). The move (with its
      tracking points and editable-blob golden) and a remove state are
-     saved for the checkpoint day.
+     saved for the checkpoint day. The stand-in serves that flow only
+     because random weights give no ellipse-like mask.
+     Then SAM: a seeded random ViT-H (the full geometry, fp32) written as
+     phase 6's ``sam/sam_vit_h_4b8939.pth`` in the original
+     segment_anything layout (``params/export.save_sam``), loaded with
+     ``params.io.load_sam`` (every leaf bit-equal; bytes, seconds, peak
+     memory printed) and wrapped in ``models.sam.SamPredictor`` for a
+     session: ``set_image`` from the JPEG photo (ViT-H at 1024^2), two
+     clicks and their masks, the warm medians of ``set_image`` and
+     ``predict``, the full-depth embedding finite and bit-equal across two
+     calls, and no hand kernel launched; the card against the CPU at a
+     cut depth (8 blocks, the global one at 7, width 1280, 1024^2, TF32
+     switched on before the predictor, which must switch it off):
+     embedding and mask logits within 1e-4 of max |CPU|. Then the safety
+     checker (CLIP ViT-L/14 vision, random, through diffusers' state-dict
+     layout and back): 20-step edits without a checker, with one that
+     never flags (bit-equal images) and one that always flags under
+     ``blackout_nsfw`` (all zeros), the same through ``edit_batch`` at B =
+     2 with row 1 flagged; K1 and K6 in each, on the tensor cores; the
+     checker's ms and, card against CPU, its pooled embedding and scores
+     within 1e-4.
   6. A reference-layout checkpoint at full geometry: the SD-1.5 UNet (at
      4 input channels, so the loader widens it), BlobNet, the VAE, CLIP
      ViT-L/14 text and DINOv2-large drawn on the card in fp16 from a seed,
@@ -131,8 +151,13 @@ script exits non-zero:
      of 4, the solo request from the 512^2 JPEG fixture's bytes against
      the one from its PNG (the same image back; K1 and K6 only, on the
      tensor cores, counted as differences, so the phase's tally keeps
-     every request) and a truncated JPEG (400), a remove request, a preview request with ``/v1/progress`` seen
-     mid-edit and a 400 for a cold shape; one traced 20-step edit
+     every request) and a truncated JPEG (400), then the decode repair
+     (request images decode in the server's worker processes: during a
+     STEPS-step edit the 12 MP JPEG request's handler thread spends < 0.1
+     s of CPU; the edit's step times alone and during the decode, and
+     the workers' start-up in the warmup, printed), a remove request, a
+     preview request with ``/v1/progress`` seen mid-edit and a 400 for a
+     cold shape; one traced 20-step edit
      (``utils/observability.profile_op_breakdown``: the top kernels, the
      hand-written kernels' share of device time, the device's busy share
      of the untraced edit's wall time, the device time by kind); the
@@ -198,8 +223,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores (SAM and CLIP vision)
 PEAK_BYTES = 3.35e12
-PEAK_FP32_FLOPS = 67e12
 EXP_PER_SM_CLOCK = 16  # MUFU.EX2 per clock per SM (compute capability 9.0)
 EXP_RATE = None        # exponentials per second: SMs x 16 x the max SM clock (main)
 SPLAT_TOL = 1e-5  # absolute: the splat's outputs lie in [0, 1]
@@ -1297,6 +1322,343 @@ def view_parts(sess, reps: int = 20):
 
 
 # ---------------------------------------------------------------------------
+# phase 5, continued: SAM (ViT-H) and the safety checker (CLIP ViT-L/14)
+# ---------------------------------------------------------------------------
+
+SAM_SEED = 11
+SAM_CLICKS = ((240, 250, 1), (280, 270, 1))
+SAM_CUT_LAYERS = 8       # the card-against-CPU check's depth (global at 7)
+SAFETY_STEPS = 20
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def sam_encoder_flops(cfg) -> float:
+    """Floating-point operations of one ViT image (``vision_encoder``):
+    the products (2 a multiply-add) of the patch conv, every block's
+    linears (the windowed blocks on the padded grid), attention products
+    with their relative-position einsums, and the neck."""
+    c, m, g, heads = (cfg.hidden_size, cfg.mlp_dim, cfg.embed_grid,
+                      cfg.num_heads)
+    d = c // heads
+    win = cfg.window_size
+    padded = -(-g // win) * win
+    flops = 2.0 * g * g * cfg.patch_size ** 2 * 3 * c
+    for i in range(cfg.num_layers):
+        tokens = g * g if i in cfg.global_attn_indexes else padded ** 2
+        span = g if i in cfg.global_attn_indexes else win
+        seqs = tokens // span ** 2            # attention groups
+        flops += 2.0 * tokens * c * 4 * c     # qkv and proj
+        flops += 2.0 * g * g * c * m * 2      # the MLP
+        flops += seqs * heads * (2.0 * 2 * span ** 4 * d     # q.k, p.v
+                                 + 2.0 * 2 * span ** 3 * d)  # rel h, w
+    oc = cfg.output_channels
+    return flops + 2.0 * g * g * (c * oc + 9 * oc * oc)
+
+
+def sam_checkpoint(models_root: str, device="cuda", cfg=None):
+    """The ViT-H SAM of phase 6's models root: a seeded random tree at
+    full geometry written as ``sam/sam_vit_h_4b8939.pth`` in the original
+    segment_anything key layout (fp32), loaded with ``params.io.load_sam``
+    and held leaf for leaf, bit-equal, to the drawn tree; -> the loaded
+    tree. ``device`` and ``cfg`` (ViT-H by default) let it be rehearsed on
+    the CPU at a small size."""
+    from blobctrl_torch.models import sam
+    from blobctrl_torch.params import export, io
+    drawn = sam.init(cfg or sam.SAMConfig.vit_h(), seed=SAM_SEED,
+                     device=device)
+    os.makedirs(os.path.join(models_root, "sam"), exist_ok=True)
+    path = os.path.join(models_root, "sam", "sam_vit_h_4b8939.pth")
+    t0 = time.perf_counter()
+    nbytes = export.save_sam(path, drawn)
+    secs = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in export.flatten(drawn).values())
+    log(f"  wrote sam/sam_vit_h_4b8939.pth: {nbytes} bytes ({n_params} fp32 "
+        f"parameters) in {secs:.2f} s")
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    loaded, secs = timed(lambda: io.load_sam(path, device=device))
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device != "cpu" else float("nan"))
+    got, want = export.flatten(loaded), export.flatten(drawn)
+    wrong = [k for k, w in want.items()
+             if k not in got or got[k].dtype != torch.float32
+             or not torch.equal(got[k], w)]
+    log(f"  load_sam: {secs:.2f} s ({nbytes / 2 ** 30 / secs:.2f} GiB/s of "
+        f"file), peak device memory {peak:.2f} GiB (the drawn tree and the "
+        f"phase's pipeline included); {len(want) - len(wrong)} of "
+        f"{len(want)} leaves bit-equal to the drawn ones")
+    if wrong or set(got) != set(want):
+        raise AssertionError(f"load_sam: leaves differ: {wrong[:5]}")
+    return loaded
+
+
+def sam_session_phase(pipe, sam_tree, device="cuda", cfg=None):
+    """The demo's click -> mask flow through the real predictor: a session
+    on the phase's pipeline with ``SamPredictor(load_sam(...))``, the 512^2
+    JPEG photo (``set_image``: ViT-H at 1024^2), two clicks and their
+    masks; warm medians of ``set_image`` and ``predict``; the full-depth
+    embedding finite and bit-equal across two calls. Then the card against
+    the CPU at a cut depth (SAM_CUT_LAYERS blocks, full width, 1024^2,
+    TF32 switched on before the predictor runs, which must switch it off
+    for its calls and restore it):
+    the embedding and the mask logits (each normalized by its max) within
+    1e-4. Random weights give no ellipse-like mask, so the ellipse fit and
+    the tracking flow keep the stand-in predictor (``tracking_phase``).
+    SAM reaches no hand-written kernel: the counters stay at zero.
+    ``device`` and ``cfg`` (ViT-H by default) as in ``sam_checkpoint``."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.apps import session
+    from blobctrl_torch.models import sam
+    from blobctrl_torch.nn import layers
+    from blobctrl_torch.utils import image
+    with open(os.path.join(JPEG_FIXTURES, JPEG_PHOTO + ".jpg"), "rb") as f:
+        photo = image.decode_image(f.read())
+    cfg = cfg or sam.SAMConfig.vit_h()
+    pred = sam.SamPredictor(sam_tree, cfg, device=device)
+    sess = session.BlobCtrlSession(pipe, sam_predictor=pred,
+                                   size=SESSION_SIZE)
+    ops.reset_counts()
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    _, secs = timed(lambda: sess.set_image(photo))
+    log(f"  set_image ({cfg.num_layers} blocks of width {cfg.hidden_size} at "
+        f"{cfg.image_size}^2, fp32), first call: {secs:.3f} s")
+    for x, y, lb in SAM_CLICKS:
+        m, secs = timed(lambda: sess.click(x, y, lb))
+        log(f"  click({x}, {y}): {1e3 * secs:.1f} ms, mask {m.shape} "
+            f"{m.dtype}, {int((m > 0).sum())} px")
+        if m.shape != (SESSION_SIZE, SESSION_SIZE) or m.dtype != np.uint8:
+            raise AssertionError(f"click: mask {m.shape} {m.dtype}")
+    img = sess.original_image
+    embeds, set_ms = [], []
+    for _ in range(4):
+        _, secs = timed(lambda: pred.set_image(img))
+        set_ms.append(1e3 * secs)
+        embeds.append(pred._embedding.clone())
+    pts = np.asarray([p[:2] for p in sess.selected_points], np.float32)
+    lbs = np.asarray([p[2] for p in sess.selected_points], np.int32)
+    pred_ms = [1e3 * timed(lambda: pred.predict(pts, lbs))[1]
+               for _ in range(6)]
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device != "cpu" else float("nan"))
+    log(f"  set_image warm: median {statistics.median(set_ms[1:]):.1f} ms "
+        f"(calls {', '.join(f'{t:.1f}' for t in set_ms)}), predict warm: "
+        f"median {statistics.median(pred_ms[1:]):.2f} ms; peak device "
+        f"memory {peak:.2f} GiB")
+    emb = embeds[-1]
+    # where set_image's time goes: the host's resize and normalization,
+    # then the encoder on the device (its kernels by device time)
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        px, _, _ = sam.preprocess_image(img, cfg)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    px = torch.from_numpy(px).to(device)
+    if device != "cpu":
+        with layers.strict_fp32(device):  # as set_image runs it
+            enc_ms = time_ms(lambda: sam.vision_encoder(
+                sam_tree["vision"], cfg, px), reps=3, warmup=1)
+        flops = sam_encoder_flops(cfg)
+        log(f"  set_image's parts: host preprocess median "
+            f"{statistics.median(host_ms):.1f} ms; the encoder on the card "
+            f"{enc_ms:.1f} ms (CUDA events, median of 3): "
+            f"{flops / 1e12:.2f} TFLOP, {flops / enc_ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * flops / enc_ms / 1e9 / (PEAK_FP32_FLOPS / 1e12):.1f} % "
+            f"of the fp32 peak ({PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s, TF32 "
+            f"off)")
+        from blobctrl_torch.utils import observability
+        with torch.inference_mode(), layers.strict_fp32(device):
+            ops_ms = observability.profile_op_breakdown(
+                lambda: sam.vision_encoder(sam_tree["vision"], cfg, px),
+                repeats=1, top_k=100000)
+        total = sum(ops_ms.values())
+        log(f"  the encoder traced: {total:.1f} ms of device time over "
+            f"{len(ops_ms)} kernels; the top eight:")
+        for name, ms in list(ops_ms.items())[:8]:
+            log(f"    {ms:9.2f} ms  {name[:100]}")
+    g = cfg.embed_grid
+    if (tuple(emb.shape) != (1, g, g, cfg.output_channels)
+            or not torch.isfinite(emb).all()
+            or not torch.equal(embeds[-2], emb)):
+        raise AssertionError("full-depth embedding: not finite, wrong "
+                             "shape, or differs between two calls")
+    log(f"  full-depth embedding {tuple(emb.shape)} finite, two calls "
+        f"bit-equal; launches of the hand kernels: "
+        f"{ {k: n for k, n in launch_counts().items() if n} }")
+    if any(launch_counts().values()):
+        raise AssertionError("SAM launched a hand-written kernel")
+    # the card against the CPU at a cut depth
+    cut = dataclasses.replace(cfg, num_layers=SAM_CUT_LAYERS,
+                              global_attn_indexes=(SAM_CUT_LAYERS - 1,))
+    tree = dict(sam_tree, vision=dict(
+        sam_tree["vision"], layers=sam_tree["vision"]["layers"][:SAM_CUT_LAYERS]))
+    out = {}
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True   # the predictor must turn these
+    torch.backends.cuda.matmul.allow_tf32 = True  # off for its calls only
+    for dev in (device, "cpu"):
+        p = sam.SamPredictor(_tree_to(tree, dev), cut, device=dev)
+        t0 = time.perf_counter()
+        p.set_image(img)
+        _, _, logits = p.predict(pts, lbs)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        out[dev] = (p._embedding.float().cpu(), torch.from_numpy(logits),
+                    time.perf_counter() - t0)
+    if not (torch.backends.cudnn.allow_tf32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("the predictor did not restore the TF32 "
+                             "switches")
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+    (ce, cl, csec), (he, hl, hsec) = out[device], out["cpu"]
+    e_err = rel_err(ce, he)[1]
+    l_err = rel_err(cl, hl)[1]
+    log(f"  cut depth ({SAM_CUT_LAYERS} blocks, global at "
+        f"{SAM_CUT_LAYERS - 1}, width {cfg.hidden_size}, "
+        f"{cfg.image_size}^2), card against CPU: "
+        f"embedding {e_err:.2e}, mask logits {l_err:.2e} of max |CPU| "
+        f"(bar 1e-4); card {csec:.2f} s, CPU {hsec:.2f} s (first calls)")
+    if not (e_err <= 1e-4 and l_err <= 1e-4):
+        raise AssertionError(f"SAM card against CPU: {e_err}, {l_err}")
+
+
+def safety_phase(pipe, device="cuda", steps: int = SAFETY_STEPS,
+                 size: int = SESSION_SIZE, cfg=None):
+    """The safety checker on the edit: CLIP ViT-L/14 vision (24 layers,
+    width 1024, 224^2, patch 14) with a 768-wide projection, 17 concept
+    and 3 special-care embeddings, random, round-tripped through
+    ``export.safety_checker_state_dict`` and the port's converter (leaves
+    bit-equal). A ``steps``-step edit without a checker, with one that can
+    never flag (thresholds +2: flags all False, images bit-equal to the
+    unchecked edit's) and with one that always flags (-2) under
+    ``blackout_nsfw`` (flags all True, every pixel 0); then ``edit_batch``
+    at B = 2 unchecked and checked by a callable that runs the never-flag
+    checker on row 0 and the always-flag one on row 1. K1 and K6 launch in
+    every edit, all on the tensor cores; the checker alone launches no
+    hand kernel. The checker's ms, and its pooled embedding and scores
+    card against CPU (within 1e-4 of max |CPU|). ``device``, ``size``
+    and ``cfg`` (ViT-L/14 by default) let it be rehearsed on the CPU."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.models import clip_vision, safety_checker as sc
+    from blobctrl_torch.params import export, io
+    cfg = cfg or clip_vision.CLIPVisionConfig()
+    drawn = sc.init(cfg, seed=13, device=device)
+    params = sc.convert_safety_checker(export.safety_checker_state_dict(
+        drawn), leaf=io._device_leaf(device, torch.float32))
+    got, want = export.flatten(params), export.flatten(drawn)
+    if set(got) != set(want) or not all(torch.equal(got[k], w)
+                                        for k, w in want.items()):
+        raise AssertionError("safety checker: the state-dict round trip "
+                             "changed a leaf")
+    log(f"  checker: {sum(t.numel() for t in want.values())} fp32 "
+        f"parameters, {len(want)} leaves bit-equal after the diffusers "
+        f"state-dict round trip")
+
+    def thresholds(t):
+        return dict(params, concept_embeds_weights=torch.full_like(
+            params["concept_embeds_weights"], t),
+            special_care_embeds_weights=torch.full_like(
+                params["special_care_embeds_weights"], t))
+    never = functools.partial(sc.check, thresholds(2.0), cfg, device=device)
+    always = functools.partial(sc.check, thresholds(-2.0), cfg,
+                               device=device)
+    kw = text_edit_kwargs(size, steps)
+
+    def edit(label, checker, fn):
+        pipe.safety_checker, pipe.blackout_nsfw = checker, True
+        try:
+            ops.reset_counts()
+            res, secs = timed(fn)
+        finally:
+            pipe.safety_checker, pipe.blackout_nsfw = None, False
+        counts = launch_counts()
+        ran = {k: n for k, n in counts.items() if n}
+        if set(ran) != set(EXACT):
+            raise AssertionError(f"{label}: launches {ran}")
+        check_tensor_cores(label, counts, EXACT)
+        return res, secs, ran
+    outs = {}
+    for label, checker in (("no checker", None), ("never flags", never),
+                           ("always flags, blackout_nsfw", always)):
+        res, secs, ran = edit(label, checker, lambda: pipe(**kw))
+        outs[label] = res
+        log(f"  {steps}-step edit, {label}: {secs:.3f} s, flags "
+            f"{None if res.nsfw_content_detected is None else res.nsfw_content_detected.tolist()}, "
+            f"launches {ran}")
+    base = outs["no checker"]
+    ok = (base.nsfw_content_detected is None
+          and outs["never flags"].nsfw_content_detected.tolist() == [False]
+          and np.array_equal(outs["never flags"].images, base.images)
+          and outs["always flags, blackout_nsfw"].nsfw_content_detected
+          .tolist() == [True]
+          and not outs["always flags, blackout_nsfw"].images.any()
+          and base.images.any())
+    log(f"  never-flag edit bit-equal to the unchecked one, always-flag "
+        f"edit all zeros: {ok}")
+    if not ok:
+        raise AssertionError("the checked single edits are wrong")
+    reqs = serving_requests(size, 2)
+    shared = dict(SERVE_SHARED, height=size, width=size,
+                  num_inference_steps=steps)
+
+    def rows(images):
+        return np.concatenate([never(images[:1]), always(images[1:])])
+    batches = {}
+    for label, checker in (("unchecked", None), ("row 1 flagged", rows)):
+        res, secs, ran = edit(f"edit_batch, {label}", checker,
+                              lambda: pipe.edit_batch(reqs, **shared))
+        batches[label] = res
+        log(f"  edit_batch B=2, {label}: {secs:.3f} s, flags "
+            f"{None if res.nsfw_content_detected is None else res.nsfw_content_detected.tolist()}, "
+            f"launches {ran}")
+    b0, b1 = batches["unchecked"], batches["row 1 flagged"]
+    ok = (b1.nsfw_content_detected.tolist() == [False, True]
+          and np.array_equal(b1.images[0], b0.images[0])
+          and not b1.images[1].any() and b0.images[1].any())
+    log(f"  batched: row 0 bit-equal to the unchecked batch's, row 1 all "
+        f"zeros: {ok}")
+    if not ok:
+        raise AssertionError("the checked batch is wrong")
+    ops.reset_counts()
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        px = clip_vision.preprocess(base.images, cfg.image_size)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    if device != "cpu":
+        dev_ms = time_ms(lambda: clip_vision.apply(params["vision"], cfg, px,
+                                                   device=device), reps=5)
+        log(f"  check()'s parts for one image: host preprocess median "
+            f"{statistics.median(host_ms):.1f} ms, CLIP ViT-L/14 on the card "
+            f"{dev_ms:.2f} ms (CUDA events, median of 5)")
+    ms = [1e3 * timed(lambda: never(base.images))[1] for _ in range(6)]
+    ms2 = [1e3 * timed(lambda: never(b0.images))[1] for _ in range(6)]
+    if any(launch_counts().values()):
+        raise AssertionError("the checker launched a hand-written kernel")
+    log(f"  check() warm median: {statistics.median(ms[1:]):.1f} ms for one "
+        f"{size}^2 image, {statistics.median(ms2[1:]):.1f} ms for two (host "
+        f"preprocess included; first call {ms[0]:.1f} ms); no hand kernel")
+    images = np.concatenate([base.images, b0.images])
+    card = sc.scores(params, cfg, images, device=device)
+    cpu = sc.scores(_tree_to(params, "cpu"), cfg, images, device="cpu")
+    errs = [rel_err(c.float().cpu(), h)[1] for c, h in zip(card, cpu)]
+    log(f"  full geometry, card against CPU on {len(images)} images: pooled "
+        f"{errs[0]:.2e}, special-care scores {errs[1]:.2e}, concept scores "
+        f"{errs[2]:.2e} of max |CPU| (bar 1e-4)")
+    if max(errs) > 1e-4:
+        raise AssertionError(f"checker card against CPU: {errs}")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: a reference-layout checkpoint at full geometry
 # ---------------------------------------------------------------------------
 
@@ -1378,15 +1740,22 @@ def check_loaded(pipe, trees, lora):
     return leaves, merged
 
 
+def text_edit_kwargs(size: int, steps: int):
+    """The standard edit's kwargs from a text prompt and the object image
+    (CLIP and DINOv2 run) instead of given embeddings."""
+    from blobctrl_torch.utils import benchkit
+    kw = benchkit.standard_edit_kwargs(size, steps)
+    for k in ("prompt_embeds", "negative_prompt_embeds", "fg_dino_feats"):
+        del kw[k]
+    kw["prompt"] = PROMPT
+    return kw
+
+
 def checkpoint_requests(size: int):
     """The standard edit's kwargs from a text prompt and the object image,
     under each sampler and option of this slice."""
     from blobctrl_torch.schedulers import common
-    from blobctrl_torch.utils import benchkit
-    base = benchkit.standard_edit_kwargs(size, STEPS)
-    for k in ("prompt_embeds", "negative_prompt_embeds", "fg_dino_feats"):
-        del base[k]
-    base["prompt"] = PROMPT
+    base = text_edit_kwargs(size, STEPS)
     first = dict(base, scheduler="dpm_karras", num_inference_steps=25)
     sde = dict(base, scheduler="dpm_sde_karras", num_inference_steps=25,
                seed=11)
@@ -1788,6 +2157,7 @@ def server_phase(pipe, size, steps, batched):
         if service.batches_run != 2:   # the solo request's, and this one
             raise AssertionError(f"batches run {service.batches_run}")
         jpeg_requests(base, payload, images, size)
+        decode_repair(pipe, base, service, size, steps)
         rm = payload(1, remove=True)
         del rm["ellipse"]
         code, body = _http(base + "/v1/edit", rm)
@@ -1825,6 +2195,7 @@ def server_phase(pipe, size, steps, batched):
     finally:
         httpd.shutdown()
         httpd.server_close()
+        service.close()
         http_log.setLevel(level)
 
 
@@ -1871,6 +2242,67 @@ def jpeg_requests(base, payload, images, size):
     log(f"  truncated JPEG: {code} {json.loads(body)['error'][:70]!r}")
     if code != 400:
         raise AssertionError(f"truncated JPEG answered {code}")
+
+
+def decode_repair(pipe, base, service, size, steps):
+    """Request images decode outside the handler thread: a
+    ``steps``-step edit alone, then the same edit with, from its fifth
+    step on, a request whose fg_image and bg_image are both the 12 MP
+    textured JPEG (no blob, so the server answers 400 after decoding and
+    runs no edit). The handler thread's CPU seconds for the decode
+    (``EditService.last_decode``, ``time.thread_time``) must stay below
+    0.1 s; the edit's per-step times (``callback_on_step_end`` stamps)
+    alone and during the decode are printed for information."""
+    import base64
+    with open(JPEG_TIMING, "rb") as f:
+        b64 = base64.b64encode(f.read()).decode()
+    req = {"fg_image": b64, "bg_image": b64, "size": size,
+           "num_inference_steps": steps}
+    kw = text_edit_kwargs(size, steps)
+
+    def edit(stamps, go=None):
+        def cb(_p, i, _t, _x):
+            stamps.append(time.perf_counter())
+            if go is not None and i == 4:
+                go.set()
+        pipe(**kw, callback_on_step_end=cb)
+    alone = []
+    edit(alone)
+    during, go = [], threading.Event()
+    th = threading.Thread(target=edit, args=(during, go))
+    th.start()
+    if not go.wait(600):
+        raise AssertionError("the edit did not reach its fifth step")
+    service.last_decode = None
+    t0 = time.perf_counter()
+    code, body = _http(base + "/v1/edit", req)
+    t1 = time.perf_counter()
+    th.join(600)
+    if th.is_alive() or len(during) != steps or len(alone) != steps:
+        raise AssertionError("the timed edits did not finish")
+    error = json.loads(body).get("error", "")
+    if code != 400 or "ellipse" not in error or service.last_decode is None:
+        raise AssertionError(f"the 12 MP request was not decoded: {code} "
+                             f"{error[:80]!r}")
+    cpu_s, wall_s = service.last_decode
+    step_alone = np.diff(alone) * 1e3
+    step_during = np.asarray([1e3 * (b - a) for a, b in zip(during, during[1:])
+                              if a >= t0 and b <= t1])
+    log(f"  12 MP JPEG request (fg and bg, {len(b64)} base64 bytes each) "
+        f"during a {steps}-step edit: {code} {error[:50]!r} after "
+        f"{t1 - t0:.3f} s; decode "
+        f"{wall_s:.3f} s wall in the worker processes, the handler "
+        f"thread's CPU {cpu_s:.4f} s (bar 0.1 s)")
+    log(f"  the edit's step: alone median {np.median(step_alone):.2f} ms "
+        f"(min {step_alone.min():.2f}, max {step_alone.max():.2f}); during "
+        f"the decode median "
+        + (f"{np.median(step_during):.2f} ms over {len(step_during)} steps "
+           f"(max {step_during.max():.2f})" if len(step_during) else
+           "(no whole step inside the decode)")
+        + f"; decoder start-up in the warmup {service.decoder_start_s:.2f} s")
+    if cpu_s >= 0.1:
+        raise AssertionError(f"decode repair: the handler thread's CPU "
+                             f"{cpu_s} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2206,14 +2638,22 @@ def main() -> int:
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     demo_root = os.path.join(work.name, "demo")
     tracking_phase(pipe, STEPS, demo_root)
+    models_root = os.path.join(work.name, "models_root")
+    os.makedirs(models_root)
+    log("  SAM: phase 6's ViT-H checkpoint (written here, where the session "
+        "first needs it), then clicks through the loaded predictor")
+    sam_tree = sam_checkpoint(models_root)
+    sam_session_phase(pipe, sam_tree)
+    del sam_tree
+    torch.cuda.empty_cache()
+    log(f"  the safety checker on {SAFETY_STEPS}-step edits")
+    safety_phase(pipe)
 
     # -- phase 6 ------------------------------------------------------------
     log("phase 6: a reference-layout checkpoint at full geometry, loaded in "
         "bf16; requests at 512^2")
     del pipe
     torch.cuda.empty_cache()
-    models_root = os.path.join(work.name, "models_root")
-    os.makedirs(models_root)
     _, pipe = checkpoint_phase(models_root)
 
     # -- phase 7 ------------------------------------------------------------

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -107,11 +108,12 @@ def test_entry_points_raise_without_cuda():
 
 def test_pipeline_rejects_what_is_not_ported():
     """What stays unported or unsupported raises (IP-adapter inputs and
-    return_sample, as in the JAX package; SAM's loader; a scheduler name
-    the JAX package does not know); a text prompt on a pipeline without a
-    tokenizer and CLIP raises a clear ValueError; an image that needs a
-    resize, and a scheduler other than UniPC, which are ported, run."""
-    from blobctrl_torch.params import io
+    return_sample, as in the JAX package; a scheduler name the JAX package
+    does not know); a text prompt on a pipeline without a tokenizer and
+    CLIP raises a clear ValueError; an image that needs a resize, a
+    scheduler other than UniPC and a safety checker with blackout_nsfw,
+    which are ported, run."""
+    from blobctrl_torch.pipeline import BlobNetPipeline
     from blobctrl_torch.train import toy
     from blobctrl_torch.utils import benchkit
     pipe, _ = toy.load_toy(str(ROOT / "assets/toy_ckpt"), device="cpu")
@@ -125,8 +127,15 @@ def test_pipeline_rejects_what_is_not_ported():
         pipe(**{**kw, "ip_adapter_image": kw["fg_image"]})
     with pytest.raises(NotImplementedError):
         pipe(**{**kw, "return_sample": True})
-    with pytest.raises(NotImplementedError):
-        io.load_sam("sam_vit_h_4b8939.pth")
+    screened = BlobNetPipeline(
+        unet_cfg=pipe.unet_cfg, unet_params=pipe.unet_params,
+        blobnet_cfg=pipe.blobnet_cfg, blobnet_params=pipe.blobnet_params,
+        vae_cfg=pipe.vae_cfg, vae_params=pipe.vae_params, device="cpu",
+        safety_checker=lambda images: np.ones(len(images), bool),
+        blackout_nsfw=True)
+    out = screened(**kw)
+    assert out.nsfw_content_detected.tolist() == [True]
+    assert out.images.shape == (1, 128, 128, 3) and not out.images.any()
     with pytest.raises(ValueError, match="unknown scheduler"):
         pipe(**{**kw, "scheduler": "euler"})
     with pytest.raises(ValueError, match="tokenizer"):
@@ -137,14 +146,16 @@ def test_pipeline_rejects_what_is_not_ported():
     assert out.images.shape == (1, 128, 128, 3)
 
 
-FORBIDDEN = ("cv2", "PIL", "regex", "ftfy", "jax", "flax", "safetensors")
+FORBIDDEN = ("cv2", "PIL", "regex", "ftfy", "jax", "flax", "safetensors",
+             "transformers")
 
 
 @pytest.mark.parametrize("path", [str(p.relative_to(ROOT)) for p in SOURCES]
                          + ["chip_smoke.py"])
 def test_sources_import_no_host_image_or_text_library(path):
-    """The card's machine has no cv2, PIL, regex, ftfy or safetensors: no
-    source of the port imports them, at the top or inside a function."""
+    """The card's machine has no cv2, PIL, regex, ftfy, safetensors or
+    transformers: no source of the port imports them, at the top or inside
+    a function."""
     text = (ROOT / path).read_text()
     pat = r"^\s*(import|from)\s+(" + "|".join(FORBIDDEN) + r")\b"
     assert not re.search(pat, text, re.M), path

@@ -6,13 +6,16 @@ with the ``FakeSam`` double, returns what the JAX handler returns (arity,
 order and images; the generated results to the session test's bar, the
 two pipelines running on the same weights from the same latents). The
 example gallery replays from an ``examples_root`` that the test writes.
-``main`` loads through the port's loader and fails loudly on a present
-SAM checkpoint, which the port cannot load yet."""
+``main`` loads through the port's loaders: a present SAM checkpoint is
+wrapped in the port's ``SamPredictor`` for the session, and one that
+cannot be read fails loudly."""
 
 import os
+import pickle
 
 import numpy as np
 import pytest
+import torch
 
 from blobctrl_tpu.apps import gradio_app as jgradio
 from blobctrl_tpu.apps import session as jsession
@@ -176,8 +179,34 @@ def test_main_loads_through_the_port(monkeypatch, tmp_path):
         return None
 
     monkeypatch.setattr(tio, "load_pipeline", fake_load)
+    launched = []
+
+    class Demo:
+        def __init__(self, session, root):
+            self.session = session
+
+        def launch(self, server_port):
+            launched.append((self.session, server_port))
+    monkeypatch.setattr(tgradio, "build_demo", Demo)
     os.makedirs(tmp_path / "sam")
-    (tmp_path / "sam" / "sam_vit_h_4b8939.pth").write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="SAM"):
+    path = tmp_path / "sam" / "sam_vit_h_4b8939.pth"
+    path.write_bytes(b"x")
+    with pytest.raises(pickle.UnpicklingError):
         tgradio.main(["--models_root", str(tmp_path), "--device", "cpu"])
-    assert seen["load"] == (str(tmp_path), "cpu")
+    assert seen["load"] == (str(tmp_path), "cpu") and not launched
+    # a real (tiny) checkpoint in the original key format
+    from blobctrl_torch.models import sam as tsam
+    from blobctrl_torch.params import export
+    tree = tsam.init(tsam.SAMConfig(hidden_size=32, num_layers=2,
+                                    num_heads=2, mlp_dim=64, image_size=64,
+                                    window_size=2, global_attn_indexes=(1,),
+                                    output_channels=16, prompt_dim=16,
+                                    decoder_heads=2, decoder_mlp_dim=32),
+                     seed=1, device="cpu")
+    export.save_sam(str(path), tree)
+    tgradio.main(["--models_root", str(tmp_path), "--device", "cpu"])
+    (session, _), = launched
+    assert isinstance(session.sam, tsam.SamPredictor)
+    assert session.sam.device.type == "cpu"
+    assert torch.equal(session.sam.params["vision"]["pos_embed"],
+                       tree["vision"]["pos_embed"])

@@ -127,3 +127,25 @@ def test_multi_blob_scores_and_standard_inputs():
                                        atol=1e-6, err_msg=k)
         else:
             assert got[k] == v, k
+
+
+@pytest.mark.parametrize("before", [True, False])
+def test_strict_fp32_is_scoped_to_its_block(before):
+    """TF32 is off inside the block for a CUDA device and both switches
+    come back as they were, after an exception too; for the CPU the block
+    changes nothing. Only torch's flags are touched, so no card is needed."""
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = before
+        with tl.strict_fp32("cpu"):
+            assert [f.allow_tf32 for f in flags] == [before, before]
+        with pytest.raises(RuntimeError):
+            with tl.strict_fp32("cuda"):
+                assert [f.allow_tf32 for f in flags] == [False, False]
+                raise RuntimeError
+        assert [f.allow_tf32 for f in flags] == [before, before]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v

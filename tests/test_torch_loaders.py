@@ -476,6 +476,25 @@ def test_rescale_rederives_cached_weights(trees, mode):
     assert tp._conv_params("unet_params") is tp.unet_params  # modes off
 
 
-def test_load_sam_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tio.load_sam("sam/sam_vit_h_4b8939.pth")
+def test_load_sam_loads(tmp_path):
+    """A SAM checkpoint written in the original segment_anything layout
+    (``export.save_sam``) loads bit-equal to the tree it was written from,
+    and the JAX loader reads the same file into the same leaves."""
+    from blobctrl_torch.models import sam as tsam
+    from blobctrl_torch.params import export
+    cfg = tsam.SAMConfig(hidden_size=32, num_layers=3, num_heads=2,
+                         mlp_dim=64, image_size=64, window_size=3,
+                         global_attn_indexes=(1,), output_channels=16,
+                         prompt_dim=16, decoder_heads=2, decoder_mlp_dim=32)
+    tree = tsam.init(cfg, seed=4, device="cpu")
+    path = str(tmp_path / "sam_vit_h_4b8939.pth")
+    export.save_sam(path, tree)
+    got = export.flatten(tio.load_sam(path, device="cpu"))
+    want = export.flatten(tree)
+    assert set(got) == set(want)
+    jgot = export.flatten(jio.load_sam(path))
+    for k, w in want.items():
+        assert torch.equal(got[k], w), k
+        assert np.array_equal(np.asarray(jgot[k]), w.numpy()), k
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tio.load_sam(path)

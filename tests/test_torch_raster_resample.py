@@ -147,11 +147,16 @@ def test_object_region_on_canvas_matches_jax():
     ((97, 131), (53, 71), "lanczos"),       # an odd size, down
     ((37, 53), (64, 64), "lanczos"),        # and up
     ((64, 64), (30, 64), "bicubic"),
+    ((512, 512), (1024, 1024), "bilinear"),  # SAM's ResizeLongestSide
+    ((480, 640), (768, 1024), "bilinear"),
+    ((1000, 700), (1024, 717), "bilinear"),
+    ((97, 131), (53, 71), "bilinear"),      # down: the support widens
 ])
 def test_pil_resize_bit_equal(src, dst, filt):
     img = np.random.RandomState(sum(src)).randint(
         0, 256, src + (3,)).astype(np.uint8)
-    f = {"bicubic": Image.BICUBIC, "lanczos": Image.LANCZOS}[filt]
+    f = {"bicubic": Image.BICUBIC, "lanczos": Image.LANCZOS,
+         "bilinear": Image.BILINEAR}[filt]
     want = np.asarray(Image.fromarray(img).resize(dst[::-1], f))
     np.testing.assert_array_equal(resample.pil_resize(img, dst[::-1], filt),
                                   want)
