@@ -225,6 +225,7 @@ class EditService:
         self.batched_requests = 0
         self._queue: collections.deque = collections.deque()
         self._queue_cv = threading.Condition()
+        self._closed = False
         if self.max_batch > 1:
             threading.Thread(target=self._batch_loop, daemon=True,
                              name="edit-batcher").start()
@@ -431,6 +432,8 @@ class EditService:
                  "negative_prompt_embeds" in per)
         item = _BatchItem(group, per, shared)
         with self._queue_cv:
+            if self._closed:  # no batcher is left to take it
+                raise RuntimeError("the edit service is closed")
             self._queue.append(item)
             self._queue_cv.notify_all()
         if not item.event.wait(self.BATCH_WAIT_TIMEOUT_S):
@@ -507,8 +510,14 @@ class EditService:
         the next iteration (FIFO by group of the current head)."""
         while True:
             with self._queue_cv:
-                while not self._queue:
+                while not self._queue and not self._closed:
                     self._queue_cv.wait()
+                if self._closed:  # ends the thread and its hold on the pipe
+                    for it in self._queue:
+                        it.error = RuntimeError("the edit service is closed")
+                        it.event.set()
+                    self._queue.clear()
+                    return
                 head_group = self._queue[0].group
             deadline = time.monotonic() + self.batch_window_s
             while time.monotonic() < deadline:
@@ -589,7 +598,12 @@ class EditService:
         }
 
     def close(self):
-        """Stop the image decoders."""
+        """Stop the micro-batcher thread (queued requests fail) and the
+        image decoders; the service then holds the pipeline only through
+        its own references."""
+        with self._queue_cv:
+            self._closed = True
+            self._queue_cv.notify_all()
         self.decoder.close()
 
 

@@ -84,18 +84,69 @@ def init_blobnet(cfg: BlobNetConfig, seed: int = 0, device="cuda",
     return params
 
 
+def from_unet(unet_params, cfg: BlobNetConfig, seed: int = 0, device=None,
+              dtype=torch.float32):
+    """Training-time init (the JAX package's ``from_unet``, the reference's
+    ``BlobNetModel.from_unet``): a BlobNet tree with the UNet's weights.
+    conv_in's kernel is zero-padded over the conditioning input channels
+    (the UNet's channels copy into the first slots, the bias whole); the
+    time embedding and every down, mid and up block copy over, the UNet's
+    cross-attention and head having no BlobNet counterpart; the 1x1 taps
+    keep their zero init. A BlobNet weight without a UNet source raises.
+    On ``device`` (the UNet's by default), in ``dtype``."""
+    if device is None:
+        device = unet_params["conv_in"]["kernel"].device
+    init = init_blobnet(cfg, seed, device, dtype)
+
+    def copy(dst, src, path):
+        name = "/".join(map(str, path))
+        if isinstance(dst, dict):
+            out = {}
+            for k, v in dst.items():
+                if k in ("zero_down", "zero_mid", "zero_up"):
+                    out[k] = v
+                    continue
+                if k not in src:
+                    raise ValueError(f"UNet params missing {name}/{k}")
+                out[k] = copy(v, src[k], path + (k,))
+            return out
+        if isinstance(dst, list):
+            if len(src) != len(dst):
+                raise ValueError(f"{name}: {len(dst)} BlobNet entries vs "
+                                 f"{len(src)} UNet")
+            return [copy(d, s, path + (i,))
+                    for i, (d, s) in enumerate(zip(dst, src))]
+        src = torch.as_tensor(src, device=dst.device)
+        if path == ("conv_in", "kernel"):
+            if src.shape[2] > dst.shape[2] or (
+                    src.shape[:2] + src.shape[3:] != dst.shape[:2]
+                    + dst.shape[3:]):
+                raise ValueError(f"conv_in: UNet {tuple(src.shape)} does not "
+                                 f"embed in {tuple(dst.shape)}")
+            out = torch.zeros_like(dst)
+            out[:, :, :src.shape[2], :] = src.to(dst.dtype)
+            return out
+        if src.shape != dst.shape:
+            raise ValueError(f"{name}: UNet {tuple(src.shape)} != BlobNet "
+                             f"{tuple(dst.shape)}")
+        return src.to(dst.dtype).clone()
+
+    return copy(init, unet_params, ())
+
+
 def num_residuals(cfg: BlobNetConfig) -> Tuple[int, int, int]:
     n, lpb = len(cfg.block_out_channels), cfg.layers_per_block
     return 1 + n * lpb + (n - 1), 1, n * (lpb + 1) + (n - 1)
 
 
 def blobnet_apply(params, cfg: BlobNetConfig, sample: torch.Tensor, timesteps,
-                  conditioning_scale: float = 1.0
+                  conditioning_scale: float = 1.0, remat: bool = False
                   ) -> Tuple[List[torch.Tensor], torch.Tensor,
                              List[torch.Tensor]]:
     """sample: (B, H, 2W, 1029) NHWC double-width blob conditioning input.
     Returns (down_residuals, mid_residual, up_residuals) at full double
-    width; the pipeline crops the right half before injecting."""
+    width; the pipeline crops the right half before injecting. remat: see
+    ``nn.unet_blocks``."""
     ucfg = cfg.as_unet_config()
     timesteps = unet_lib._norm_timesteps(timesteps, sample.shape[0],
                                          sample.device)
@@ -108,9 +159,11 @@ def blobnet_apply(params, cfg: BlobNetConfig, sample: torch.Tensor, timesteps,
     for i, block_p in enumerate(params["down_blocks"]):
         x, states = ub.down_block(
             block_p, x, emb, None,
-            heads if cfg.down_block_has_attn[i] else None, no_inject, ng, eps)
+            heads if cfg.down_block_has_attn[i] else None, no_inject, ng, eps,
+            remat)
         down_states.extend(states)
-    x = ub.mid_block(params["mid_block"], x, emb, None, heads, ng, eps)
+    x = ub.mid_block(params["mid_block"], x, emb, None, heads, ng, eps,
+                     remat)
     mid_state = x
 
     up_states: List[torch.Tensor] = []
@@ -122,7 +175,7 @@ def blobnet_apply(params, cfg: BlobNetConfig, sample: torch.Tensor, timesteps,
         x, states = ub.up_block(
             block_p, x, skips, emb, None,
             heads if cfg.up_block_has_attn[i] else None, no_inject,
-            upsample_hw, ng, eps, collect_states=True)
+            upsample_hw, ng, eps, collect_states=True, remat=remat)
         up_states.extend(states)
 
     # strict zips: a config/checkpoint mismatch raises instead of dropping

@@ -140,6 +140,15 @@ def normalize_pixels(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) / std
 
 
+def preprocess(images_uint8: np.ndarray, size: int = 224,
+               short_edge: Optional[int] = None) -> np.ndarray:
+    """The host-side image processor (the JAX package's ``preprocess``, as
+    its training data calls it): (B, H, W, 3) uint8 RGB -> ``preprocess_u8``
+    then ``normalize_pixels`` -> float32 ImageNet-normalized numpy."""
+    u8 = torch.from_numpy(preprocess_u8(images_uint8, size, short_edge))
+    return normalize_pixels(u8).numpy()
+
+
 def init(cfg: DINOv2Config, seed: int = 0, device="cuda",
          dtype=torch.float32):
     """Random params with the JAX ``init`` structure and scales (normal

@@ -1,20 +1,60 @@
-"""LoRA adapters for the UNet (counterpart of the inference half of
-``blobctrl_tpu/models/lora.py``; training's ``init_lora`` is not ported).
+"""LoRA adapters for the UNet (counterpart of ``blobctrl_tpu/models/
+lora.py``).
 
 An adapter is a flat dict keyed by the UNet tree path of its target
 ("down_blocks/0/attentions/0/blocks/0/attn1/to_q"), each entry {"A": (in,
 r), "B": (r, out)}; a k x k conv target's A is (kh, kw, in, r). Inference
 merges it into the kernels, W += (scale * alpha / r) * A @ B, once at load
-and again by the increment when the scale changes.
+and again by the increment when the scale changes; training merges per
+step (``merge_lora`` is differentiable in A and B) over a frozen UNet.
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+DEFAULT_TARGETS = ("to_q", "to_k", "to_v", "to_out")
+
+
+def _attention_paths(params, prefix=()):
+    """(path, leaf dict) of every attention projection named in
+    ``DEFAULT_TARGETS`` of a UNet tree, in the tree's order."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            if k in DEFAULT_TARGETS and isinstance(v, dict) and "kernel" in v:
+                yield prefix + (k,), v
+            else:
+                yield from _attention_paths(v, prefix + (k,))
+    elif isinstance(params, list):
+        for i, v in enumerate(params):
+            yield from _attention_paths(v, prefix + (i,))
+
+
+def init_lora(generator: torch.Generator, unet_params, rank: int = 16,
+              targets: Tuple[str, ...] = DEFAULT_TARGETS,
+              device=None) -> Dict[str, Any]:
+    """A fresh fp32 adapter over ``targets``: "path/as/string" -> {"A": (in,
+    r) standard normal / sqrt(in), drawn from ``generator`` in the tree's
+    order, "B": (r, out) zeros}, on ``device`` (the UNet's by default). The
+    JAX package's ``init_lora`` with an explicit generator for its key."""
+    lora: Dict[str, Any] = {}
+    for path, leaf in _attention_paths(unet_params):
+        if path[-1] not in targets:
+            continue
+        d_in, d_out = leaf["kernel"].shape
+        dev = leaf["kernel"].device if device is None else device
+        a = torch.randn((d_in, rank), generator=generator,
+                        device=generator.device, dtype=torch.float32)
+        lora["/".join(map(str, path))] = {
+            "A": (a / math.sqrt(d_in)).to(dev),
+            "B": torch.zeros((rank, d_out), dtype=torch.float32, device=dev)}
+    return lora
 
 
 def _copy_structure(node):

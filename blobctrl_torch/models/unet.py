@@ -102,10 +102,12 @@ def _norm_timesteps(timesteps, batch: int, device) -> torch.Tensor:
 def unet_encode(params, cfg: UNetConfig, sample: torch.Tensor, timesteps,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 down_block_add_samples: Optional[Sequence[torch.Tensor]] = None,
-                mid_block_add_sample: Optional[torch.Tensor] = None
+                mid_block_add_sample: Optional[torch.Tensor] = None,
+                remat: bool = False
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """conv_in + down blocks + mid block, with the 12 down + 1 mid
-    injections. Returns (mid activation, skip stack)."""
+    injections. Returns (mid activation, skip stack). remat: see
+    ``nn.unet_blocks``."""
     timesteps = _norm_timesteps(timesteps, sample.shape[0], sample.device)
     ng, eps, heads = cfg.norm_num_groups, cfg.norm_eps, cfg.num_heads
     ctx = encoder_hidden_states
@@ -118,9 +120,10 @@ def unet_encode(params, cfg: UNetConfig, sample: torch.Tensor, timesteps,
     for i, block_p in enumerate(params["down_blocks"]):
         attn = cfg.down_block_has_attn[i]
         x, states = ub.down_block(block_p, x, emb, ctx if attn else None,
-                                  heads if attn else None, down_q, ng, eps)
+                                  heads if attn else None, down_q, ng, eps,
+                                  remat)
         res_stack.extend(states)
-    x = ub.mid_block(params["mid_block"], x, emb, ctx, heads, ng, eps)
+    x = ub.mid_block(params["mid_block"], x, emb, ctx, heads, ng, eps, remat)
     if mid_block_add_sample is not None:
         x = ub.add_injection(x, mid_block_add_sample)
     down_q.assert_empty()
@@ -130,8 +133,8 @@ def unet_encode(params, cfg: UNetConfig, sample: torch.Tensor, timesteps,
 def unet_decode(params, cfg: UNetConfig, x: torch.Tensor, skip_stack,
                 timesteps,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
-                up_block_add_samples: Optional[Sequence[torch.Tensor]] = None
-                ) -> torch.Tensor:
+                up_block_add_samples: Optional[Sequence[torch.Tensor]] = None,
+                remat: bool = False) -> torch.Tensor:
     """Up blocks + output head from an (x_mid, skip_stack) encoder state."""
     timesteps = _norm_timesteps(timesteps, x.shape[0], x.device)
     ng, eps, heads = cfg.norm_num_groups, cfg.norm_eps, cfg.num_heads
@@ -146,7 +149,7 @@ def unet_decode(params, cfg: UNetConfig, x: torch.Tensor, skip_stack,
         attn = cfg.up_block_has_attn[i]
         x, _ = ub.up_block(block_p, x, skips, emb, ctx if attn else None,
                            heads if attn else None, up_q, upsample_hw, ng,
-                           eps)
+                           eps, remat=remat)
     up_q.assert_empty()
     x = layers.silu(layers.group_norm(params["conv_norm_out"], x, ng, eps))
     return layers.conv2d(params["conv_out"], x, padding=1)
@@ -156,13 +159,13 @@ def unet_apply(params, cfg: UNetConfig, sample: torch.Tensor, timesteps,
                encoder_hidden_states: Optional[torch.Tensor] = None,
                down_block_add_samples: Optional[Sequence[torch.Tensor]] = None,
                mid_block_add_sample: Optional[torch.Tensor] = None,
-               up_block_add_samples: Optional[Sequence[torch.Tensor]] = None
-               ) -> torch.Tensor:
+               up_block_add_samples: Optional[Sequence[torch.Tensor]] = None,
+               remat: bool = False) -> torch.Tensor:
     """sample: (B, H, W, C_in) NHWC; timesteps: (B,) or a scalar. The three
     *add_samples carry the right-half-cropped BlobNet residuals, consumed in
-    the reference's order."""
+    the reference's order. remat: see ``nn.unet_blocks``."""
     x, res_stack = unet_encode(params, cfg, sample, timesteps,
                                encoder_hidden_states, down_block_add_samples,
-                               mid_block_add_sample)
+                               mid_block_add_sample, remat)
     return unet_decode(params, cfg, x, res_stack, timesteps,
-                       encoder_hidden_states, up_block_add_samples)
+                       encoder_hidden_states, up_block_add_samples, remat)

@@ -7,7 +7,7 @@ package leaves it to XLA too)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -80,6 +80,22 @@ def decode(params, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
                                   layers.nearest_upsample_2x(x))
     x = layers.silu(layers.group_norm(dec["conv_norm_out"], x, ng, eps=1e-6))
     return layers.conv2d(dec["conv_out"], x, padding=1)
+
+
+def sample_latents(moments: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """The diagonal Gaussian of the moments (B, h, w, 2 * latent): its mode
+    (the mean) when no generator is given, else mean + exp(logvar / 2) *
+    eps, the log variance clipped to [-30, 20], eps standard normal drawn
+    from ``generator`` on its device."""
+    mean, logvar = moments.chunk(2, dim=-1)
+    if generator is None:
+        return mean
+    std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+    eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                      device=generator.device).to(mean.device)
+    return mean + std * eps
 
 
 def encode_to_scaled_latents(params, cfg: VAEConfig,

@@ -4,6 +4,10 @@
 A residual is added after every resnet(+attention) pair and after every
 down/up-sampler. On a double-width feature map (W != H, the width-concat
 layout) it lands on the right (noisy) half only.
+
+``remat=True`` recomputes in the backward, at the JAX package's
+granularity, each down layer, the mid-block body and each up layer
+(``torch.utils.checkpoint``): their kernels then launch twice a step.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import checkpoint
 
 from blobctrl_torch.nn import layers
 from blobctrl_torch.nn import resnet as rn
@@ -105,17 +110,28 @@ def init_up_block(init: layers.ParamInit, c_in: int, c_out: int,
 # apply
 # ---------------------------------------------------------------------------
 
+def _remat(fn, remat: bool, *args):
+    """fn(*args), its activations recomputed in the backward when remat."""
+    if remat:
+        return checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def down_block(params, x: torch.Tensor, temb: torch.Tensor,
                context: Optional[torch.Tensor], heads: Optional[int],
                inject: InjectionQueue, norm_groups: int = 32,
-               eps: float = 1e-5) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+               eps: float = 1e-5, remat: bool = False
+               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     out_states = []
     attns = params.get("attentions")
     for i, res_p in enumerate(params["resnets"]):
-        x = rn.resnet_block(res_p, x, temb, norm_groups, eps)
-        if attns is not None:
-            x = t2d.transformer_2d(attns[i], x, heads, context, norm_groups)
-        x = inject.apply(x)
+        def layer(x, res_p=res_p, i=i):
+            h = rn.resnet_block(res_p, x, temb, norm_groups, eps)
+            if attns is not None:
+                h = t2d.transformer_2d(attns[i], h, heads, context,
+                                       norm_groups)
+            return h
+        x = inject.apply(_remat(layer, remat, x))
         out_states.append(x)
     if "downsample" in params:
         x = inject.apply(rn.downsample_2d(params["downsample"], x))
@@ -125,29 +141,36 @@ def down_block(params, x: torch.Tensor, temb: torch.Tensor,
 
 def mid_block(params, x: torch.Tensor, temb: torch.Tensor,
               context: Optional[torch.Tensor], heads: int,
-              norm_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    h = rn.resnet_block(params["resnets"][0], x, temb, norm_groups, eps)
-    for attn_p, res_p in zip(params["attentions"], params["resnets"][1:]):
-        h = t2d.transformer_2d(attn_p, h, heads, context, norm_groups)
-        h = rn.resnet_block(res_p, h, temb, norm_groups, eps)
-    return h
+              norm_groups: int = 32, eps: float = 1e-5,
+              remat: bool = False) -> torch.Tensor:
+    def body(x):
+        h = rn.resnet_block(params["resnets"][0], x, temb, norm_groups, eps)
+        for attn_p, res_p in zip(params["attentions"],
+                                 params["resnets"][1:]):
+            h = t2d.transformer_2d(attn_p, h, heads, context, norm_groups)
+            h = rn.resnet_block(res_p, h, temb, norm_groups, eps)
+        return h
+    return _remat(body, remat, x)
 
 
 def up_block(params, x: torch.Tensor, skips: List[torch.Tensor],
              temb: torch.Tensor, context: Optional[torch.Tensor],
              heads: Optional[int], inject: InjectionQueue,
              upsample_hw: Optional[tuple] = None, norm_groups: int = 32,
-             eps: float = 1e-5, collect_states: bool = False
+             eps: float = 1e-5, collect_states: bool = False,
+             remat: bool = False
              ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     out_states = []
     attns = params.get("attentions")
     for i, res_p in enumerate(params["resnets"]):
-        skip = skips.pop()
-        x = torch.cat([x, skip.to(x.dtype)], dim=-1)
-        x = rn.resnet_block(res_p, x, temb, norm_groups, eps)
-        if attns is not None:
-            x = t2d.transformer_2d(attns[i], x, heads, context, norm_groups)
-        x = inject.apply(x)
+        def layer(x, skip, res_p=res_p, i=i):
+            h = torch.cat([x, skip.to(x.dtype)], dim=-1)
+            h = rn.resnet_block(res_p, h, temb, norm_groups, eps)
+            if attns is not None:
+                h = t2d.transformer_2d(attns[i], h, heads, context,
+                                       norm_groups)
+            return h
+        x = inject.apply(_remat(layer, remat, x, skips.pop()))
         if collect_states:
             out_states.append(x)
     if "upsample" in params:

@@ -158,3 +158,14 @@ def as_f32(t: torch.Tensor, device: torch.device, *shape: int) -> torch.Tensor:
     t = t.to(device=device, dtype=torch.float32)
     return (t.reshape(shape) if t.numel() == math.prod(shape)
             else t.expand(*shape)).contiguous()
+
+
+def refuse_grad(name: str, remedy: str, *tensors):
+    """Raise when autograd would record a call of a kernel that has no
+    backward (the JAX package defines no VJP for it either): grad mode on
+    and any input requiring grad. The plain version is not taken instead,
+    on either device; ``remedy`` says what the caller does instead."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: {remedy} to train, or "
+                           f"call it under torch.no_grad()")

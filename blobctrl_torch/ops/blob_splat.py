@@ -122,6 +122,8 @@ def splat_from_params(params: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """The op from parameter rows: (N, M, 8) -> (N, H, W, M+1) fp32
     composited score maps. CPU tensors take the plain version; a CUDA
     tensor launches the kernel or raises."""
+    _build.refuse_grad("splat_from_params", "detach the blob inputs",
+                       params)
     if params.device.type == "cpu":
         return splat_scores_plain(params, h, w)
     n, m = params.shape[:2]
@@ -141,6 +143,8 @@ def splat_scores(xs: torch.Tensor, ys: torch.Tensor, covs: torch.Tensor,
     """Composited score maps (N, H, W, M+1) fp32 of M blobs per image (the
     contract of ``blob.math.splat_scores``). On the card one launch, rows
     and all; on the CPU the rows, then the plain version."""
+    _build.refuse_grad("splat_scores", "detach the blob inputs",
+                       xs, ys, covs, sizes)
     h, w = score_hw
     if xs.device.type == "cpu":
         return splat_scores_plain(splat_params(xs, ys, covs, sizes, score_hw),
@@ -156,6 +160,8 @@ def splat_rows(xs: torch.Tensor, ys: torch.Tensor, covs: torch.Tensor,
     """The (N, M, 8) rows as the kernel computes them in its prologue (its
     rows mode, to check them against ``splat_params``); the CPU runs
     ``splat_params``."""
+    _build.refuse_grad("splat_rows", "detach the blob inputs",
+                       xs, ys, covs, sizes)
     if xs.device.type == "cpu":
         return splat_params(xs, ys, covs, sizes, score_hw)
     h, w = score_hw
@@ -170,6 +176,8 @@ def blob_view(xs: torch.Tensor, ys: torch.Tensor, covs: torch.Tensor,
     """The blob view of image 0: M blobs splatted at (H, W), composited and
     coloured by ``colors`` (M+1, 3), slot 0 the background -> (H, W, 3)
     uint8. On the card one launch; on the CPU ``blob_view_plain``."""
+    _build.refuse_grad("blob_view", "detach the blob inputs",
+                       xs, ys, covs, sizes, colors)
     if xs.device.type == "cpu":
         return blob_view_plain(xs, ys, covs, sizes, hw, colors)
     h, w = hw

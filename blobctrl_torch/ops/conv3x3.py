@@ -30,18 +30,28 @@ Counterpart of ``blobctrl_tpu/ops/conv3x3.py``. Two CUDA kernels:
 
 With the Winograd switch on (``set_winograd``) and the int8 mode off, calls
 with even H and W go to ``ops.winograd.conv3x3_winograd`` instead.
+
+``conv3x3`` runs the exact and int8 kernels through one
+``torch.autograd.Function``, on both devices: the kernel forward (the
+plain version for CPU tensors), and as backward the exact fp32 VJP of
+``conv3x3_reference`` recomputed from the raw inputs, with gradients for
+x, w, bias, scale and shift (the JAX package's custom VJP
+``_diff_conv3x3``; the int8 mode straight through it). There is no
+backward kernel: the JAX package's backward is XLA too.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import weakref
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from blobctrl_torch.nn.layers import strict_fp32
 from blobctrl_torch.ops import _build
 from blobctrl_torch.ops._split import cdiv, split_k
 
@@ -318,24 +328,72 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
             u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, H, W, C) NHWC, w: (3, 3, C, Co) HWIO, both contiguous and of
     one dtype (bf16 or fp32); bias (Co,); scale/shift (B, C) or (C,) ->
-    (B, H, W, Co). CPU tensors take the plain version.
+    (B, H, W, Co). CPU tensors take the plain version. Differentiable in x,
+    w, bias, scale and shift (``Conv3x3VJP``).
 
-    With the int8 mode on (``set_conv_int8``) the call goes to
+    With the int8 mode on (``set_conv_int8``) the forward is
     ``conv3x3_int8``, with the pre-quantized ``kernel_q``/``w_scale`` from
     ``quantize_conv_tree`` or, without them, w quantized here. Otherwise,
-    with the Winograd switch on and even H and W, it goes to
+    with the Winograd switch on and even H and W, the call goes to
     ``winograd.conv3x3_winograd``, with the pre-transformed ``u`` from
-    ``winograd.transform_conv_tree`` or, without it, w transformed there."""
-    global launches, tc_launches
+    ``winograd.transform_conv_tree`` or, without it, w transformed there;
+    it has no backward."""
     if _CONV_INT8:
         if kernel_q is None:
             kernel_q, w_scale = quantize_kernel_i8(w)
-        return conv3x3_int8(x, kernel_q, w_scale, bias, scale, shift,
-                            _CONV_INT8_ACT_AMAX)
+        return Conv3x3VJP.apply(x, w, bias, scale, shift, functools.partial(
+            _int8_forward, kernel_q=kernel_q, w_scale=w_scale))
     if _WINOGRAD and x.dim() == 4 and x.shape[1] % 2 == 0 \
             and x.shape[2] % 2 == 0:
         from blobctrl_torch.ops import winograd
         return winograd.conv3x3_winograd(x, w, bias, scale, shift, u=u)
+    return Conv3x3VJP.apply(x, w, bias, scale, shift, _conv3x3_forward)
+
+
+def conv3x3_vjp(x, w, bias, scale, shift, g, needs):
+    """The exact VJP of ``conv3x3_reference`` at the raw inputs for the
+    output cotangent g, recomputed in fp32 (the JAX package's
+    ``_diff_conv3x3`` backward), TF32 off on the card for the call
+    (``strict_fp32``), whatever the process has set: gradients for (x, w,
+    bias, scale, shift), each in its input's dtype, None where ``needs``
+    says none is wanted or the input is None."""
+    args = [x, w, bias, scale, shift]
+    with torch.enable_grad(), strict_fp32(x.device):
+        leaves = [a.detach().requires_grad_() if a is not None and n else
+                  a for a, n in zip(args, needs)]
+        want = [i for i, a in enumerate(leaves)
+                if a is not None and a.requires_grad]
+        grads = torch.autograd.grad(conv3x3_reference(*leaves), [
+            leaves[i] for i in want], g) if want else ()
+    out = [None] * 5
+    for i, gr in zip(want, grads):
+        out[i] = gr
+    return out
+
+
+class Conv3x3VJP(torch.autograd.Function):
+    """A 3x3 conv kernel's forward (exact or int8), the exact fp32 plain
+    backward: the only way ``conv3x3`` reaches those kernels, so that an
+    output made under grad mode has a ``grad_fn``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, scale, shift, forward):
+        ctx.save_for_backward(x, w, bias, scale, shift)
+        return forward(x, w, bias, scale, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*conv3x3_vjp(*ctx.saved_tensors, g,
+                             ctx.needs_input_grad[:5]), None)
+
+
+def _int8_forward(x, w, bias, scale, shift, kernel_q, w_scale):
+    return conv3x3_int8(x, kernel_q, w_scale, bias, scale, shift,
+                        _CONV_INT8_ACT_AMAX)
+
+
+def _conv3x3_forward(x, w, bias, scale, shift):
+    global launches, tc_launches
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv3x3_reference(x, w, bias, scale, shift)
     b, h, wd, c, co = _check_args("conv3x3", x, w, scale, shift, (w,))
@@ -372,8 +430,12 @@ def conv3x3_int8(x: torch.Tensor, kernel_q: torch.Tensor,
     With a static act_amax the kernel applies the prologue, rounds it to x's
     dtype and quantizes, in a pre-pass over x. With act_amax=None the prologue runs
     here in plain torch first, since its max-abs sets the scale, and the
-    kernel takes the activations without a prologue."""
+    kernel takes the activations without a prologue. It has no backward of
+    its own: under grad it raises, and ``conv3x3`` in the int8 mode
+    differentiates it straight through the exact op."""
     global int8_launches, int8_tc_launches
+    _build.refuse_grad("conv3x3_int8", "call conv3x3 under "
+                       "set_conv_int8(True)", x, bias, scale, shift)
     if x.device.type == "cpu" and kernel_q.device.type == "cpu":
         return conv3x3_int8_reference(x, kernel_q, w_scale, bias, scale,
                                       shift, act_amax)

@@ -21,17 +21,28 @@ materializes an S x S fp32 score matrix in device memory:
     kernels, and handed over in rows zero-padded to 16 bytes. bf16 runs on
     the tensor cores (s8 mma.sync for q.k^T, bf16 for P.V), fp32 on the SIMT
     kernel; the C entry point reports which ran (``int8_tc_launches``).
+
+Each public entry (``flash_attention``, ``flash_attention_exp2``,
+``flash_attention_int8``) runs through one ``torch.autograd.Function``, on
+both devices: its forward is the kernel (the plain version for CPU
+tensors), its backward the exact VJP of ``flash_attention_reference``
+recomputed from the raw q, k and v (``attention_vjp``), as the JAX
+package's custom VJP ``_diff_flash`` does; the int8 and exp2 modes are
+differentiated straight through that exact op. There is no backward
+kernel: the JAX package's backward is XLA too.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from blobctrl_torch.nn.layers import strict_fp32
 from blobctrl_torch.ops import _build
 from blobctrl_torch.ops._split import cdiv
 from blobctrl_torch.ops.conv3x3 import INV127
@@ -89,10 +100,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     exact while the logits stay within (FM - 87, FM + 88); None selects the
     running row max with alpha-rescaling. CPU tensors take the plain version
     (exact softmax either way). With the exp2 fold on and a numeric
-    fixed_max the call goes to ``flash_attention_exp2``."""
-    global launches, tc_launches
+    fixed_max the call goes to ``flash_attention_exp2``. Differentiable
+    (``attention_vjp``)."""
     if _EXP2_FOLD and fixed_max is not None:
         return flash_attention_exp2(q, k, v, scale, fixed_max)
+    return _DiffFlash.apply(q, k, v, scale, functools.partial(
+        _flash_forward, scale=scale, fixed_max=fixed_max))
+
+
+def _flash_forward(q, k, v, scale, fixed_max):
+    global launches, tc_launches
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
@@ -112,6 +129,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tc_launches += design.value == _build.DESIGN_TENSOR_CORES
     launch_shapes[(bh, sq, skv, d, str(q.dtype), fixed)] += 1
     return out
+
+
+# Above this many score elements (Sq * Skv) the backward recomputes the
+# attention _BWD_CHUNK_Q query rows at a time (the JAX package's
+# ``_xla_sdpa_chunked``): differentiating the whole plain version holds the
+# (BH, Sq, Skv) fp32 probabilities twice, 8.6 GB at a 512^2 training step's
+# level 0. Module constants under the JAX names, so tests can shrink them.
+_CHUNKED_BWD_ELEMS = 2048 * 2048
+_BWD_CHUNK_Q = 512
+
+
+def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, g: torch.Tensor):
+    """-> (dq, dk, dv): the exact VJP of ``flash_attention_reference`` at
+    (q, k, v) for the output cotangent g, recomputed (the JAX package's
+    ``_diff_flash`` backward). Up to ``_CHUNKED_BWD_ELEMS`` score elements
+    it differentiates the plain version whole; above, chunk by chunk of
+    ``_BWD_CHUNK_Q`` query rows, each over the full key length (fp32 scores
+    and softmax, p cast to q's dtype before P @ V), dq chunk by chunk and dk,
+    dv summed over the chunks in fp32. TF32 is off on the card for the call
+    (``strict_fp32``), whatever the process has set."""
+    with torch.enable_grad(), strict_fp32(q.device):
+        kd = k.detach().requires_grad_()
+        vd = v.detach().requires_grad_()
+        if q.shape[1] * k.shape[1] <= _CHUNKED_BWD_ELEMS:
+            qd = q.detach().requires_grad_()
+            return torch.autograd.grad(
+                flash_attention_reference(qd, kd, vd, scale), (qd, kd, vd), g)
+        dq, dk, dv = [], 0.0, 0.0
+        for i in range(0, q.shape[1], _BWD_CHUNK_Q):
+            qd = q[:, i:i + _BWD_CHUNK_Q].detach().requires_grad_()
+            gq, gk, gv = torch.autograd.grad(
+                flash_attention_reference(qd, kd, vd, scale), (qd, kd, vd),
+                g[:, i:i + _BWD_CHUNK_Q])
+            dq.append(gq)
+            dk, dv = dk + gk.float(), dv + gv.float()
+        return torch.cat(dq, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _DiffFlash(torch.autograd.Function):
+    """A flash kernel's forward (any mode), the exact plain backward: the
+    only way to the flash kernels, so that an output made under grad mode
+    has a ``grad_fn`` (a kernel writes a fresh tensor through its data
+    pointer, which autograd cannot see)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, forward):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_vjp(*ctx.saved_tensors, ctx.scale, g), None,
+                None)
 
 
 def exp2_operands(q: torch.Tensor, scale: float, fixed_max: float):
@@ -144,7 +216,12 @@ def flash_attention_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The exp2-folded fixed-max flash attention. q: (BH, Sq, D); k, v:
     (BH, Skv, D), contiguous, bf16 or fp32 -> (BH, Sq, D) in q's dtype. q is
     pre-scaled here; the kernel takes q' and the shift. CPU tensors take the
-    plain version."""
+    plain version. Differentiated straight through the exact op."""
+    return _DiffFlash.apply(q, k, v, scale, functools.partial(
+        _exp2_forward, scale=scale, fixed_max=fixed_max))
+
+
+def _exp2_forward(q, k, v, scale, fixed_max):
     global exp2_launches, exp2_tc_launches
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
@@ -281,9 +358,15 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     quantized here; the kernel takes the int8 values and their fp32
     multipliers. global_k selects one k scale for the whole call (the
     int8-everything mode) over per-row k scales. There is no running-max
-    mode: fixed_max=None raises. CPU tensors take the plain version."""
-    global int8_launches, int8_tc_launches
+    mode: fixed_max=None raises. CPU tensors take the plain version.
+    Differentiated straight through the exact op, as in the JAX package."""
     _require_fixed_max(fixed_max)
+    return _DiffFlash.apply(q, k, v, scale, functools.partial(
+        _int8_forward, scale=scale, fixed_max=fixed_max, global_k=global_k))
+
+
+def _int8_forward(q, k, v, scale, fixed_max, global_k):
+    global int8_launches, int8_tc_launches
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_int8_reference(q, k, v, scale, fixed_max,

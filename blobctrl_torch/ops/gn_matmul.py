@@ -135,8 +135,12 @@ def affine_matmul(x: torch.Tensor, w: torch.Tensor,
     """(x * s[b] + t[b]) @ w + bias [+ residual]. x: (B, H, W, C) NHWC, w:
     (C, N), residual (B, H, W, N), all contiguous and of one dtype (bf16 or
     fp32); bias (N,); s, t (B, C) fp32, both or neither -> (B, H, W, N).
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version. It has no backward (nor has the
+    JAX package's): under grad it raises on either device."""
     global launches, res_launches, tc_launches, res_tc_launches
+    _build.refuse_grad("the GroupNorm-affine matmul (K10)",
+                       "turn nn.transformer_2d.set_gn_proj_fuse off", x, w,
+                       bias, s, t, residual)
     if (s is None) != (t is None):
         raise ValueError("affine_matmul: s and t go together")
     others = [a for a in (w, bias, s, t, residual) if a is not None]

@@ -59,8 +59,13 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm(x; gamma, beta) @ w (+ w_bias). x: (..., C) contiguous,
     bf16 or fp32; gamma, beta (C,); w (C, N), cast to x's dtype; w_bias (N,)
-    -> (..., N) in x's dtype. CPU tensors take the plain version."""
+    -> (..., N) in x's dtype. CPU tensors take the plain version. It has no
+    backward (nor has the JAX package's): under grad it raises on either
+    device."""
     global launches, tc_launches
+    _build.refuse_grad("the LayerNorm matmul (K11)",
+                       "turn nn.attention.set_ln_matmul_fuse off", x, gamma,
+                       beta, w, w_bias)
     others = [a for a in (gamma, beta, w, w_bias) if a is not None]
     if not x.is_cuda:
         if all(a.device.type == "cpu" for a in others):

@@ -129,8 +129,12 @@ def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
     x, HWIO kernel, optional silu(x * scale + shift) prologue) for even H
     and W; raises otherwise. u: the pre-transformed (16, C, Co) weights
     (``transform_weights``), computed here when absent, used in x's dtype.
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version. It has no backward (nor has the
+    JAX package's): under grad it raises on either device."""
     global launches, tc_launches
+    _build.refuse_grad("the Winograd conv (K12)",
+                       "turn ops.conv3x3.set_winograd off",
+                       x, kernel, bias, scale, shift, u)
     if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"conv3x3_winograd: x {tuple(x.shape)}; Winograd "
                          f"F(2x2, 3x3) takes NHWC with even H and W")

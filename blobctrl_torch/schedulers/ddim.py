@@ -86,3 +86,28 @@ def step(sched: DDIMSchedule, i: int, model_output: torch.Tensor,
             raise ValueError("DDIM with eta > 0 needs the step's noise")
         out = out + c("sigma", i) * noise.float()
     return out.to(sample.dtype)
+
+
+def training_tables(num_train_timesteps: int = 1000,
+                    beta_start: float = 0.00085, beta_end: float = 0.012,
+                    beta_schedule: str = "scaled_linear"):
+    """(sqrt_acp, sqrt_1m_acp), each (num_train_timesteps,) float32 numpy:
+    the forward process's lookup tables for training, from the fp32
+    cumulative product taken in float64 and rounded to fp32 last (the JAX
+    package's ``training_tables``, bit-equal)."""
+    betas = common.make_betas(num_train_timesteps, beta_start, beta_end,
+                              beta_schedule)
+    acp = common.alphas_cumprod_from_betas(betas).astype(np.float64)
+    return (np.sqrt(acp).astype(np.float32),
+            np.sqrt(1.0 - acp).astype(np.float32))
+
+
+def add_noise(sqrt_acp: torch.Tensor, sqrt_1m_acp: torch.Tensor,
+              t: torch.Tensor, sample: torch.Tensor,
+              noise: torch.Tensor) -> torch.Tensor:
+    """The forward process q(x_t | x_0) for training: sqrt_acp[t] * x0 +
+    sqrt_1m_acp[t] * noise, per batch row, the tables indexed by train
+    timestep t (B,)."""
+    a = sqrt_acp[t][:, None, None, None]
+    s = sqrt_1m_acp[t][:, None, None, None]
+    return a * sample + s * noise

@@ -173,14 +173,55 @@ script exits non-zero:
      int8_cache), each stage's seconds and PSNR drop logged; counters
      zeroed before each scoring stage and read after it: K5 and K8 in the
      int8 stages, K1 and K6 in the others, all on the tensor cores.
-  8. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
+  8. Training (``train/train_step.py``, the autograd Functions over K1 and
+     K6 whose backward is the exact plain math), after the pipelines of
+     phases 4-7 are released:
+     a. the K1 and K6 shapes one full-width training step launches (8c's
+        configuration, loss and gradients at B = 1 and 2, nothing
+        updated), each in bf16 and fp32 (TF32 off): the Function's
+        forward against the plain version and its gradients (dq, dk, dv;
+        dx, dw, dbias, dscale, dshift) against torch autograd through the
+        plain version, under phase 2's bars, the level-0 attention (8192
+        tokens) through the chunked backward; every Function output must
+        have a ``grad_fn``;
+     b. the trained 256^2 toy, ``train_unet_full``, fp32, remat, one
+        backward on the card and one on the CPU on the same batch, t and
+        noise: loss within 1e-5 relative, gradient norm within 1e-4
+        relative, each leaf within 1e-3 of its max |CPU gradient|; three
+        AdamW steps a side (losses printed); one bf16 step on the card,
+        K1 and K6 on the tensor cores;
+     c. full width (``scripts/bench_train_512.py``'s configuration): the
+        SD-1.5 UNet frozen in bf16, a rank-16 LoRA and the full BlobNet
+        as fp32 masters with AdamW, random weights from
+        ``apps/flagship.production_params``, 512^2 double width, remat,
+        bf16 compute, TRAIN_STEPS steps at B = 1 then at B = 2: loss and
+        gradient norm finite, LoRA B off zero after step 1, every BlobNet
+        leaf finite; counters zeroed before each step and read after it:
+        K1 and K6 in every step, all on the tensor cores, no plain flash
+        or conv in the forward pass, and remat's count: K1 twice a lone
+        forward's, K6 more than once and at most twice; the trainable count, step seconds (median
+        of steps 2-4), images per second and peak memory printed; then one
+        more step at B = 1 traced (``torch.profiler``: device time by
+        kind, the device's busy share, the top kernels);
+     d. ``apps/train_cli`` on phase 6's models root: CLI_SCENES seeded
+        512^2 scenes, 4 steps at B = 2 with checkpoints at 2 and 4 and the
+        export, then ``--resume`` to 6, which must start at step 4; the
+        export put into a copy of the root and loaded with
+        ``load_pipeline(dtype=bf16)``: the BlobNet leaves and the LoRA
+        bit-equal to the trained state as the loader casts them, each
+        UNet LoRA target the fp32 merge then the cast; one
+        CLI_EDIT_STEPS-step edit from the copy, K1 and K6 on the tensor
+        cores; each stage's seconds printed.
+  9. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
-     edit's Winograd launches, both from phase 2's medians at those shapes.
+     edit's Winograd launches, both from phase 2's medians at those
+     shapes, and the whole run's seconds.
 
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
 kernels' from the exact requests, the int8 kernels' from the int8 one, the
 fused-kernel edit's four from the fused one), ``served_launches`` phase
-7's;
+7's, ``train_launches`` phase 8c's (K1 and K6; their
+``train_max_abs_err`` is 8a's worst forward or gradient error);
 the splat's from phase 5 (its views), with ``device_ms`` beside its wall
 ``ms``;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
@@ -207,9 +248,11 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2382,21 +2425,28 @@ def checkpoint_day_phase(models_root: str, demo_root: str):
 def traced_edit(pipe, size):
     """One TRACE_STEPS-step solo edit under ``torch.profiler``: the top
     device kernels, and the hand-written kernels' share of device time."""
-    import re
-    from blobctrl_torch.utils import observability
     kw = dict(serving_requests(size, 1)[0], height=size, width=size,
               num_inference_steps=TRACE_STEPS, **SERVE_SHARED)
-    ops_ms = observability.profile_op_breakdown(lambda: pipe(**kw),
-                                                repeats=1, top_k=100000)
-    _, wall = timed(lambda: pipe(**kw))
+    report_trace(f"{TRACE_STEPS}-step edit", lambda: pipe(**kw))
+
+
+def report_trace(what, fn):
+    """``fn`` once under ``torch.profiler`` (after a warm-up call) and once
+    untraced: device time, the device's busy share of the untraced wall
+    time, the top kernels and the device time by kind, hand-written
+    kernels first."""
+    import re
+    from blobctrl_torch.utils import observability
+    ops_ms = observability.profile_op_breakdown(fn, repeats=1, top_k=100000)
+    _, wall = timed(fn)
     # the profiler names them e.g. "void (anonymous namespace)::
     # conv3x3_kernel_tc<true>(...)"
     pat = re.compile(r"(^|[\s:])(" + "|".join(sorted(hand_kernel_names()))
                      + r")[<(]")
     total = sum(ops_ms.values())
     hand = sum(v for k, v in ops_ms.items() if pat.search(k))
-    log(f"  traced {TRACE_STEPS}-step edit: device time {total:.1f} ms over "
-        f"{len(ops_ms)} kernels; the same edit untraced {1e3 * wall:.1f} ms "
+    log(f"  traced {what}: device time {total:.1f} ms over "
+        f"{len(ops_ms)} kernels; the same call untraced {1e3 * wall:.1f} ms "
         f"wall, so the device is busy {100 * total / (1e3 * wall):.1f} % of "
         f"it; hand-written kernels {hand:.1f} ms "
         f"({100 * hand / total:.1f} % of device time), plain torch "
@@ -2501,6 +2551,528 @@ def serving_phase(pipe, size: int = 512, steps: int = STEPS):
     int8_linear_edit(pipe, size, steps, solo[0], tally)
     tally()
     return shapes, dict(totals)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+# PyTorch's own TF32 switches (cuDNN, cuBLAS), which phase 2 turns off for
+# the fp32 references; 8c and 8d run on them, as a user's training process
+TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+TRAIN_SIZE = 512         # 8a's and 8c's image side
+TRAIN_LATENT = (TRAIN_SIZE // 8, TRAIN_SIZE // 8, 4)
+TRAIN_STEPS = 4          # 8c's steps at each batch size
+TRAIN_BATCHES = (1, 2)   # 8c's batch sizes (8a records the shapes of both)
+TRAIN_LORA_RANK = 16
+TOY_TRAIN_BATCH = 4      # 8b's toy batch
+CLI_SCENES = 4           # 8d's data set
+CLI_EDIT_STEPS = 20
+
+
+def train_batch(step, b: int, seed: int = 0):
+    """A random batch for ``step``'s nets at ``TRAIN_SIZE``^2
+    (``scripts/bench_train_512.py``'s: latents and features standard
+    normal, scores uniform, 77 text tokens)."""
+    rng = np.random.RandomState(seed)
+    lh = TRAIN_LATENT[0]
+    dino_c = step.blobnet_cfg.conditioning_channels - 1
+    ctx = step.unet_cfg.cross_attention_dim
+    return {"x0_latents": rng.randn(b, lh, lh, 4).astype(np.float32),
+            "fg_latents": rng.randn(b, lh, lh, 4).astype(np.float32),
+            "bg_latents": rng.randn(b, lh, lh, 4).astype(np.float32),
+            "fg_score": rng.rand(b, lh, lh, 1).astype(np.float32),
+            "bg_score": rng.rand(b, lh, lh, 1).astype(np.float32),
+            "fg_feats": rng.randn(b, lh, lh, dino_c).astype(np.float32),
+            "text_embeds": rng.randn(b, 77, ctx).astype(np.float32)}
+
+
+def training_setup():
+    """8c's configuration: the UNet (5-ch conv_in) frozen in bf16, a
+    rank-16 LoRA, the full BlobNet as fp32 masters with AdamW, bf16
+    compute, remat; random weights from ``apps/flagship.production_params``.
+    -> (step, state, frozen UNet)."""
+    from blobctrl_torch.apps import flagship
+    from blobctrl_torch.models import lora
+    from blobctrl_torch.train import train_step as ts
+    ucfg, bcfg = (flagship.sd15_unet_config(),
+                  flagship.blobctrl_blobnet_config())
+    frozen, blob, _ = flagship.production_params(0, "cuda", torch.bfloat16)
+    adapter = lora.init_lora(torch.Generator().manual_seed(0), frozen,
+                             rank=TRAIN_LORA_RANK, device="cuda")
+    cfg = ts.TrainConfig()
+    state = ts.init_train_state(cfg, blob, adapter)
+    del blob
+    return ts.make_train_step(cfg, ucfg, bcfg), state, frozen
+
+
+def record_training_shapes(step, state, frozen):
+    """8a's shapes: every K1 and K6 key one training step launches (loss
+    and gradients, nothing updated) at each of 8c's batch sizes."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.train import train_step as ts
+    shapes = {name: set() for name in EXACT}
+    for b in TRAIN_BATCHES:
+        ops.reset_counts()
+        step.loss_and_grads(state, frozen, train_batch(step, b, b),
+                            *ts.draw_t_noise(torch.Generator().manual_seed(b),
+                                             b, TRAIN_LATENT, device="cuda"))
+        for name in EXACT:
+            shapes[name] |= set(launch_shapes()[name])
+    return shapes
+
+
+def _vjp_inputs(name, key, dtype, gen):
+    """A K1 or K6 key's inputs on the card (all requiring grad), the
+    Function and its plain version."""
+    from blobctrl_torch.ops import conv3x3 as cv
+    from blobctrl_torch.ops import flash_attention as fa
+    if name == "flash_attention":
+        bh, sq, skv, d = key[:4]
+        q, k, v = (_rnd(gen, bh, n, d).to(dtype) for n in (sq, skv, skv))
+        scale = d ** -0.5
+        return ((q, k, v), ("dq", "dk", "dv"),
+                lambda q, k, v: fa.flash_attention(q, k, v, scale),
+                lambda q, k, v: fa.flash_attention_reference(q, k, v, scale))
+    x, w, bias, pro, _, _ = _conv_inputs(key, dtype, gen)
+    args = (x, w, bias) + (pro if key[6] else ())
+    return (args, ("dx", "dw", "dbias", "dscale", "dshift")[:len(args)],
+            lambda *a: cv.conv3x3(*a), lambda *a: cv.conv3x3_reference(*a))
+
+
+def check_training_functions(shapes):
+    """8a: at every recorded K1 and K6 key, in bf16 and fp32 (TF32 off),
+    the Function's forward against the plain version and its gradients
+    against torch autograd through the plain version, under phase 2's
+    bars; each Function output must carry a ``grad_fn`` (a kernel writes
+    a fresh tensor autograd cannot see). -> {kernel: {key: max abs err}}."""
+    from blobctrl_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {name: {} for name in shapes}
+    for name, keys in shapes.items():
+        for key in sorted(keys, key=repr):
+            worst = 0.0
+            for dtype in (torch.bfloat16, torch.float32):
+                args, names, fn, plain = _vjp_inputs(name, key, dtype, gen)
+                args = [a.requires_grad_() for a in args]
+                got = fn(*args)
+                if got.grad_fn is None:
+                    raise AssertionError(f"{name} {key}: no grad_fn")
+                ref = plain(*args)
+                cot = torch.randn(ref.shape, generator=gen, device="cuda",
+                                  dtype=ref.dtype)
+                errs = {"out": rel_err(got, ref)}
+                errs.update(zip(names, (rel_err(g, r) for g, r in zip(
+                    torch.autograd.grad(got, args, cot),
+                    torch.autograd.grad(ref, args, cot)))))
+                del got, ref, args
+                bad = {k: r for k, (_, r) in errs.items() if r > TOL[dtype]}
+                chunked = (name == "flash_attention"
+                           and key[1] * key[2] > fa._CHUNKED_BWD_ELEMS)
+                log(f"  {shape_label(name, key)} {str(dtype)[6:]}"
+                    f"{' (chunked backward)' if chunked else ''}: " + ", ".join(
+                        f"{k} {r:.2e}" for k, (_, r) in errs.items())
+                    + f" (tol {TOL[dtype]:.0e}) {'FAIL' if bad else 'ok'}")
+                if bad:
+                    raise AssertionError(f"{name} {key} {dtype}: {bad}")
+                worst = max(worst, *(a for a, _ in errs.values()))
+            out[name][key] = worst
+            torch.cuda.empty_cache()
+    return out
+
+
+def toy_training_phase(card_device="cuda", batch: int = TOY_TRAIN_BATCH):
+    """8b: the trained 256^2 toy (K1 at 2048 tokens, K6 at >= 32 channels)
+    trained as the toy is (``train_unet_full``), fp32, remat on, on a
+    batch its VAE encodes from ``toy.build_dataset``, t and noise drawn on
+    the CPU: one backward on the card and one on the CPU (loss within 1e-5
+    relative, the global gradient norm within 1e-4 relative, each leaf's
+    gradient within 1e-3 of that leaf's max |CPU gradient|), three
+    optimizer steps on each side, and one bf16 step on the card, every K1
+    and K6 launch of it on the tensor cores."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.train import toy
+    from blobctrl_torch.train import train_step as ts
+    ckpt = os.path.join(ROOT, "assets", "toy_ckpt_256")
+    (card, meta), (cpu, _) = (toy.load_toy(ckpt, device=dev,
+                                           dtype=torch.float32)
+                              for dev in (card_device, "cpu"))
+    size = meta["size"]
+    data = toy.encode_dataset(cpu.vae_params, cpu.vae_cfg, toy.build_dataset(
+        batch, size=size, seed=8, ctx=meta["ctx"], dino_c=meta["dino_c"]))
+    latent = (size // 8, size // 8, 4)
+    t, noise = ts.draw_t_noise(torch.Generator().manual_seed(8), batch,
+                               latent, device="cpu")
+
+    def state_and_step(pipe, dtype):
+        cfg = ts.TrainConfig(learning_rate=1e-4, weight_decay=1e-3,
+                             train_unet_full=True, compute_dtype=dtype)
+        return (ts.init_train_state(cfg, pipe.blobnet_params,
+                                    pipe.unet_params),
+                ts.make_train_step(cfg, pipe.unet_cfg, pipe.blobnet_cfg))
+
+    def backward(pipe):
+        state, step = state_and_step(pipe, torch.float32)
+        dev = pipe.device
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        loss, g = step.loss_and_grads(state, None, data, t.to(dev),
+                                      noise.to(dev))
+        norm = float(ts.global_norm(g))
+        return (float(loss), norm, [x.cpu() for x in g],
+                time.perf_counter() - t0, launch_counts())
+
+    lc, nc, gc_, sc, counts = backward(card)
+    ran = {k: counts[k] for k in EXACT}
+    lp, np_, gp, sp, _ = backward(cpu)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gc_, gp))
+    log(f"  toy 256^2 fp32 backward, B = {batch}: loss card {lc:.8f} cpu "
+        f"{lp:.8f} (rel {abs(lc - lp) / lp:.2e}, tol 1e-05), grad norm card "
+        f"{nc:.6f} cpu {np_:.6f} (rel {abs(nc - np_) / np_:.2e}, tol 1e-04), "
+        f"worst leaf {worst:.2e} of its max |CPU gradient| (tol 1e-03) over "
+        f"{len(gp)} leaves; card {sc:.2f} s, cpu {sp:.2f} s; card launches "
+        f"{ran}")
+    if not (abs(lc - lp) <= 1e-5 * lp and abs(nc - np_) <= 1e-4 * np_
+            and worst <= 1e-3 and min(ran.values()) > 0):
+        raise AssertionError("toy backward: card and CPU disagree")
+    del gc_, gp
+    trail = []
+    for pipe in (card, cpu):
+        state, step = state_and_step(pipe, torch.float32)
+        trail.append([])
+        for i in range(3):
+            tt, nn_ = ts.draw_t_noise(torch.Generator().manual_seed(20 + i),
+                                      batch, latent, device=pipe.device)
+            state, m = step(state, None, data, tt, nn_)
+            trail[-1].append(float(m["loss"]))
+        del state
+    log(f"  toy 256^2 fp32, three AdamW steps: losses card "
+        f"{[f'{x:.6f}' for x in trail[0]]}, cpu "
+        f"{[f'{x:.6f}' for x in trail[1]]}")
+    if not np.isfinite(trail).all():
+        raise AssertionError(f"toy steps: {trail}")
+    state, step = state_and_step(card, torch.bfloat16)
+    ops.reset_counts()
+    _, m = step(state, None, data, t.to(card.device), noise.to(card.device))
+    bf16_loss = float(m["loss"])
+    check_tensor_cores("toy 256^2 bf16 training step", launch_counts(),
+                       EXACT)
+    log(f"  toy 256^2 bf16 step on the card: loss {bf16_loss:.6f} (fp32: "
+        f"{lc:.6f})")
+    if not np.isfinite(bf16_loss):
+        raise AssertionError(f"toy bf16 step: loss {bf16_loss}")
+
+
+@contextlib.contextmanager
+def no_plain_forward(step):
+    """Count the plain flash and conv calls made inside the step's forward
+    (``TrainStep.loss``) -> a list of their names; the backward recomputes
+    the plain versions by design and is not counted."""
+    from blobctrl_torch.ops import conv3x3 as cv
+    from blobctrl_torch.ops import flash_attention as fa
+    inside, calls = [False], []
+    real_loss = step.loss
+    patched = [(fa, "flash_attention_reference"),
+               (cv, "conv3x3_reference")]
+    reals = [getattr(m, n) for m, n in patched]
+
+    def loss(*args):
+        inside[0] = True
+        try:
+            return real_loss(*args)
+        finally:
+            inside[0] = False
+
+    def spy(name, real):
+        def call(*args, **kwargs):
+            if inside[0]:
+                calls.append(name)
+            return real(*args, **kwargs)
+        return call
+    step.loss = loss
+    for (m, n), real in zip(patched, reals):
+        setattr(m, n, spy(n, real))
+    try:
+        yield calls
+    finally:
+        del step.loss
+        for (m, n), real in zip(patched, reals):
+            setattr(m, n, real)
+
+
+def full_width_training(step, state, frozen):
+    """8c: ``TRAIN_STEPS`` AdamW steps at each of ``TRAIN_BATCHES`` on the
+    state of ``training_setup``: the loss and the gradient norm finite,
+    LoRA B off zero after the first step, every BlobNet leaf finite at the
+    end; per step the K1 and K6 launches, all on their tensor-core kernels,
+    and no plain flash or conv in the forward pass; the step seconds
+    (median of steps 2..), images per second and peak memory; then three
+    more steps at the first batch size (``report_trace``: a warm-up, one
+    traced, one timed untraced). -> the launches of every kernel over the
+    counted steps."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.params import export
+    from blobctrl_torch.train import train_step as ts
+
+    def draw(b, seed):
+        return ts.draw_t_noise(torch.Generator().manual_seed(seed), b,
+                               TRAIN_LATENT, device="cuda")
+    n_blob = ts.num_params(state["params"]["blobnet"])
+    n_lora = ts.num_params(state["params"]["lora"])
+    log(f"  trainables: BlobNet {n_blob} fp32 + LoRA {n_lora} (rank "
+        f"{TRAIN_LORA_RANK}) = {n_blob + n_lora} parameters, AdamW on both; "
+        f"the UNet frozen in bf16")
+    b0 = TRAIN_BATCHES[0]
+    ops.reset_counts()  # one forward alone (no grad: remat recomputes none)
+    with torch.no_grad():
+        step.loss(state["params"], frozen, ts.batch_to(
+            train_batch(step, b0), "cuda"), *draw(b0, 0))
+    fwd = {k: launch_counts()[k] for k in EXACT}
+    log(f"  one forward alone launches {fwd}; remat launches the layers' "
+        f"kernels again in the backward: K1 twice as many a step, K6 twice "
+        f"less the convs outside the layers")
+    totals = collections.Counter()
+    with no_plain_forward(step) as plain_calls:
+        for b in TRAIN_BATCHES:
+            batch = train_batch(step, b, seed=10 + b)
+            times, per_step = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(TRAIN_STEPS):
+                t, noise = draw(b, 100 * b + i)
+                ops.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, frozen, batch, t, noise)
+                loss, norm = float(m["loss"]), float(m["grad_norm"])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts = launch_counts()
+                totals.update(counts)
+                check_tensor_cores(f"training step B = {b} #{i + 1}", counts,
+                                   EXACT)
+                per_step.append({k: counts[k] for k in EXACT})
+                if not (np.isfinite(loss) and np.isfinite(norm)) or min(
+                        per_step[-1].values()) == 0 or any(
+                        n for k, n in counts.items() if k not in EXACT):
+                    raise AssertionError(f"step B = {b} #{i + 1}: loss {loss}"
+                                         f", norm {norm}, launches {counts}")
+                if plain_calls:
+                    raise AssertionError(f"plain versions in the forward: "
+                                         f"{collections.Counter(plain_calls)}")
+                k1, k6 = (per_step[-1][k] for k in EXACT)
+                if k1 != 2 * fwd["flash_attention"] or not (
+                        fwd["conv3x3"] < k6 <= 2 * fwd["conv3x3"]):
+                    raise AssertionError(f"step launches {per_step[-1]} "
+                                         f"against the forward's {fwd}")
+                if b == b0 and i == 0 and not any(
+                        ab["B"].any() for ab in
+                        state["params"]["lora"].values()):
+                    raise AssertionError("LoRA B still zero after step 1")
+                log(f"  B = {b} step {i + 1}: loss {loss:.5f}, grad norm "
+                    f"{norm:.4f}, lr {m['lr']:.2e}, {times[-1]:.3f} s, "
+                    f"launches {per_step[-1]}")
+            med = statistics.median(times[1:])
+            log(f"  B = {b}: step seconds (median of steps 2-{TRAIN_STEPS}) "
+                f"{med:.3f}, {b / med:.3f} images/s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    bad = [k for k, p in export.flatten(state["params"]["blobnet"]).items()
+           if not torch.isfinite(p).all()]
+    if bad:
+        raise AssertionError(f"BlobNet leaves not finite: {bad[:5]}")
+    # where a step's device time goes (its launches not counted)
+    batch = train_batch(step, b0, seed=10 + b0)
+    report_trace(f"training step at B = {b0}", lambda: step(
+        state, frozen, batch, *draw(b0, 0)))
+    return totals
+
+
+def write_scenes(data_root: str, size: int):
+    """``CLI_SCENES`` seeded scenes (``train/toy.make_scene``: a coloured ellipse on a
+    gradient) with their masks and a prompts.json, PNG by the port's
+    codec."""
+    from blobctrl_torch.train import toy
+    from blobctrl_torch.utils import png
+    os.makedirs(os.path.join(data_root, "images"))
+    os.makedirs(os.path.join(data_root, "masks"))
+    rng = np.random.RandomState(13)
+    prompts = {}
+    for i in range(CLI_SCENES):
+        scene = toy.make_scene(rng, size)
+        name = f"scene{i}"
+        for sub, arr in (("images", scene["image"]), ("masks",
+                                                      scene["mask"])):
+            with open(os.path.join(data_root, sub, name + ".png"), "wb") as f:
+                f.write(png.encode_png(arr))
+        prompts[name] = f"a {toy.COLORS[scene['cls']][0]} ball"
+    with open(os.path.join(data_root, "prompts.json"), "w") as f:
+        json.dump(prompts, f)
+
+
+class EventLog(logging.Handler):
+    """The port's structured log events, as dicts."""
+
+    def __init__(self):
+        super().__init__()
+        self.events = []
+
+    def emit(self, record):
+        try:
+            self.events.append(json.loads(record.getMessage()))
+        except ValueError:
+            pass
+
+
+def cli_training_phase(models_root: str, work: str, device="cuda",
+                       size: int = 512, edit_steps: int = CLI_EDIT_STEPS):
+    """8d: ``python -m blobctrl_torch.apps.train_cli`` (its ``main``) on the
+    models root at ``size``: 2 per batch, 4 steps with a checkpoint every
+    2 and the export, then ``--resume`` to 6 (it must start at step 4);
+    the export put into a copy of the root (links to the rest) and loaded
+    with ``load_pipeline(dtype=bf16)``: every BlobNet leaf and the LoRA
+    bit-equal to the trained state as the loader casts them, each UNet
+    LoRA target the fp32 merge of the trained adapter then the cast; one
+    edit from the copy, K1 and K6 on the tensor cores. Seconds of each
+    stage printed."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.apps import train_cli
+    from blobctrl_torch.models import lora as lora_lib
+    from blobctrl_torch.params import export, io
+    data_root = os.path.join(work, "train_data")
+    ckpt_dir = os.path.join(work, "train_ckpts")
+    export_dir = os.path.join(work, "train_export")
+    write_scenes(data_root, size)
+    events = EventLog()
+    logging.getLogger("blobctrl_torch").addHandler(events)
+    argv = ["--models_root", models_root, "--data_root", data_root,
+            "--size", str(size), "--batch_size", "2", "--ckpt_every", "2",
+            "--log_every", "1", "--ckpt_dir", ckpt_dir, "--export_dir",
+            export_dir, "--device", str(device)]
+    try:
+        state, secs = timed(lambda: train_cli.main(argv + ["--steps", "4"]))
+        first = list(events.events)
+        del state
+        # keep the checkpoint the resume reads; drop the earlier one
+        steps = sorted(os.listdir(ckpt_dir))
+        if steps != ["step_00000002", "step_00000004"]:
+            raise AssertionError(f"checkpoints {steps}")
+        shutil.rmtree(os.path.join(ckpt_dir, steps[0]))
+        events.events.clear()
+        state, secs2 = timed(lambda: train_cli.main(
+            argv + ["--steps", "6", "--resume"]))
+        second = list(events.events)
+    finally:
+        logging.getLogger("blobctrl_torch").removeHandler(events)
+    trained = [e for e in first if e.get("event") == "train"]
+    resumed = [e for e in second if e.get("event") == "resumed"]
+    later = [e for e in second if e.get("event") == "train"]
+    log(f"  train_cli, 4 steps at B = 2 from {CLI_SCENES} scenes: "
+        f"{secs:.2f} s (load, data, steps, checkpoints at 2 and 4, export); "
+        + ", ".join(f"step {e['step']} loss {e['loss']} "
+                    f"{e['sec_per_step']} s" for e in trained))
+    log(f"  --resume --steps 6: {secs2:.2f} s; resumed at "
+        f"{[e['step'] for e in resumed]}; " + ", ".join(
+            f"step {e['step']} loss {e['loss']} {e['sec_per_step']} s"
+            for e in later))
+    if [e["step"] for e in trained] != [1, 2, 3, 4] or [
+            e["step"] for e in resumed] != [4] or [
+            e["step"] for e in later] != [5, 6] or state["step"] != 6 \
+            or not all(np.isfinite(e["loss"]) for e in trained + later):
+        raise AssertionError(f"train_cli: {first} / {second}")
+    # the export in a copy of the root
+    copy = os.path.join(work, "models_root_trained")
+    for dirpath, dirnames, filenames in os.walk(models_root):
+        rel = os.path.relpath(dirpath, models_root)
+        os.makedirs(os.path.join(copy, rel), exist_ok=True)
+        if rel in (os.path.join("BlobCtrl", "blobnet"),
+                   os.path.join("BlobCtrl", "unet_lora")):
+            continue
+        for f in filenames:
+            os.symlink(os.path.join(dirpath, f), os.path.join(copy, rel, f))
+    shutil.copy(os.path.join(models_root, "BlobCtrl", "blobnet",
+                             "config.json"),
+                os.path.join(copy, "BlobCtrl", "blobnet"))
+    for sub, name in (("blobnet", "diffusion_pytorch_model.safetensors"),
+                      ("unet_lora", "adapter_model.safetensors")):
+        os.replace(os.path.join(export_dir, sub, name),
+                   os.path.join(copy, "BlobCtrl", sub, name))
+    shutil.rmtree(ckpt_dir)
+    pipe, secs = timed(lambda: io.load_pipeline(copy, dtype=torch.bfloat16,
+                                                device=device))
+    bf16 = torch.bfloat16
+    got, want = (export.flatten(pipe.blobnet_params),
+                 export.flatten(state["params"]["blobnet"]))
+    bad = [k for k in want if not torch.equal(got[k],
+                                              want[k].to(bf16))]
+    lora = state["params"]["lora"]
+    bad += [k for k, ab in lora.items() for n in ("A", "B")
+            if not torch.equal(pipe._lora_tree[k][n], ab[n])]
+    base = export.flatten(io.load_sd15_unet(os.path.join(
+        models_root, "stable-diffusion-v1-5", "unet"), device=device))
+    loaded = export.flatten(pipe.unet_params)
+    for k, w in base.items():
+        target = k.rsplit(".", 1)[0].replace(".", "/")
+        if k.endswith(".kernel") and target in lora:
+            w = lora_lib.merge_kernel(w, lora[target], 1.0, None)
+        if not torch.equal(loaded[k], w.to(bf16)):
+            bad.append("unet." + k)
+    log(f"  load_pipeline of the copy with the export: {secs:.2f} s; "
+        f"{len(want)} BlobNet leaves, {2 * len(lora)} LoRA leaves and "
+        f"{len(base)} UNet leaves checked, {len(bad)} differ")
+    if bad or len(got) != len(want):
+        raise AssertionError(f"exported leaves differ: {bad[:5]}")
+    del state, base, loaded
+    ops.reset_counts()
+    out, secs, launches, mem = run_request(pipe, text_edit_kwargs(
+        size, edit_steps))
+    check_tensor_cores("edit from the trained export", launch_counts(),
+                       EXACT)
+    log(f"  {edit_steps}-step edit from the trained copy: {secs:.3f} s, "
+        f"launches {({k: n for k, n in launches.items() if n})}, peak "
+        f"memory {mem:.2f} GiB")
+    if min(launches[k] for k in EXACT) == 0:
+        raise AssertionError(f"edit from the export: launches {launches}")
+
+
+def training_phase(models_root: str, work: str):
+    """Phase 8 on the card. -> ({kernel: 8a's worst abs error},
+    {kernel: 8c's launches})."""
+    t_phase = time.perf_counter()
+    step, state, frozen = training_setup()
+    shapes = record_training_shapes(step, state, frozen)
+    log("  8a: the Functions at the K1 and K6 shapes of one full-width "
+        "training step at B = " + ", ".join(map(str, TRAIN_BATCHES)) + ": "
+        + ", ".join(f"{k} {len(v)}" for k, v in shapes.items()))
+    t0 = time.perf_counter()
+    errs = check_training_functions(shapes)
+    log(f"  8a took {time.perf_counter() - t0:.1f} s")
+    log("  8b: the trained 256^2 toy, card against CPU")
+    t0 = time.perf_counter()
+    toy_training_phase()
+    log(f"  8b took {time.perf_counter() - t0:.1f} s")
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = TF32_DEFAULTS
+    log(f"  8c and 8d on PyTorch's TF32 switches (cuDNN, cuBLAS) "
+        f"{TF32_DEFAULTS}, as train_cli runs; the backward's VJPs turn both "
+        f"off for their own calls")
+    log(f"  8c: full width, 512^2 double width (64 x 128 latents), remat, "
+        f"bf16, B = " + ", ".join(map(str, TRAIN_BATCHES)) + f", "
+        f"{TRAIN_STEPS} steps each")
+    t0 = time.perf_counter()
+    totals = full_width_training(step, state, frozen)
+    log(f"  8c took {time.perf_counter() - t0:.1f} s")
+    del step, state, frozen
+    torch.cuda.empty_cache()
+    log("  8d: the training CLI on phase 6's models root")
+    t0 = time.perf_counter()
+    cli_training_phase(models_root, work)
+    log(f"  8d took {time.perf_counter() - t0:.1f} s; phase 8 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return errs, totals
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -2676,6 +3248,13 @@ def main() -> int:
     checkpoint_day_phase(models_root, demo_root)
 
     # -- phase 8 ------------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 8: training (device memory held before it: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+    train_errs, trained = training_phase(models_root, work.name)
+
+    # -- phase 9 ------------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
                                 "blobctrl_tpu/ops/flash_attention.py:80"),
             "conv3x3": ("blobctrl_torch/csrc/conv3x3.cu",
@@ -2710,8 +3289,11 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": totals[name],
                  "served_launches": served.get(name, 0),
+                 "train_launches": trained.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"]
                                     for r in results[name].values())}
+        if name in train_errs:  # the Function's forward and gradients
+            entry["train_max_abs_err"] = max(train_errs[name].values())
         for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[field] = weighted(field)
         if name == "blob_splat":  # ms is wall time: the splat is host-bound
@@ -2753,6 +3335,7 @@ def main() -> int:
                 f"{weighted(label + ':plain_ms'):.1f} bound "
                 f"{weighted('bound_ms'):.2f} library "
                 f"{'none' if lib is None else f'{lib:.1f}'}")
+    log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

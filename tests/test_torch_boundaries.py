@@ -80,6 +80,19 @@ def test_entry_points_raise_without_cuda():
     for load in (io.load_pipeline, io.load_vae, io.load_lora_dir):
         with pytest.raises(RuntimeError):
             load(str(ROOT / "models"))
+    # training: the CLI, the toy's trainers and a checkpoint's restore
+    from blobctrl_torch.apps import train_cli
+    from blobctrl_torch.train import checkpoint
+    with pytest.raises(RuntimeError):
+        train_cli.main(["--data_root", str(ROOT), "--models_root",
+                        str(ROOT / "models")])
+    with pytest.raises(RuntimeError):
+        toy.train_toy_vae(np.zeros((1, 8, 8, 3), np.uint8),
+                          toy.toy_configs()[2], steps=1)
+    with pytest.raises(RuntimeError):
+        toy.train_toy_diffusion({}, *flagship.tiny_configs(), steps=1)
+    with pytest.raises(RuntimeError):
+        checkpoint.restore(str(ROOT / "ckpts"))
     up = unet.init_unet(ucfg, device="cpu")
     with pytest.raises(RuntimeError):
         BlobNetPipeline(unet_cfg=ucfg, unet_params=up, blobnet_cfg=bcfg,
@@ -147,15 +160,15 @@ def test_pipeline_rejects_what_is_not_ported():
 
 
 FORBIDDEN = ("cv2", "PIL", "regex", "ftfy", "jax", "flax", "safetensors",
-             "transformers")
+             "transformers", "optax", "orbax")
 
 
 @pytest.mark.parametrize("path", [str(p.relative_to(ROOT)) for p in SOURCES]
                          + ["chip_smoke.py"])
 def test_sources_import_no_host_image_or_text_library(path):
-    """The card's machine has no cv2, PIL, regex, ftfy, safetensors or
-    transformers: no source of the port imports them, at the top or inside
-    a function."""
+    """The card's machine has no cv2, PIL, regex, ftfy, safetensors,
+    transformers, optax or orbax: no source of the port (training's modules
+    among them) imports them, at the top or inside a function."""
     text = (ROOT / path).read_text()
     pat = r"^\s*(import|from)\s+(" + "|".join(FORBIDDEN) + r")\b"
     assert not re.search(pat, text, re.M), path
