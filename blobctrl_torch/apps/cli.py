@@ -10,6 +10,12 @@ Usage:
       --original_image scene.png --scene_prompt "a photo of ..." \\
       --object_image object_centered.png --edited_background bg.png \\
       --ellipse "300,260,120,220,35" [--remove] [--device cpu] ...
+
+With ``--mesh data=N,model=M`` (and/or ``--hybrid_cfg_data``) the edit is
+sharded over N x M ranks (``parallel/``): this process is rank 0 and spawns
+the others. On the card that is one card a rank over NCCL (refused when
+the ranks outnumber the cards); with ``--device cpu``, gloo. Rank 0 writes
+the outputs.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import time
 import numpy as np
 import torch
 
+from blobctrl_torch.parallel import mesh as mesh_lib
+from blobctrl_torch.parallel import multihost
 from blobctrl_torch.pipeline.blobnet_pipeline import SCHEDULER_NAMES
 from blobctrl_torch.utils import png
 from blobctrl_torch.utils.image import read_image
@@ -81,24 +89,78 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plot_ellipse", action="store_true",
                    help="additionally save outputs with the ellipse drawn")
     p.add_argument("--mesh", default=None, metavar="data=N,model=M",
-                   help="not available in the port yet (ROADMAP item 17)")
+                   help="shard the edit over data x model ranks, e.g. "
+                        "'model=2' (tensor-parallel) or 'data=2,model=2' "
+                        "with --hybrid_cfg_data; one card a rank")
     p.add_argument("--hybrid_cfg_data", action="store_true",
-                   help="not available in the port yet (ROADMAP item 17)")
+                   help="single-edit recipe: the CFG pair over the data "
+                        "axis, the weights over model (data=2 x "
+                        "model=<rest of the cards> when --mesh is not given)")
     return p
 
 
+def _load(args, device):
+    from blobctrl_torch.params import io as params_io
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    return params_io.load_pipeline(args.models_root, dtype=dtype,
+                                   device=device)
+
+
+def _rank_pipeline(args, rank: int, world: int, address: str, spec: str):
+    """Join the group as ``rank``, load the pipeline on this rank's device
+    and shard it."""
+    cpu = torch.device(args.device).type == "cpu"
+    dev = multihost.initialize(address, world, rank, device=args.device,
+                               backend="gloo" if cpu else "nccl")
+    pipe = _load(args, dev)
+    mesh = mesh_lib.shard_pipeline_from_flags(pipe, spec,
+                                              args.hybrid_cfg_data)
+    if rank == 0:
+        print(json.dumps({"mesh": dict(mesh.shape),
+                          "hybrid_cfg_data": bool(args.hybrid_cfg_data)}))
+    return pipe
+
+
+def _follower(rank, world, address, conn, args, spec):
+    """Ranks 1.. of a sharded CLI run: the same edit, nothing written."""
+    try:
+        _edit(_rank_pipeline(args, rank, world, address, spec), args,
+              write=False)
+    finally:
+        multihost.shutdown()
+
+
+def _run_sharded(args) -> list:
+    shape = mesh_lib.resolve_mesh_shape(args.mesh, args.hybrid_cfg_data,
+                                        args.device)
+    world = shape["data"] * shape["model"]
+    if torch.device(args.device).type == "cuda" and \
+            world > torch.cuda.device_count():
+        raise SystemExit(f"--mesh {shape} needs {world} cards, one a rank; "
+                         f"{torch.cuda.device_count()} are visible")
+    spec = f"data={shape['data']},model={shape['model']}"
+    address = f"127.0.0.1:{multihost.free_port()}"
+    followers = multihost.Followers(_follower, world, address, (args, spec))
+    try:
+        paths = _edit(_rank_pipeline(args, 0, world, address, spec), args)
+    finally:
+        codes = followers.close()
+        multihost.shutdown()
+    if any(c != 0 for c in codes):
+        raise SystemExit(f"a rank of the mesh failed: exit codes {codes}")
+    return paths
+
+
 def run(args) -> list:
+    if getattr(args, "mesh", None) or getattr(args, "hybrid_cfg_data", False):
+        return _run_sharded(args)
+    return _edit(_load(args, args.device), args)
+
+
+def _edit(pipe, args, write: bool = True) -> list:
+    """The edit the flags describe; its outputs written when ``write``."""
     from blobctrl_torch.blob import math as blob_math
     from blobctrl_torch.blob import raster
-    from blobctrl_torch.params import io as params_io
-
-    if getattr(args, "mesh", None) or getattr(args, "hybrid_cfg_data", False):
-        raise SystemExit("--mesh and --hybrid_cfg_data need the parallel "
-                         "recipes, which the port does not have yet "
-                         "(ROADMAP item 17)")
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    pipe = params_io.load_pipeline(args.models_root, dtype=dtype,
-                                   device=args.device)
 
     fg_image = read_image(args.object_image)
     height, width = fg_image.shape[:2]
@@ -135,6 +197,8 @@ def run(args) -> list:
                blobnet_control_guidance_end=args.blobnet_control_guidance_end,
                scheduler=args.scheduler)
     dt = time.perf_counter() - t0
+    if not write:
+        return []
 
     os.makedirs(args.output_dir, exist_ok=True)
     paths = []

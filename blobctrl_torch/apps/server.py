@@ -68,6 +68,16 @@ Design notes
     dies fails its request with a 500 and the pool is replaced.
   * Input validation mirrors the pipeline's own errors; client mistakes are
     400s with the message, not 500s.
+  * Sharded serving (--mesh data=N,model=M, --hybrid_cfg_data): this
+    process is rank 0 and spawns the other ranks (one card each over NCCL;
+    gloo with --device cpu). Rank 0 runs HTTP, validation, the batcher,
+    previews and /v1/progress, and sends each edit to the followers, which
+    run the same ``__call__`` or ``edit_batch`` (``parallel.multihost.
+    LeaderPipeline``); rank 0 gathers the images. A request that the
+    pipeline refuses by its arguments is a 400 on the mesh too, and the mesh
+    serves on. A follower that dies fails the edit in flight within the
+    group timeout (a 500), and every later one at once. ``close()`` stops
+    and joins the followers.
   * Deployment: http.server performs only basic security checks. Run this
     behind a reverse proxy that terminates TLS, enforces auth and rate
     limits, and bind it to a private interface (--host).
@@ -91,6 +101,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from blobctrl_torch.parallel import multihost
 from blobctrl_torch.utils import image, png
 
 
@@ -593,18 +604,22 @@ class EditService:
             "batches_run": self.batches_run,
             "batched_requests": self.batched_requests,
             "preview_every": self.preview_every,
-            "mesh": None,               # no mesh yet (ROADMAP item 17)
-            "hybrid_cfg_data": False,
+            "mesh": (None if getattr(self.pipeline, "mesh", None) is None
+                     else dict(self.pipeline.mesh.shape)),
+            "hybrid_cfg_data": bool(
+                getattr(self.pipeline, "_hybrid_cfg_data", False)),
         }
 
     def close(self):
-        """Stop the micro-batcher thread (queued requests fail) and the
-        image decoders; the service then holds the pipeline only through
-        its own references."""
+        """Stop the micro-batcher thread (queued requests fail), the image
+        decoders and, on a mesh, the follower ranks; the service then holds
+        the pipeline only through its own references."""
         with self._queue_cv:
             self._closed = True
             self._queue_cv.notify_all()
         self.decoder.close()
+        if isinstance(self.pipeline, multihost.LeaderPipeline):
+            self.pipeline.close()
 
 
 def make_handler(service: EditService):
@@ -680,6 +695,59 @@ def serve(pipeline, host: str = "0.0.0.0", port: int = 8000,
     return service, httpd
 
 
+def _load_sharded(rank, world, address, models_root, device, spec, hybrid,
+                  dtype, timeout_s):
+    from blobctrl_torch.params import io as io_lib
+    from blobctrl_torch.parallel import mesh as mesh_lib
+    cpu = torch.device(device).type == "cpu"
+    dev = multihost.initialize(address, world, rank, device=device,
+                               backend="gloo" if cpu else "nccl",
+                               timeout_s=timeout_s)
+    pipe = io_lib.load_pipeline(models_root, dtype=dtype, device=dev)
+    mesh_lib.shard_pipeline_from_flags(pipe, spec, hybrid)
+    return pipe
+
+
+def _follower(rank, world, address, conn, *load_args):
+    """A follower rank: load and shard as rank 0 does, then run each edit
+    rank 0 sends until it sends None. An edit refused by its arguments is
+    dropped (rank 0 answers it); one that fails out of step ends the
+    process: rank 0's edit then fails at its next collective."""
+    try:
+        pipe = _load_sharded(rank, world, address, *load_args)
+        multihost.follow(conn, lambda cmd: multihost.run_followed(pipe, cmd))
+    finally:
+        multihost.shutdown()
+
+
+def start_mesh(models_root: str, device: str, mesh_spec: Optional[str],
+               hybrid_cfg_data: bool, dtype=torch.bfloat16,
+               timeout_s: float = multihost.DEFAULT_TIMEOUT_S
+               ) -> multihost.LeaderPipeline:
+    """Spawn the follower ranks, load and shard the pipeline as rank 0,
+    and return it wrapped so that every edit runs on all ranks. On the
+    card one card a rank: more ranks than cards are refused."""
+    from blobctrl_torch.parallel import mesh as mesh_lib
+    shape = mesh_lib.resolve_mesh_shape(mesh_spec, hybrid_cfg_data, device)
+    world = shape["data"] * shape["model"]
+    if torch.device(device).type == "cuda" and \
+            world > torch.cuda.device_count():
+        raise SystemExit(f"mesh {shape} needs {world} cards, one a rank; "
+                         f"{torch.cuda.device_count()} are visible")
+    spec = f"data={shape['data']},model={shape['model']}"
+    address = f"127.0.0.1:{multihost.free_port()}"
+    load_args = (models_root, device, spec, hybrid_cfg_data, dtype,
+                 timeout_s)
+    followers = multihost.Followers(_follower, world, address, load_args)
+    try:
+        pipe = _load_sharded(0, world, address, *load_args)
+    except BaseException:
+        followers.close()
+        multihost.shutdown()
+        raise
+    return multihost.LeaderPipeline(pipe, followers)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="BlobCtrl serving (PyTorch port)")
     p.add_argument("--models_root", default="models")
@@ -703,16 +771,24 @@ def main(argv=None):
                         '"preview": true get an approximate RGB thumbnail '
                         "every N steps plus live /v1/progress (0 = off)")
     p.add_argument("--mesh", default=None, metavar="data=N,model=M",
-                   help="not available in the port yet (ROADMAP item 17)")
+                   help="shard edits over data x model ranks: micro-batches "
+                        "split over data, weights over model; one card a "
+                        "rank")
     p.add_argument("--hybrid_cfg_data", action="store_true",
-                   help="not available in the port yet (ROADMAP item 17)")
+                   help="single-edit recipe: the CFG pair over the data "
+                        "axis, the weights over model (data=2 x "
+                        "model=<rest of the cards> when --mesh is not given)")
     args = p.parse_args(argv)
     if args.mesh or args.hybrid_cfg_data:
-        p.error("--mesh and --hybrid_cfg_data need the parallel recipes, "
-                "which the port does not have yet (ROADMAP item 17)")
-    from blobctrl_torch.params import io as io_lib
-    pipeline = io_lib.load_pipeline(args.models_root, dtype=torch.bfloat16,
-                                    device=args.device)
+        pipeline = start_mesh(args.models_root, args.device, args.mesh,
+                              args.hybrid_cfg_data)
+        print(f"sharded over mesh {dict(pipeline.mesh.shape)}"
+              f" (hybrid_cfg_data={args.hybrid_cfg_data})")
+    else:
+        from blobctrl_torch.params import io as io_lib
+        pipeline = io_lib.load_pipeline(args.models_root,
+                                        dtype=torch.bfloat16,
+                                        device=args.device)
     service, httpd = serve(pipeline, args.host, args.port,
                            warmup_steps=None if args.no_warmup else 50,
                            strict_shapes=not args.allow_cold_shapes,

@@ -13,8 +13,8 @@ Usage:
       [--device cpu]
 
 Multi-process and multi-device training (--coordinator, --num_processes,
---process_id, --data_parallel > 1) needs the parallel recipes, which the
-port does not have yet (ROADMAP item 17): those flags are refused.
+--process_id, --data_parallel > 1) needs data-parallel training, which the
+port does not have yet (ROADMAP item 17b): those flags are refused.
 """
 
 from __future__ import annotations
@@ -60,13 +60,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="one device only (0 or 1); more is ROADMAP item 17")
+                   help="one device only (0 or 1); more is ROADMAP item 17b")
     p.add_argument("--coordinator", default=None,
-                   help="not available in the port yet (ROADMAP item 17)")
+                   help="not available in the port yet (ROADMAP item 17b)")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="not available in the port yet (ROADMAP item 17)")
+                   help="not available in the port yet (ROADMAP item 17b)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="not available in the port yet (ROADMAP item 17)")
+                   help="not available in the port yet (ROADMAP item 17b)")
     p.add_argument("--export_dir", default=None,
                    help="export trained blobnet/lora in reference formats")
     return p
@@ -111,8 +111,9 @@ def run(args):
     if (args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None or args.data_parallel > 1):
         raise SystemExit("--coordinator, --num_processes, --process_id and "
-                         "--data_parallel > 1 need the parallel recipes, "
-                         "which the port does not have yet (ROADMAP item 17)")
+                         "--data_parallel > 1 need data-parallel training, "
+                         "which the port does not have yet (ROADMAP item "
+                         "17b)")
     pipe = params_io.load_pipeline(args.models_root, dtype=torch.bfloat16,
                                    device=args.device)
     dev = pipe.device

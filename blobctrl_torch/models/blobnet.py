@@ -16,6 +16,7 @@ from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.nn import layers
 from blobctrl_torch.nn import resnet as rn
 from blobctrl_torch.nn import unet_blocks as ub
+from blobctrl_torch.parallel import kernel_sharding as ks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +140,7 @@ def num_residuals(cfg: BlobNetConfig) -> Tuple[int, int, int]:
     return 1 + n * lpb + (n - 1), 1, n * (lpb + 1) + (n - 1)
 
 
+@ks.scoped("blobnet")
 def blobnet_apply(params, cfg: BlobNetConfig, sample: torch.Tensor, timesteps,
                   conditioning_scale: float = 1.0, remat: bool = False
                   ) -> Tuple[List[torch.Tensor], torch.Tensor,
@@ -154,7 +156,8 @@ def blobnet_apply(params, cfg: BlobNetConfig, sample: torch.Tensor, timesteps,
     emb = unet_lib.time_embed(params, ucfg, timesteps, sample.dtype)
     no_inject = ub.InjectionQueue(None)
 
-    x = rn.conv3x3_routed(params["conv_in"], sample)
+    x = rn.conv3x3_routed(params["conv_in"], sample,
+                          cfg.block_out_channels[0])
     down_states: List[torch.Tensor] = [x]
     for i, block_p in enumerate(params["down_blocks"]):
         x, states = ub.down_block(

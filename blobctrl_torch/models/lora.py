@@ -69,7 +69,8 @@ def merge_kernel(kernel: torch.Tensor, ab: Dict[str, torch.Tensor],
                  scale: float, alpha: Optional[float], key: str = ""
                  ) -> torch.Tensor:
     """kernel + (scale * alpha / r) * A @ B, the delta computed in the
-    adapter's dtype and rounded to the kernel's before the add. A linear
+    adapter's dtype on its device and rounded to the kernel's dtype, and
+    moved to its device, before the add. A linear
     delta lands on a 1x1 conv kernel (HWIO (1, 1, in, out)) through its
     singleton spatial dims; a k x k conv adapter composes as PEFT's does,
     delta[h, w, i, o] = sum_r A[h, w, i, r] * B[r, o]."""
@@ -90,7 +91,7 @@ def merge_kernel(kernel: torch.Tensor, ab: Dict[str, torch.Tensor],
                                  f"the target kernel is "
                                  f"{tuple(kernel.shape)}")
             delta = delta[None, None]
-    return kernel + delta.to(kernel.dtype)
+    return kernel + delta.to(device=kernel.device, dtype=kernel.dtype)
 
 
 def _path(key: str) -> List:

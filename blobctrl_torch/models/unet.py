@@ -17,6 +17,7 @@ import torch
 from blobctrl_torch import resolve_device
 from blobctrl_torch.nn import embeddings, layers
 from blobctrl_torch.nn import unet_blocks as ub
+from blobctrl_torch.parallel import kernel_sharding as ks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +100,7 @@ def _norm_timesteps(timesteps, batch: int, device) -> torch.Tensor:
     return t.expand(batch) if t.dim() == 0 else t
 
 
+@ks.scoped("unet")
 def unet_encode(params, cfg: UNetConfig, sample: torch.Tensor, timesteps,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 down_block_add_samples: Optional[Sequence[torch.Tensor]] = None,
@@ -113,7 +115,9 @@ def unet_encode(params, cfg: UNetConfig, sample: torch.Tensor, timesteps,
     ctx = encoder_hidden_states
     emb = time_embed(params, cfg, timesteps, sample.dtype)
 
-    x = layers.conv2d(params["conv_in"], sample, padding=1)
+    x = ks.gather_channels(layers.conv2d(params["conv_in"], sample,
+                                         padding=1),
+                           cfg.block_out_channels[0])
     down_q = ub.InjectionQueue(down_block_add_samples)
     x = down_q.apply(x)
     res_stack: List[torch.Tensor] = [x]
@@ -130,6 +134,7 @@ def unet_encode(params, cfg: UNetConfig, sample: torch.Tensor, timesteps,
     return x, tuple(res_stack)
 
 
+@ks.scoped("unet")
 def unet_decode(params, cfg: UNetConfig, x: torch.Tensor, skip_stack,
                 timesteps,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
@@ -152,7 +157,8 @@ def unet_decode(params, cfg: UNetConfig, x: torch.Tensor, skip_stack,
                            eps, remat=remat)
     up_q.assert_empty()
     x = layers.silu(layers.group_norm(params["conv_norm_out"], x, ng, eps))
-    return layers.conv2d(params["conv_out"], x, padding=1)
+    return ks.gather_channels(
+        layers.conv2d(params["conv_out"], x, padding=1), cfg.out_channels)
 
 
 def unet_apply(params, cfg: UNetConfig, sample: torch.Tensor, timesteps,

@@ -14,6 +14,7 @@ import torch
 from blobctrl_torch import resolve_device
 from blobctrl_torch.nn import layers
 from blobctrl_torch.nn import resnet as rn
+from blobctrl_torch.parallel import kernel_sharding as ks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,34 +53,42 @@ def encode(params, cfg: VAEConfig, image: torch.Tensor) -> torch.Tensor:
     """image: (B, H, W, 3) in [-1, 1] -> moments (B, H/8, W/8, 2*latent)."""
     enc = params["encoder"]
     ng = cfg.norm_num_groups
-    x = layers.conv2d(enc["conv_in"], image, padding=1)
+    gather = ks.gather_channels  # the column-only convs' outputs
+    x = gather(layers.conv2d(enc["conv_in"], image, padding=1),
+               cfg.block_out_channels[0])
     for block in enc["down_blocks"]:
         for res_p in block["resnets"]:
             x = rn.resnet_block(res_p, x, None, ng, eps=1e-6)
         if "downsample" in block:
-            x = layers.conv2d(block["downsample"]["conv"], x, stride=2,
-                              padding=((0, 1), (0, 1)))
+            x = gather(layers.conv2d(block["downsample"]["conv"], x,
+                                     stride=2, padding=((0, 1), (0, 1))),
+                       x.shape[-1])
     x = _mid_block(enc["mid_block"], x, ng)
     x = layers.silu(layers.group_norm(enc["conv_norm_out"], x, ng, eps=1e-6))
-    x = layers.conv2d(enc["conv_out"], x, padding=1)
-    return layers.conv2d(params["quant_conv"], x)
+    moments = 2 * cfg.latent_channels
+    x = gather(layers.conv2d(enc["conv_out"], x, padding=1), moments)
+    return gather(layers.conv2d(params["quant_conv"], x), moments)
 
 
 def decode(params, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
     """latents: (B, h, w, 4) unscaled (divided by scaling_factor)."""
     dec = params["decoder"]
     ng = cfg.norm_num_groups
-    x = layers.conv2d(params["post_quant_conv"], latents)
-    x = layers.conv2d(dec["conv_in"], x, padding=1)
+    gather = ks.gather_channels  # the column-only convs' outputs
+    x = gather(layers.conv2d(params["post_quant_conv"], latents),
+               cfg.latent_channels)
+    x = gather(layers.conv2d(dec["conv_in"], x, padding=1),
+               cfg.block_out_channels[-1])
     x = _mid_block(dec["mid_block"], x, ng)
     for block in dec["up_blocks"]:
         for res_p in block["resnets"]:
             x = rn.resnet_block(res_p, x, None, ng, eps=1e-6)
         if "upsample" in block:
             x = rn.conv3x3_routed(block["upsample"]["conv"],
-                                  layers.nearest_upsample_2x(x))
+                                  layers.nearest_upsample_2x(x), x.shape[-1])
     x = layers.silu(layers.group_norm(dec["conv_norm_out"], x, ng, eps=1e-6))
-    return layers.conv2d(dec["conv_out"], x, padding=1)
+    return gather(layers.conv2d(dec["conv_out"], x, padding=1),
+                  cfg.out_channels)
 
 
 def sample_latents(moments: torch.Tensor,
@@ -98,6 +107,7 @@ def sample_latents(moments: torch.Tensor,
     return mean + std * eps
 
 
+@ks.scoped("vae")
 def encode_to_scaled_latents(params, cfg: VAEConfig,
                              image: torch.Tensor) -> torch.Tensor:
     """The distribution's mode (no sampling), times the scaling factor."""
@@ -105,6 +115,7 @@ def encode_to_scaled_latents(params, cfg: VAEConfig,
     return mean * cfg.scaling_factor
 
 
+@ks.scoped("vae")
 def decode_from_scaled_latents(params, cfg: VAEConfig,
                                latents: torch.Tensor) -> torch.Tensor:
     return decode(params, cfg, latents / cfg.scaling_factor)

@@ -14,6 +14,11 @@ int8 q.k^T kernel instead, with one global k scale under
 ``set_ln_matmul_fuse("on")`` fuses each pre-LayerNorm into the projection
 after it (``ops.ln_matmul``): the self-attention QKV, the cross-attention
 to_q and the GEGLU proj_in.
+
+Under tensor parallelism (``parallel.kernel_sharding``) to_q/k/v hold this
+rank's columns, so the fused QKV concatenates local columns and the heads
+are local; GEGLU's proj_in holds matching columns of both halves; to_out
+and proj_out are row-parallel, summed over the model group.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import torch
 from blobctrl_torch.nn import layers
 from blobctrl_torch.ops import flash_attention as flash_op
 from blobctrl_torch.ops import ln_matmul as ln_matmul_op
+from blobctrl_torch.parallel import kernel_sharding as ks
+from blobctrl_torch.parallel.mesh import FF_MULT
 
 # Sequence length at or above which q and kv take the flash kernel.
 FLASH_MIN_SEQ = 1024
@@ -161,7 +168,7 @@ def attention(params, x: torch.Tensor, heads: int,
                 torch.cat([params[n]["w_scale"] for n in names]), None,
                 x.dtype)
             q, k, v = qkv.chunk(3, dim=-1)
-            return _attend(params, q, k, v, heads)
+            return _attend(params, q, k, v, heads, x.shape[-1])
         w_qkv = torch.cat([params[n]["kernel"] for n in names], dim=1)
         if fuse:
             qkv = _ln_linear(norm, x, {"kernel": w_qkv})
@@ -174,16 +181,21 @@ def attention(params, x: torch.Tensor, heads: int,
         src = context if context is not None else x
         k = layers.linear(params["to_k"], src)
         v = layers.linear(params["to_v"], src)
-    return _attend(params, q, k, v, heads)
+    return _attend(params, q, k, v, heads, x.shape[-1])
 
 
-def _attend(params, q, k, v, heads: int) -> torch.Tensor:
-    """The heads' attention, then the output projection."""
+def _attend(params, q, k, v, heads: int, width: int) -> torch.Tensor:
+    """The heads' attention, then the output projection. width: the
+    model width; q holding fewer columns means local heads and a
+    row-parallel to_out."""
+    heads = ks.local_heads(heads, q.shape[-1], width)
     out_h = multi_head_attention(q, k, v, heads, return_heads=True)
     # output projection over (head, d): the head merge folds into the matmul
     b, h, sq, d = out_h.shape
-    return layers.linear(params["to_out"],
-                         out_h.transpose(1, 2).reshape(b, sq, h * d))
+    out = out_h.transpose(1, 2).reshape(b, sq, h * d)
+    if h * d != width:
+        return ks.row_linear(params["to_out"], out)
+    return layers.linear(params["to_out"], out)
 
 
 def init_feed_forward(init: layers.ParamInit, dim: int):
@@ -202,7 +214,11 @@ def feed_forward(params, x: torch.Tensor, norm=None) -> torch.Tensor:
             x = layers.layer_norm(norm, x)
         h = layers.linear(params["proj_in"], x)
     h, gate = h.chunk(2, dim=-1)
-    return layers.linear(params["proj_out"], h * layers.gelu(gate))
+    h = h * layers.gelu(gate)
+    if ks.current() is not None and ks.split(h.shape[-1],
+                                             FF_MULT * x.shape[-1]) > 1:
+        return ks.row_linear(params["proj_out"], h)
+    return layers.linear(params["proj_out"], h)
 
 
 def init_transformer_block(init: layers.ParamInit, dim: int,

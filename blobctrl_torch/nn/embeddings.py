@@ -8,6 +8,7 @@ import math
 import torch
 
 from blobctrl_torch.nn import layers
+from blobctrl_torch.parallel import kernel_sharding as ks
 
 
 def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -34,5 +35,9 @@ def init_timestep_embedding(init: layers.ParamInit, in_dim: int,
 
 
 def timestep_embedding(params, t_emb: torch.Tensor) -> torch.Tensor:
-    h = layers.silu(layers.linear(params["linear_1"], t_emb))
-    return layers.linear(params["linear_2"], h)
+    """Both linears are column-only under tensor parallelism: each output
+    is gathered to the full width (linear_2 is square) before its use."""
+    full = params["linear_2"]["kernel"].shape[0]
+    h = layers.linear(params["linear_1"], t_emb)
+    h = layers.silu(ks.gather_channels(h, full))
+    return ks.gather_channels(layers.linear(params["linear_2"], h), full)

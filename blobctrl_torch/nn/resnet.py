@@ -8,6 +8,12 @@ and the normalize+SiLU runs in the conv's prologue instead of as separate
 passes over device memory. With the int8 conv mode on, the routed convs
 take the tree's pre-quantized ``kernel_q``/``w_scale`` where present, and
 with the Winograd switch on its pre-transformed ``u``.
+
+Under tensor parallelism (``parallel.kernel_sharding``) a resnet block's
+conv1 and time_emb_proj are column-parallel (local output channels), its
+norm2 and conv2 row-parallel (local channels, one all-reduce); the routing
+then sees the local channel counts. The samplers are column-only: their
+output channels are gathered before the next layer.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 
 from blobctrl_torch.nn import layers
 from blobctrl_torch.ops import conv3x3 as conv3x3_op
+from blobctrl_torch.parallel import kernel_sharding as ks
 
 
 def route_conv(x: torch.Tensor) -> bool:
@@ -36,12 +43,16 @@ def _conv3x3_kernel(conv_params, x, scale=None, shift=None):
                               u=conv_params.get("u"))
 
 
-def conv3x3_routed(conv_params, x: torch.Tensor) -> torch.Tensor:
+def conv3x3_routed(conv_params, x: torch.Tensor,
+                   full: Optional[int] = None) -> torch.Tensor:
     """Stride-1 same-size 3x3 conv (BlobNet's 1029-channel conv_in, the
-    up-sampler convs)."""
+    up-sampler convs). full: the output width, gathered to it when the
+    conv is column-only sharded."""
     if route_conv(x):
-        return _conv3x3_kernel(conv_params, x)
-    return layers.conv2d(conv_params, x, padding=1)
+        y = _conv3x3_kernel(conv_params, x)
+    else:
+        y = layers.conv2d(conv_params, x, padding=1)
+    return y if full is None else ks.gather_channels(y, full)
 
 
 def init_resnet_block(init: layers.ParamInit, c_in: int, c_out: int,
@@ -71,7 +82,11 @@ def resnet_block(params, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
     if temb is not None and "time_emb_proj" in params:
         t = layers.linear(params["time_emb_proj"], layers.silu(temb))
         h = h + t[:, None, None, :]
-    h = norm_act_conv(params["conv2"], params["norm2"], h)
+    if ks.split(h.shape[-1], params["conv2"]["kernel"].shape[3]) > 1:
+        h = ks.row_conv(_conv3x3_kernel, params["conv2"], params["norm2"], h,
+                        norm_groups, eps, route_conv(h))
+    else:
+        h = norm_act_conv(params["conv2"], params["norm2"], h)
     if "conv_shortcut" in params:
         x = layers.conv2d(params["conv_shortcut"], x)
     return x + h
@@ -82,7 +97,8 @@ def init_downsample(init: layers.ParamInit, c: int):
 
 
 def downsample_2d(params, x: torch.Tensor) -> torch.Tensor:
-    return layers.conv2d(params["conv"], x, stride=2, padding=1)
+    return ks.gather_channels(
+        layers.conv2d(params["conv"], x, stride=2, padding=1), x.shape[-1])
 
 
 def init_upsample(init: layers.ParamInit, c_in: int,
@@ -101,4 +117,4 @@ def upsample_2d(params, x: torch.Tensor,
         hi = torch.arange(oh, device=x.device) * h // oh
         wi = torch.arange(ow, device=x.device) * w // ow
         x = x[:, hi][:, :, wi].contiguous()
-    return conv3x3_routed(params["conv"], x)
+    return conv3x3_routed(params["conv"], x, params["conv"]["kernel"].shape[2])

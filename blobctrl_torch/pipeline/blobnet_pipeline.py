@@ -19,11 +19,16 @@ Opt-in approximations, as in the JAX package: the encoder cache
 only, the decoder every step) and guidance-interval CFG (outside
 [cfg_guidance_start, cfg_guidance_end) the UNet runs the conditional rows
 alone).
+
+Sharded over ranks (``shard_to_mesh``, ``parallel/``): every rank runs the
+same edit on local weight slices; ``edit_batch`` splits its requests over
+the data group, and the hybrid recipe splits the CFG pair over it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import os
 import warnings
@@ -44,6 +49,10 @@ from blobctrl_torch.nn import attention, layers, transformer_2d
 from blobctrl_torch.ops import conv3x3 as conv3x3_op
 from blobctrl_torch.ops import flash_attention as flash_op
 from blobctrl_torch.ops import winograd as winograd_op
+from blobctrl_torch.parallel import collectives
+from blobctrl_torch.parallel import kernel_sharding as ks
+from blobctrl_torch.parallel import mesh as mesh_lib
+from blobctrl_torch.parallel import multihost
 from blobctrl_torch.schedulers import ddim as ddim_lib
 from blobctrl_torch.schedulers import dpm as dpm_lib
 from blobctrl_torch.schedulers import unipc as unipc_lib
@@ -169,12 +178,45 @@ def normalize_gs(gs_score, h: int, w: int) -> torch.Tensor:
                      f"latent grid ({h}, {w}) in NHWC or NCHW layout")
 
 
+def _tree_to(tree, device):
+    """A param tree with every tensor on ``device`` (the same objects where
+    they are there already)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _overlay(local, derived):
+    """``derived`` (a sliced tree with derived leaves added) with every leaf
+    that ``local`` also has taken from ``local``: equal values, and no
+    second copy in device memory."""
+    if isinstance(derived, dict):
+        return {k: _overlay(local[k], v) if k in local else v
+                for k, v in derived.items()}
+    if isinstance(derived, (list, tuple)):
+        return type(derived)(_overlay(a, b) for a, b in zip(local, derived))
+    return local
+
+
+def _with_profiles(method):
+    """Run a pipeline method with its kernel-sharding profiles published
+    (``parallel.kernel_sharding.activate``; none before ``shard_to_mesh``)."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with ks.activate(self._kernel_profiles):
+            return method(self, *args, **kwargs)
+    return wrapper
+
+
 class BlobNetPipeline:
     """UNet + BlobNet + VAE params on one device, and the single-edit call.
 
     Params are dicts with the JAX package's key names (see
     ``params.from_jax``), already on ``device``; ``dtype`` is the compute
-    dtype of the nets."""
+    dtype of the nets. ``mesh`` (a ``parallel.mesh.Mesh``) is recorded for
+    ``shard_to_mesh``."""
 
     def __init__(self, *, unet_cfg: unet_lib.UNetConfig, unet_params,
                  blobnet_cfg: blobnet_lib.BlobNetConfig, blobnet_params,
@@ -187,6 +229,7 @@ class BlobNetPipeline:
                                               np.ndarray]] = None,
                  dtype=torch.float32, device="cuda",
                  dino_image_size: int = 224,
+                 mesh=None,
                  safety_checker: Optional[Callable[[np.ndarray],
                                                    np.ndarray]] = None,
                  blackout_nsfw: bool = False):
@@ -225,6 +268,98 @@ class BlobNetPipeline:
         # set_lora_scale can rescale it
         self._lora_tree, self._lora_alpha, self._lora_scale = None, None, 1.0
         self._step_callback_warned = False
+        # sharding (shard_to_mesh): the full trees stay in host memory beside
+        # the local slices, since derived weights come from the full tree
+        self.mesh = mesh
+        self._hybrid_cfg_data = False
+        self._kernel_profiles = None
+        self._full_trees = {}
+        self._shard_args = {}
+        self._model_parallel = False
+
+    def shard_to_mesh(self, mesh=None, model_parallel: bool = False,
+                      hybrid_cfg_data: bool = False):
+        """Slice the UNet, BlobNet and VAE trees for this rank
+        (``parallel.mesh.shard_params``) and publish the kernel-sharding
+        profiles. Every rank calls it, with the same full trees.
+
+          * data: ``edit_batch`` splits its requests over the data group
+            (when they divide it); the single edit runs whole on every
+            data rank.
+          * model_parallel: the Megatron slicing over the model group.
+          * hybrid_cfg_data (implies model_parallel): the UNet's CFG pair
+            over the data group (its weights over the model group), one
+            gather of the noise predictions at the guidance combine; BlobNet
+            at the edit batch, its weights over data x model.
+
+        The encoders stay whole. Every cache that holds weights, their
+        derivatives or what they computed is cleared."""
+        if mesh is not None:
+            self.mesh = mesh
+        if self.mesh is None:
+            raise ValueError("no mesh given")
+        self._hybrid_cfg_data = bool(hybrid_cfg_data)
+        if hybrid_cfg_data:
+            model_parallel = True
+        ucfg, bcfg = self.unet_cfg, self.blobnet_cfg
+        blob_axes = ("data", "model") if hybrid_cfg_data else ("model",)
+        self._shard_args = {
+            "unet_params": (("model",), ucfg.num_heads, ucfg.norm_num_groups),
+            "blobnet_params": (blob_axes, bcfg.num_heads,
+                               bcfg.norm_num_groups),
+            "vae_params": (("model",), 1, self.vae_cfg.norm_num_groups)}
+        self._model_parallel = bool(model_parallel)
+        for name in self._shard_args:
+            full = self._full_trees.get(name)
+            if full is None:
+                full = self._full_trees[name] = _tree_to(getattr(self, name),
+                                                         "cpu")
+            setattr(self, name, self._shard(name, full))
+            self._param_versions.pop(name, None)  # it held the full tree
+
+        def prof(model_axes):
+            return ks.KernelProfile(
+                self.mesh, model=model_axes if model_parallel else ())
+
+        self._kernel_profiles = {"unet": prof(("model",)),
+                                 "blobnet": prof(blob_axes),
+                                 "vae": prof(("model",))}
+        for cache in (self._param_cache, self._prompt_cache,
+                      self._dino_cache, self._cond_lat_cache):
+            cache.clear()
+        return self
+
+    def _shard(self, name: str, tree):
+        """This rank's slice of a full tree of model ``name``, on the
+        pipeline's device."""
+        axes, heads, groups = self._shard_args[name]
+        return mesh_lib.shard_params(self.mesh, tree, self._model_parallel,
+                                     axes, heads, groups, device=self.device)
+
+    def _group(self, axes=("data",)):
+        return None if self.mesh is None else self.mesh.group(axes)
+
+    def _data_rows(self, n: int) -> Optional[range]:
+        """This rank's rows of n when the data group splits them (n
+        divides it), else None (every data rank runs all n)."""
+        group = self._group()
+        if group is None:
+            return None
+        size = self.mesh.shape["data"]
+        if n % size:
+            return None
+        return multihost.local_rows(n, size, self.mesh.coords["data"])
+
+    def _agreed_seeds(self, seeds: List[Optional[int]]) -> List[int]:
+        """Seeds with each None drawn at random, rank 0's draws on every
+        rank (the ranks must run the same rows)."""
+        drawn = [int.from_bytes(os.urandom(4), "little") if s is None
+                 else int(s) for s in seeds]
+        if self.mesh is not None and any(s is None for s in seeds):
+            t = collectives.broadcast(torch.tensor(drawn, dtype=torch.int64),
+                                      0, self._group(("data", "model")))
+            drawn = [int(v) for v in t.tolist()]
+        return drawn
 
     def _conv_params(self, name: str):
         """The param tree ``name``, with derived weights beside its hot
@@ -237,7 +372,10 @@ class BlobNetPipeline:
         by identity, so a 50-step edit transforms no weight inside its loop;
         ``self.*_params`` stay as they are. With the modes off the derived
         copies are dropped, so the exact edit holds none in device
-        memory."""
+        memory. Sharded, the derived weights come from the full tree, on
+        the device for the time of the derivation, and are then sliced
+        (``parallel.mesh`` deviation 3); the other leaves stay the local
+        slices in ``self.*_params``."""
         p = getattr(self, name)
         conv_int8 = conv3x3_op.conv_int8_enabled()
         mode = (conv_int8 or layers.linear_int8_enabled(),
@@ -247,9 +385,14 @@ class BlobNetPipeline:
             return p
         ent = self._param_cache.get(name)
         if ent is None or ent[0] is not p or ent[1] != mode:
-            tree = conv3x3_op.quantize_conv_tree(p) if mode[0] else p
+            sharded = name in self._full_trees
+            tree = (_tree_to(self._full_trees[name], self.device) if sharded
+                    else p)
+            tree = conv3x3_op.quantize_conv_tree(tree) if mode[0] else tree
             if mode[1]:
                 tree = winograd_op.transform_conv_tree(tree, self.dtype)
+            if sharded:
+                tree = _overlay(p, self._shard(name, tree))
             ent = self._param_cache[name] = (p, mode, tree)
         return ent[2]
 
@@ -410,9 +553,14 @@ class BlobNetPipeline:
                 "models.lora.merge_lora(scale=...)")
         if scale == self._lora_scale:
             return
-        self.unet_params = lora_lib.merge_lora(
-            self.unet_params, self._lora_tree, scale=scale - self._lora_scale,
+        full = self._full_trees.get("unet_params", self.unet_params)
+        merged = lora_lib.merge_lora(
+            full, self._lora_tree, scale=scale - self._lora_scale,
             alpha=self._lora_alpha)
+        if "unet_params" in self._full_trees:  # sharded: host, then slices
+            self._full_trees["unet_params"] = merged
+            merged = self._shard("unet_params", merged)
+        self.unet_params = merged
         self._lora_scale = scale
 
     @staticmethod
@@ -449,14 +597,17 @@ class BlobNetPipeline:
         return vae_lib.encode_to_scaled_latents(
             vae_params, self.vae_cfg, img.to(self.dtype)).float()
 
-    def _decode_images(self, final: torch.Tensor, vae_params) -> np.ndarray:
+    def _decode_images(self, final: torch.Tensor, vae_params,
+                       gather: bool = False) -> np.ndarray:
         """Final latents -> (N, H, W, 3) float32 in [0, 1], through a uint8
-        transport to the host."""
+        transport to the host; gather: the data group's rows joined first."""
         img = vae_lib.decode_from_scaled_latents(vae_params, self.vae_cfg,
                                                  final.to(self.dtype))
         img = torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
-        u8 = torch.round(img * 255.0).to(torch.uint8).cpu().numpy()
-        return u8.astype(np.float32) / 255.0
+        u8 = torch.round(img * 255.0).to(torch.uint8)
+        if gather:
+            u8 = collectives.all_gather(u8, self._group(), dim=0)
+        return u8.cpu().numpy().astype(np.float32) / 255.0
 
     def _screened(self, images: np.ndarray) -> PipelineOutput:
         """The decoded images through the safety checker, if there is one:
@@ -502,6 +653,7 @@ class BlobNetPipeline:
                 "package (the torch reference would re-inject 'latents')")
 
     @torch.inference_mode()
+    @_with_profiles
     def __call__(self, prompt=None, fg_image=None, bg_image=None,
                  gs_score=None, height: int = 512, width: int = 512,
                  num_inference_steps: int = 50, guidance_scale: float = 7.5,
@@ -558,7 +710,11 @@ class BlobNetPipeline:
         cross_attention_kwargs: only {"scale": s}, the runtime LoRA scale
         (``set_lora_scale``). callback_on_step_end: cb(pipe, i, t,
         {"latents": ndarray}) after the sampler's step i when i %
-        callback_interval == 0 and after the last step; read-only."""
+        callback_interval == 0 and after the last step; read-only.
+
+        Sharded (``shard_to_mesh``): every rank calls it with the same
+        arguments; a seed left None is rank 0's draw. Under the hybrid
+        recipe a cfg_guidance interval is refused."""
         if ip_adapter_image is not None or ip_adapter_image_embeds is not None:
             raise NotImplementedError(
                 "IP-Adapter conditioning is not supported (the reference "
@@ -597,6 +753,21 @@ class BlobNetPipeline:
         dev = self.device
         do_cfg = guidance_scale > 1.0
         h, w = height // 8, width // 8
+        # the argument checks come before the first collective (the seed
+        # broadcast), so a sharded edit refused here leaves the ranks in step
+        cfg_mask = blobnet_keep_schedule(num_inference_steps,
+                                         cfg_guidance_start,
+                                         cfg_guidance_end) > 0.0
+        if do_cfg and not cfg_mask.all() and self._hybrid_cfg_data:
+            raise ValueError(
+                "cfg_guidance interval is incompatible with the hybrid "
+                "CFG-data sharding recipe (cond-only steps drop the CFG "
+                "batch dim the recipe shards over)")
+        if do_cfg and not cfg_mask.all() and encoder_cache_interval > 1:
+            raise ValueError(
+                "cfg_guidance interval cannot be combined with "
+                "encoder_cache_interval: the cached encoder state carries "
+                "the CFG batch dim that cond-only steps drop")
 
         if prompt is not None:
             batch_size = 1 if isinstance(prompt, str) else len(prompt)
@@ -608,9 +779,8 @@ class BlobNetPipeline:
         cfg_batch = pe.shape[0]
         n = batch_size * num_images_per_prompt
 
-        if seed is None:
-            seed = int.from_bytes(os.urandom(4), "little")
-        drawn, self._noise_draw = self._seed_noise(int(seed), (n, h, w, 4))
+        seed = self._agreed_seeds([seed])[0]
+        drawn, self._noise_draw = self._seed_noise(seed, (n, h, w, 4))
         if latents is None:
             latents = drawn
         latents = torch.as_tensor(np.asarray(latents, np.float32))
@@ -669,14 +839,6 @@ class BlobNetPipeline:
                                or i % encoder_cache_interval == 0
                                or i == num_inference_steps - 1
                                or cond_scales[i] != cond_scales[i - 1])
-        cfg_mask = blobnet_keep_schedule(num_inference_steps,
-                                         cfg_guidance_start,
-                                         cfg_guidance_end) > 0.0
-        if do_cfg and not cfg_mask.all() and encoder_cache_interval > 1:
-            raise ValueError(
-                "cfg_guidance interval cannot be combined with "
-                "encoder_cache_interval: the cached encoder state carries "
-                "the CFG batch dim that cond-only steps drop")
         callback = None
         if callback_on_step_end is not None:
             self._step_callback_warned = False
@@ -695,6 +857,7 @@ class BlobNetPipeline:
         return self._screened(self._decode_images(final, vae_params))
 
     @torch.inference_mode()
+    @_with_profiles
     def edit_batch(self, requests: List[dict], height: int = 512,
                    width: int = 512, num_inference_steps: int = 50,
                    guidance_scale: float = 7.5,
@@ -722,11 +885,22 @@ class BlobNetPipeline:
         of batched operations. The 2B images go through one VAE encode
         (the conditioning-latent memo stays off: a serving batch's images
         differ), the DINOv2 cache misses through one encode. The safety
-        checker, if any, screens the B images, one flag each."""
-        n = len(requests)
-        if n == 0:
+        checker, if any, screens the B images, one flag each.
+
+        Sharded with a data group (``shard_to_mesh``): when B divides it,
+        each data rank runs its contiguous rows and the images are gathered
+        (else every data rank runs all B); seeds left None are rank 0's
+        draws. Every rank calls it with the same requests."""
+        if not requests:
             raise ValueError("edit_batch needs at least one request")
         sched = make_scheduler(scheduler, num_inference_steps)
+        seeds = self._agreed_seeds([r.get("seed") for r in requests])
+        requests = [dict(r, seed=s) for r, s in zip(requests, seeds)]
+        rows = None if self._hybrid_cfg_data else self._data_rows(
+            len(requests))
+        if rows is not None:
+            requests = [requests[i] for i in rows]
+        n = len(requests)
         dev = self.device
         do_cfg = guidance_scale > 1.0
         h, w = height // 8, width // 8
@@ -753,10 +927,7 @@ class BlobNetPipeline:
 
         lats, draws = [], []
         for r in requests:
-            seed = r.get("seed")
-            if seed is None:
-                seed = int.from_bytes(os.urandom(4), "little")
-            lat, draw = self._seed_noise(int(seed), (1, h, w, 4))
+            lat, draw = self._seed_noise(r["seed"], (1, h, w, 4))
             lats.append(lat)
             draws.append(draw)
         latents = torch.cat(lats).to(dev)
@@ -833,8 +1004,11 @@ class BlobNetPipeline:
             fg_feats, cond_scales, float(guidance_scale), do_cfg,
             np.ones(num_inference_steps, bool), None, None)
         if output_type == "latent":
+            if rows is not None:
+                final = collectives.all_gather(final, self._group(), dim=0)
             return PipelineOutput(images=final.cpu().numpy())
-        return self._screened(self._decode_images(final, vae_params))
+        return self._screened(self._decode_images(final, vae_params,
+                                                  gather=rows is not None))
 
     def _denoise(self, sched, latents, pe, fg_lat, bg_lat, fg_score,
                  bg_score, fg_feats, cond_scales, guidance_scale, do_cfg,
@@ -843,7 +1017,12 @@ class BlobNetPipeline:
         UNet encoder (all True without the encoder cache); on the others
         the last key step's (x_mid, skips, up residuals) feed the decoder.
         cfg_mask (S,) or None: steps under CFG; on the others the UNet runs
-        the conditional rows alone."""
+        the conditional rows alone.
+
+        Hybrid recipe: this rank's UNet runs its data group's share of the
+        CFG rows (all of them when they do not divide it), and the noise
+        predictions are gathered over the group before the guidance
+        combine; BlobNet runs at the edit batch on every rank."""
         dtype = self.dtype
         ucfg, bcfg = self.unet_cfg, self.blobnet_cfg
         unet_params = self._conv_params("unet_params")
@@ -858,6 +1037,12 @@ class BlobNetPipeline:
 
         def crop_right(r):
             return r[:, :, r.shape[2] - r.shape[1]:, :]
+
+        cfg_rows = (self._data_rows(pe.shape[0])
+                    if self._hybrid_cfg_data and do_cfg else None)
+
+        def local(x):  # this rank's CFG rows under the hybrid recipe
+            return x if cfg_rows is None else x[cfg_rows.start:cfg_rows.stop]
 
         def blobnet(i, t, sample_d):
             """BlobNet's cropped residuals at the edit batch, or None
@@ -887,20 +1072,25 @@ class BlobNetPipeline:
             down = mid = up = None
             if res is not None:
                 def rep(r):
-                    return torch.cat([r] * (rows // n), 0) if rows > n else r
+                    return local(torch.cat([r] * (rows // n), 0)
+                                 if rows > n else r)
                 down = [rep(r) for r in res[0]]
                 mid = rep(res[1])
                 up = [rep(r) for r in res[2]]
             x_mid, skips = unet_lib.unet_encode(
-                unet_params, ucfg, unet_in, t, context,
+                unet_params, ucfg, local(unet_in), t, local(context),
                 down_block_add_samples=down, mid_block_add_sample=mid)
             return x_mid, skips, up
 
         def decode(t, enc, context):
             x_mid, skips, up = enc
             out = unet_lib.unet_decode(unet_params, ucfg, x_mid, skips, t,
-                                       context, up_block_add_samples=up)
-            return out[:, :, out.shape[2] // 2:, :].float()
+                                       local(context),
+                                       up_block_add_samples=up)
+            out = out[:, :, out.shape[2] // 2:, :].float()
+            if cfg_rows is not None:  # the tiny gather at the combine
+                out = collectives.all_gather(out, self._group(), dim=0)
+            return out
 
         if isinstance(sched, unipc_lib.UniPCSchedule):
             state = unipc_lib.init_state(sched, latents)

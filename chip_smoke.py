@@ -212,7 +212,33 @@ script exits non-zero:
         UNet LoRA target the fp32 merge then the cast; one
         CLI_EDIT_STEPS-step edit from the copy, K1 and K6 on the tensor
         cores; each stage's seconds printed.
-  9. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
+  9. Parallel (``blobctrl_torch/parallel``), after phase 8: ranks spawned
+     on this one card (``cuda:0``), over gloo by explicit argument (NCCL
+     refuses two ranks on one device), a group of 2 and then one of 4;
+     each rank zeroes its launch counters and collective log just before
+     each run and reads them just after. The ranks share one card and
+     their collectives go through host memory: the seconds are for
+     information only.
+     a. The trained 256^2 toy (fp32, 20 steps) against the same edit
+        unsharded on the card, >= 40 dB each: model=2 ``__call__`` (the
+        move edit), data=2 ``edit_batch`` of 4 rows (each row against its
+        unsharded batched row), hybrid 2 x 2. On every rank K1 and K6
+        launched, at shapes the unsharded edit never launched (local heads
+        and channels, local rows); the collective log equals
+        ``collectives.expected_counts``; in the hybrid run BlobNet's
+        residuals bit-equal on all four ranks at every step.
+     b. Full width, phase 4's configuration (bf16, random weights):
+        model=2 and hybrid 2 x 2, a PARALLEL_FULL_STEPS-step exact edit
+        each: every K1 and K6 launch on the tensor cores, the collective
+        log equal to the derived count; each model=2 rank's peak memory
+        below the unsharded edit's (the full trees stay in host memory);
+        the PSNR against the unsharded edit (information), each rank's
+        peak memory, the collectives a step (calls, bytes, seconds inside
+        them) and the seconds an edit.
+     c. Every K1/K3/K5/K6/K8/K11/K12 shape that one-step full-width edits
+        at model=2 and model=4 launch in each mode, not already checked in
+        phase 2, checked under phase 2's bars in bf16 and fp32.
+ 10. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those
      shapes, and the whole run's seconds.
@@ -221,7 +247,9 @@ Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
 kernels' from the exact requests, the int8 kernels' from the int8 one, the
 fused-kernel edit's four from the fused one), ``served_launches`` phase
 7's, ``train_launches`` phase 8c's (K1 and K6; their
-``train_max_abs_err`` is 8a's worst forward or gradient error);
+``train_max_abs_err`` is 8a's worst forward or gradient error),
+``parallel_launches`` phase 9's (9a, 9b and 9c's one-step edits in
+every mode), summed over the ranks;
 the splat's from phase 5 (its views), with ``device_ms`` beside its wall
 ``ms``;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
@@ -3072,6 +3100,356 @@ def training_phase(models_root: str, work: str):
     return errs, totals
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the edit sharded over ranks that share the one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_TOY_STEPS = 20   # 9a's toy edits
+PARALLEL_FULL_STEPS = 4   # 9b's full-width edits
+PARALLEL_BATCH = 4        # 9a's edit_batch rows
+PARALLEL_TIMEOUT_S = 600.0  # the ranks' collective timeout and our wait
+PARALLEL_BAR_DB = 40.0
+# rank groups: (world, [job, ...]); every rank of a group runs its jobs
+PARALLEL_GROUPS = ((2, ("toy_model", "toy_data", "full_model",
+                        "shapes_model2")),
+                   (4, ("toy_hybrid", "full_hybrid", "shapes_model4")))
+_RANK = {}  # a rank process's pipelines, loaded once
+
+
+def parallel_toy_requests():
+    """9a's edit_batch: PARALLEL_BATCH toy requests (their own ellipses and
+    seeds) and the shared sampler arguments."""
+    from blobctrl_torch.blob import math as blob_math
+    move = toy_edits(256, PARALLEL_TOY_STEPS)["move"]
+    shared = {k: move[k] for k in ("height", "width", "num_inference_steps",
+                                   "guidance_scale")}
+    reqs = []
+    for b in range(PARALLEL_BATCH):
+        dst = ((256 * (0.5 + 0.05 * b), 256 * 0.55), (77.0, 102.0),
+               20.0 + 30 * b)
+        reqs.append(dict(
+            {k: move[k] for k in ("fg_image", "bg_image", "prompt_embeds",
+                                  "negative_prompt_embeds",
+                                  "fg_dino_feats")},
+            gs_score=blob_math.blob_score_from_ellipse(
+                dst, 256, 256, (32, 32)).numpy(), seed=40 + b))
+    return reqs, shared
+
+
+def parallel_edits():
+    """-> {"toy": the move edit, "full": phase 4's standard edit at
+    PARALLEL_FULL_STEPS steps, "one_step": phase 2's one-step edit}, seeded,
+    so no rank draws a seed of its own."""
+    from blobctrl_torch.utils import benchkit
+    return {"toy": dict(toy_edits(256, PARALLEL_TOY_STEPS)["move"], seed=0),
+            "full": dict(benchkit.standard_edit_kwargs(
+                512, PARALLEL_FULL_STEPS), seed=0),
+            "one_step": dict(benchkit.standard_edit_kwargs(512, 1),
+                             blobnet_control_guidance_end=1.0, seed=0)}
+
+
+def _rank_pipe(which):
+    from blobctrl_torch.train import toy
+    from blobctrl_torch.utils import benchkit
+    if which not in _RANK:
+        _RANK.clear()   # the peak memory a rank reports is this pipe's
+        gc.collect()
+        torch.cuda.empty_cache()
+        if which == "toy":
+            _RANK[which], _ = toy.load_toy(
+                os.path.join(ROOT, "assets", "toy_ckpt_256"), device="cuda",
+                dtype=torch.float32)
+        else:
+            _RANK[which] = benchkit.make_flagship_pipe(
+                seed=0, device="cuda", dtype=torch.bfloat16)
+    return _RANK[which]
+
+
+def _sharded_run(which, shape, recipe, fn, digests=False):
+    """Shard rank pipeline ``which`` by ``recipe`` over a mesh of ``shape``
+    and run ``fn(pipe)``, the launch counters and the collective log zeroed
+    just before and read just after. -> what this rank saw."""
+    import hashlib
+    from blobctrl_torch import ops
+    from blobctrl_torch.models import blobnet as blobnet_lib
+    from blobctrl_torch.parallel import collectives
+    from blobctrl_torch.parallel import mesh as mesh_lib
+    pipe = _rank_pipe(which)
+    pipe.shard_to_mesh(mesh_lib.make_mesh(**shape),
+                       model_parallel=recipe != "data",
+                       hybrid_cfg_data=recipe == "hybrid")
+    seen, apply = [], blobnet_lib.blobnet_apply
+    if digests:   # BlobNet's residuals, hashed step by step
+        def hashed(*a, **k):
+            res = apply(*a, **k)
+            h = hashlib.blake2b(digest_size=8)
+            for r in list(res[0]) + [res[1]] + list(res[2]):
+                h.update(r.float().cpu().numpy().tobytes())
+            seen.append(h.hexdigest())
+            return res
+        blobnet_lib.blobnet_apply = hashed
+    try:
+        collectives.barrier()  # every rank built and sharded: start together
+        ops.reset_counts()
+        collectives.reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(pipe)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        blobnet_lib.blobnet_apply = apply
+    return {"images": out, "secs": secs, "launches": launch_counts(),
+            "tc": tensor_core_counts(),
+            "shapes": {k: dict(v) for k, v in launch_shapes().items()},
+            "collectives": collectives.summary(),
+            "counts": collectives.counts(), "digests": seen,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _rank_job(job):
+    edits = parallel_edits()
+    if job == "toy_model":
+        return _sharded_run("toy", {"data": 1, "model": 2}, "model",
+                            lambda p: p(**edits["toy"]).images)
+    if job == "toy_hybrid":
+        return _sharded_run("toy", {"data": 2, "model": 2}, "hybrid",
+                            lambda p: p(**edits["toy"]).images, digests=True)
+    if job == "toy_data":
+        reqs, shared = parallel_toy_requests()
+        return _sharded_run("toy", {"data": 2, "model": 1}, "data",
+                            lambda p: p.edit_batch(reqs, **shared).images)
+    if job in ("full_model", "full_hybrid"):
+        shape = ({"data": 1, "model": 2} if job == "full_model"
+                 else {"data": 2, "model": 2})
+        return _sharded_run("full", shape, job[5:],
+                            lambda p: p(**edits["full"]).images)
+
+    def one_step_each_mode(pipe):
+        for mode in MODES:
+            with mode_context(mode):
+                pipe(**edits["one_step"])
+            pipe._param_cache.clear()  # the mode's derived weights
+        return None
+    model = 2 if job == "shapes_model2" else 4
+    return _sharded_run("full", {"data": 1, "model": model}, "model",
+                        one_step_each_mode)
+
+
+def _rank_main(rank, world, port, jobs, out):
+    """One rank of a phase-9 group: every rank on cuda:0, over gloo."""
+    import traceback
+    try:
+        sys.path.insert(0, ROOT)
+        from blobctrl_torch.parallel import multihost
+        multihost.initialize(f"127.0.0.1:{port}", world, rank,
+                             device="cuda:0", backend="gloo",
+                             timeout_s=PARALLEL_TIMEOUT_S)
+        try:
+            out.put((rank, "ok", {job: _rank_job(job) for job in jobs}))
+        finally:
+            multihost.shutdown()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def spawn_ranks(world: int, jobs):
+    """Run ``jobs`` on ``world`` spawned ranks; -> their results in rank
+    order. A rank that fails or dies fails the phase; every process is
+    joined, or killed, before this returns."""
+    import multiprocessing
+    import queue
+    from blobctrl_torch.parallel import multihost
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = multihost.free_port()
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, jobs, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        while len(got) < world:
+            try:
+                rank, status, value = out.get(timeout=5.0)
+            except queue.Empty:
+                if time.monotonic() > deadline or any(
+                        p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(
+                        f"ranks {sorted(set(range(world)) - set(got))} "
+                        f"gave no result (exit codes "
+                        f"{[p.exitcode for p in procs]})")
+                continue
+            if status != "ok":
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(30.0)
+            if p.is_alive():
+                p.kill()
+                p.join(10.0)
+    return [got[r] for r in range(world)]
+
+
+def _local(run, name, reference_keys):
+    """Launch keys of kernel ``name`` that the unsharded run never had."""
+    return set(run["shapes"][name]) - set(reference_keys[name])
+
+
+def parallel_phase(results):
+    """Phase 9. ``results``: phase 2's checked shapes, extended with the
+    local shapes found here. -> {kernel: launches of the sharded edits,
+    summed over ranks}."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.parallel import collectives
+    from blobctrl_torch.train import toy
+    from blobctrl_torch.utils import benchkit
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # fp32 references in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    edits = parallel_edits()
+    card, _ = toy.load_toy(os.path.join(ROOT, "assets", "toy_ckpt_256"),
+                           device="cuda", dtype=torch.float32)
+    ops.reset_counts()
+    ref_toy = card(**edits["toy"]).images
+    keys_toy = launch_shapes()
+    ops.reset_counts()
+    reqs, shared = parallel_toy_requests()
+    ref_batch = card.edit_batch(reqs, **shared).images
+    keys_batch = launch_shapes()
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()   # what earlier phases still hold
+    flag = benchkit.make_flagship_pipe(seed=0, device="cuda",
+                                       dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    ref_full, secs_full = timed(lambda: flag(**edits["full"]).images)
+    peak_full = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del flag
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  the unsharded references on the card: the toy move edit, the "
+        f"toy batch of {PARALLEL_BATCH}, the full-width edit "
+        f"({PARALLEL_FULL_STEPS} steps, {secs_full:.3f} s, peak memory "
+        f"{peak_full:.2f} GiB)")
+    log("  the ranks below share this ONE card over gloo (collectives go "
+        "through host memory): their seconds say nothing of the recipes' "
+        "speed on one card a rank over NCCL, and are for information only")
+    runs = {}
+    for world, jobs in PARALLEL_GROUPS:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(world, jobs)
+        log(f"  {world} ranks on cuda:0 ran {', '.join(jobs)} in "
+            f"{time.perf_counter() - t0:.1f} s (spawn, load and shard "
+            f"included)")
+        for job in jobs:
+            runs[job] = [r[job] for r in ranks]
+    ucfg, bcfg, vcfg = toy.toy_configs(size=256)
+    from blobctrl_torch.apps import flagship
+    from blobctrl_torch.pipeline.blobnet_pipeline import blobnet_keep_schedule
+    fcfg = (flagship.sd15_unet_config(), flagship.blobctrl_blobnet_config(),
+            flagship.sd15_vae_config())
+    blobnet_steps = int(blobnet_keep_schedule(   # BlobNet's control window
+        PARALLEL_FULL_STEPS, 0.0,
+        edits["full"]["blobnet_control_guidance_end"]).sum())
+    launched = collections.Counter()
+    # 9a: the trained toy, fp32, against the same edit unsharded on the card
+    for job, shape, recipe, ref, keys in (
+            ("toy_model", {"data": 1, "model": 2}, "model", ref_toy,
+             keys_toy),
+            ("toy_data", {"data": 2, "model": 1}, "data", ref_batch,
+             keys_batch),
+            ("toy_hybrid", {"data": 2, "model": 2}, "hybrid", ref_toy,
+             keys_toy)):
+        expected = collectives.expected_counts(
+            ucfg, bcfg, vcfg, shape, recipe, PARALLEL_TOY_STEPS,
+            data_split=recipe == "data")
+        for rank, run in enumerate(runs[job]):
+            rows = [psnr(run["images"][b:b + 1], ref[b:b + 1])
+                    for b in range(ref.shape[0])]
+            local = {k: len(_local(run, k, keys)) for k in EXACT}
+            log(f"  9a {job} rank {rank}: PSNR against the unsharded card "
+                f"edit {', '.join(f'{p:.2f}' for p in rows)} dB; launches "
+                f"{ {k: run['launches'][k] for k in EXACT} }, shapes the "
+                f"unsharded edit never launched {local}; collectives "
+                f"{run['counts']}")
+            if not min(rows) >= PARALLEL_BAR_DB:
+                raise AssertionError(f"{job} rank {rank}: {rows} dB")
+            if min(local.values()) == 0 or min(
+                    run["launches"][k] for k in EXACT) == 0:
+                raise AssertionError(f"{job} rank {rank}: K1 or K6 not at "
+                                     f"local shapes: {local}")
+            if run["counts"] != expected:
+                raise AssertionError(f"{job} rank {rank}: collectives "
+                                     f"{run['counts']} != {expected}")
+            launched.update({k: run["launches"][k] for k in EXACT})
+    digests = [run["digests"] for run in runs["toy_hybrid"]]
+    if len(digests[0]) != PARALLEL_TOY_STEPS or any(
+            d != digests[0] for d in digests):
+        raise AssertionError("hybrid: BlobNet's residuals differ across "
+                             "ranks")
+    log(f"  9a hybrid: BlobNet's residuals bit-equal on all 4 ranks at "
+        f"every one of {PARALLEL_TOY_STEPS} steps")
+    # 9b: full width, bf16, random weights
+    for job, shape in (("full_model", {"data": 1, "model": 2}),
+                       ("full_hybrid", {"data": 2, "model": 2})):
+        recipe = job[5:]
+        expected = collectives.expected_counts(
+            *fcfg, shape, recipe, PARALLEL_FULL_STEPS,
+            blobnet_steps=blobnet_steps)
+        for rank, run in enumerate(runs[job]):
+            check_tensor_cores(f"9b {job} rank {rank}", run["launches"],
+                               EXACT, run["tc"])
+            if run["counts"] != expected:
+                raise AssertionError(f"{job} rank {rank}: collectives "
+                                     f"{run['counts']} != {expected}")
+            summ = run["collectives"]
+            step = {op: [sum(summ.get(s, {}).get(op, {}).get(f, 0)
+                             for s in ("unet", "blobnet", "pipeline"))
+                         for f in ("count", "bytes", "seconds")]
+                    for op in ("all_reduce", "all_gather")}
+            vae = {op: [c[f] for f in ("count", "bytes", "seconds")]
+                   for op, c in summ.get("vae", {}).items()}
+            n = PARALLEL_FULL_STEPS
+            log(f"  9b {job} rank {rank}: PSNR against the unsharded edit "
+                f"{psnr(run['images'], ref_full):.2f} dB (for information), "
+                f"peak memory {run['peak_gib']:.2f} GiB, launches "
+                f"{ {k: run['launches'][k] for k in EXACT} }")
+            for op, (c, b, sec) in step.items():
+                log(f"    {op} a step (UNet, BlobNet, the pipeline's): "
+                    f"{c / n:.1f} calls, {b / n / 2 ** 20:.1f} MiB, "
+                    f"{sec / n:.3f} s inside them")
+            log(f"    the VAE's (once an edit): " + ", ".join(
+                f"{op} {c} calls {b / 2 ** 20:.1f} MiB {sec:.3f} s"
+                for op, (c, b, sec) in vae.items()))
+            log(f"    seconds an edit, ranks sharing one card over gloo "
+                f"(information only): {run['secs']:.3f}")
+            if job == "full_model" and not run["peak_gib"] < peak_full:
+                raise AssertionError(
+                    f"{job} rank {rank}: peak {run['peak_gib']:.2f} GiB, "
+                    f"not below the unsharded edit's {peak_full:.2f} GiB")
+            launched.update({k: run["launches"][k] for k in EXACT})
+    # 9c: phase 2's bars at every local shape the one-step edits launched
+    new = collections.defaultdict(set)
+    for job in ("shapes_model2", "shapes_model4"):
+        for run in runs[job]:
+            launched.update(run["launches"])  # every mode's kernels
+            for name, per in run["shapes"].items():
+                if name in results:
+                    new[name] |= set(per) - set(results[name])
+    log("  9c: local shapes of one-step edits at model=2 and model=4, each "
+        "mode, not checked in phase 2: " + ", ".join(
+            f"{k} {len(v)}" for k, v in sorted(new.items())))
+    for name, rows in check_kernels(dict(new), timing=False).items():
+        results[name].update(rows)
+    log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launched)
+
+
 T_START = time.perf_counter()
 
 
@@ -3255,6 +3633,13 @@ def main() -> int:
     train_errs, trained = training_phase(models_root, work.name)
 
     # -- phase 9 ------------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 9: the edit sharded over ranks that share this card over "
+        "gloo: the toy and full width at model=2, data=2 and hybrid 2 x 2")
+    parallel = parallel_phase(results)
+
+    # -- phase 10 -----------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
                                 "blobctrl_tpu/ops/flash_attention.py:80"),
             "conv3x3": ("blobctrl_torch/csrc/conv3x3.cu",
@@ -3290,6 +3675,7 @@ def main() -> int:
                  "replaces": replaces, "launches": totals[name],
                  "served_launches": served.get(name, 0),
                  "train_launches": trained.get(name, 0),
+                 "parallel_launches": parallel.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"]
                                     for r in results[name].values())}
         if name in train_errs:  # the Function's forward and gradients

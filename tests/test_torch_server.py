@@ -13,8 +13,8 @@ Then the port alone: a ``max_batch=4`` server runs four concurrent
 compatible requests as one batch, each equal to its solo edit to the bar;
 an error inside a batch reaches every waiter and the batcher survives; a
 preview request returns its thumbnails and ``/v1/progress`` shows the
-edit's steps while it runs; ``main`` refuses ``--mesh`` and, without CUDA,
-the card."""
+edit's steps while it runs; ``main`` refuses a ``--mesh`` of more ranks
+than cards and, without CUDA, the card."""
 
 import base64
 import dataclasses
@@ -358,8 +358,9 @@ def test_preview_and_progress(pipes):
 
 
 def test_main_refuses_mesh_and_needs_the_card(monkeypatch):
-    with pytest.raises(SystemExit):
-        tserver.main(["--mesh", "data=2,model=1"])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(SystemExit, match="needs 2 cards"):
+            tserver.main(["--mesh", "data=2,model=1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tserver.main(["--models_root", "nowhere", "--no_warmup"])

@@ -1,0 +1,217 @@
+"""Run a function on several gloo ranks on the CPU, for the parallel tests.
+
+``run_ranks(target, world, *args)`` spawns ``world`` processes (spawn: the
+way the entry points start theirs), each joining one gloo group over
+127.0.0.1 with a 120 s collective timeout, and calls ``target(mesh_shape,
+*args)`` in each (``target`` must live in an importable module that does
+not import JAX: every rank imports it). Returns each rank's result in rank
+order. The whole group has its own deadline: a rank that raises, dies or
+hangs fails the call within ``timeout`` seconds, and every process is
+joined or killed before it returns.
+
+The rank targets below build the toy pipelines and blocks of the tests and
+report what each rank saw: its outputs, its collective log and its kernel
+launch shapes (recorded by spies on the wrappers, since on the CPU the
+wrappers take their plain versions and count nothing).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import multiprocessing
+import queue
+import time
+import traceback
+
+import numpy as np
+
+GROUP_TIMEOUT_S = 120.0
+
+
+def _rank_main(rank, world, port, target, args, out):
+    try:
+        import torch
+        torch.set_num_threads(1)
+        from blobctrl_torch.parallel import multihost
+        multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cpu",
+                             backend="gloo", timeout_s=GROUP_TIMEOUT_S)
+        try:
+            out.put((rank, "ok", target(*args)))
+        finally:
+            multihost.shutdown()
+    except BaseException:  # noqa: BLE001 — report, then exit
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def run_ranks(target, world: int, *args, timeout: float = 240.0):
+    from blobctrl_torch.parallel import multihost
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = multihost.free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, port, target, args, out),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        deadline = time.monotonic() + timeout
+        while len(results) + len(errors) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{world} ranks did not finish within "
+                                   f"{timeout} s ({sorted(results)} did)")
+            try:
+                rank, status, value = out.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead and not any(p.is_alive() for p in procs):
+                    raise RuntimeError(f"ranks died: "
+                                       f"{[p.exitcode for p in procs]}")
+                continue
+            if status == "ok":
+                results[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [results[r] for r in range(world)]
+    finally:
+        for p in procs:
+            p.join(10.0)
+            if p.is_alive():
+                p.kill()
+                p.join(5.0)
+
+
+# ---------------------------------------------------------------------------
+# rank targets
+# ---------------------------------------------------------------------------
+
+def spy_launch_shapes():
+    """Record the input shapes of every K1/K5 (flash, exact and int8) and
+    K6/K8 (conv3x3, exact and int8) call, which on the CPU go to their plain
+    versions: {name: [shapes, ...]}."""
+    from blobctrl_torch.ops import conv3x3, flash_attention
+    seen = {"flash": [], "flash_int8": [], "conv3x3": [], "conv3x3_int8": []}
+
+    def spy(mod, attr, name):
+        real = getattr(mod, attr)
+
+        def wrapper(a, b, *rest, **kw):
+            seen[name].append((tuple(a.shape), tuple(b.shape)))
+            return real(a, b, *rest, **kw)
+        setattr(mod, attr, wrapper)
+    spy(flash_attention, "_flash_forward", "flash")
+    spy(flash_attention, "_int8_forward", "flash_int8")
+    spy(conv3x3, "_conv3x3_forward", "conv3x3")
+    spy(conv3x3, "_int8_forward", "conv3x3_int8")
+    return seen
+
+
+def _mesh(shape):
+    from blobctrl_torch.parallel import mesh as mesh_lib
+    return mesh_lib.make_mesh(**shape)
+
+
+def _tensor(x):
+    import torch
+    return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def block_rank(shape, axes, cases):
+    """Blocks on local slices, one case after another: (kind, params,
+    inputs, heads, groups) with kind "resnet" (x, temb), "transformer" (x,
+    context) or "vae_mid" (x). -> [(output, collective counts)] a case."""
+    import torch
+    from blobctrl_torch.models import vae
+    from blobctrl_torch.nn import attention, resnet
+    from blobctrl_torch.params.from_jax import from_jax
+    from blobctrl_torch.parallel import collectives
+    from blobctrl_torch.parallel import kernel_sharding as ks
+    from blobctrl_torch.parallel import mesh as mesh_lib
+    mesh = _mesh(shape)
+    prof = {"m": ks.KernelProfile(mesh, model=axes)}
+    out = []
+    for kind, params_np, inputs_np, heads, groups in cases:
+        local = mesh_lib.shard_params(mesh, from_jax(params_np, device="cpu"),
+                                      True, axes, heads, groups)
+        x = [_tensor(a) if a is not None else None for a in inputs_np]
+        collectives.reset()
+        with torch.no_grad(), ks.activate(prof), ks.scope("m"):
+            if kind == "resnet":
+                y = resnet.resnet_block(local, x[0], x[1], groups)
+            elif kind == "transformer":
+                y = attention.transformer_block(local, x[0], heads, x[1])
+            else:
+                y = vae._mid_block(local, x[0], groups)
+        out.append((y.numpy(), collectives.counts()))
+    return out
+
+
+TOY = {"128": "assets/toy_ckpt", "256": "assets/toy_ckpt_256"}
+
+
+def edit_rank(shape, toy, method, kwargs, recipe, modes=(),
+              latents_by_seed=None):
+    """The toy pipeline sharded by ``recipe`` ("model", "data" or
+    "hybrid"), then ``pipe.method(**kwargs)`` (edit_batch takes
+    kwargs["requests"]). modes: "int8" runs it in the int8-everything
+    mode. latents_by_seed: {seed: initial latents} in place of the port's
+    draws (for deterministic samplers). -> dict(images, counts, shapes,
+    digests: BlobNet's residuals of every step, hashed)."""
+    import hashlib
+    import torch
+    from blobctrl_torch.models import blobnet as blobnet_lib
+    from blobctrl_torch.parallel import collectives
+    from blobctrl_torch.train import toy as ttoy
+    from blobctrl_torch.utils import benchkit
+    pipe, _ = ttoy.load_toy(TOY[toy], device="cpu")
+    mesh = _mesh(shape)
+    pipe.shard_to_mesh(mesh, model_parallel=recipe in ("model", "hybrid"),
+                       hybrid_cfg_data=recipe == "hybrid")
+    if latents_by_seed is not None:
+        def seed_noise(seed, shape):
+            lat = torch.as_tensor(np.asarray(latents_by_seed[seed],
+                                             np.float32)).reshape(shape)
+            return lat, lambda i, s: torch.zeros(tuple(s))
+        pipe._seed_noise = seed_noise
+    seen = spy_launch_shapes()
+    digests = []
+    apply = blobnet_lib.blobnet_apply
+
+    def blob(*a, **k):
+        res = apply(*a, **k)
+        h = hashlib.blake2b(digest_size=8)
+        for r in list(res[0]) + [res[1]] + list(res[2]):
+            h.update(r.float().numpy().tobytes())
+        digests.append(h.hexdigest())
+        return res
+    blobnet_lib.blobnet_apply = blob
+    collectives.reset()
+    kw = dict(kwargs)
+    ctx = (benchkit.int8_everything() if "int8" in modes
+           else contextlib.nullcontext())
+    with ctx, torch.no_grad():
+        if method == "edit_batch":
+            out = pipe.edit_batch(kw.pop("requests"), **kw)
+        else:
+            out = pipe(**kw)
+    return {"images": out.images, "counts": collectives.counts(),
+            "shapes": seen, "digests": digests}
+
+
+
+def replicate_rank(shape):
+    """Rank-dependent leaves through ``multihost.replicate`` and ``fetch``
+    (then a barrier). -> (fetched tree, rows this rank owns of 4,
+    collective counts)."""
+    import torch
+    from blobctrl_torch.parallel import collectives, multihost
+    rank = multihost.process_index()
+    collectives.reset()
+    tree = multihost.replicate({"a": torch.full((3,), float(rank)),
+                                "b": [torch.arange(2) + rank], "c": 7})
+    multihost.barrier("after replicate")
+    return (multihost.fetch(tree), list(multihost.local_rows(4)),
+            collectives.counts())
