@@ -1,6 +1,7 @@
 """Training entry point of the PyTorch port: BlobNet + UNet-LoRA
-self-supervised fine-tuning on one device (counterpart of
-``blobctrl_tpu/apps/train_cli.py``), bf16 compute over fp32 masters.
+self-supervised fine-tuning (counterpart of
+``blobctrl_tpu/apps/train_cli.py``), bf16 compute over fp32 masters, on
+one device or data-parallel over several.
 
 Data layout: --data_root with
   images/NAME.png   RGB images, PNG or JPEG (resized and cropped to --size)
@@ -10,11 +11,22 @@ Data layout: --data_root with
 Usage:
   python -m blobctrl_torch.apps.train_cli --models_root models \\
       --data_root data --batch_size 8 --steps 1000 --ckpt_dir ckpts \\
-      [--device cpu]
+      [--device cpu] [--data_parallel N]
 
-Multi-process and multi-device training (--coordinator, --num_processes,
---process_id, --data_parallel > 1) needs data-parallel training, which the
-port does not have yet (ROADMAP item 17b): those flags are refused.
+Data-parallel training: ``--data_parallel N`` (0, the default: every
+visible card; 1 on the CPU) runs N ranks from this process, which is rank
+0 and spawns the others: one card a rank over NCCL, or gloo with
+``--device cpu``. On several hosts run the SAME command on every host with
+``--coordinator host:port --num_processes N --process_id i`` (nccl on the
+card, gloo on the CPU; bare ``--device cuda`` puts rank i on ``cuda:i``,
+so a host whose ranks do not start at 0 names its card, ``cuda:K``). The
+spawned form takes bare ``cuda``; ``--device cuda:K`` alone trains one
+rank on that card.
+--batch_size is per rank: each rank loads a disjoint stride of the data
+set, t and noise are drawn for the global batch and each rank keeps its
+rows, and the gradients are averaged over the ranks before the clip. Rank
+0 narrates, writes the checkpoints (then every rank meets at a barrier),
+reads them on --resume (then broadcasts the state) and exports.
 """
 
 from __future__ import annotations
@@ -27,7 +39,9 @@ import time
 import numpy as np
 import torch
 
+from blobctrl_torch import resolve_device
 from blobctrl_torch.apps.cli import to_luma
+from blobctrl_torch.parallel import multihost
 from blobctrl_torch.utils import resample
 from blobctrl_torch.utils.image import read_image
 from blobctrl_torch.utils.observability import log_event
@@ -60,13 +74,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="one device only (0 or 1); more is ROADMAP item 17b")
+                   help="data-parallel ranks (0 = every visible card; 1 on "
+                        "the CPU); rank 0 spawns the others")
     p.add_argument("--coordinator", default=None,
-                   help="not available in the port yet (ROADMAP item 17b)")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="not available in the port yet (ROADMAP item 17b)")
-    p.add_argument("--process_id", type=int, default=None,
-                   help="not available in the port yet (ROADMAP item 17b)")
+                   help="host:port of rank 0 for explicit multi-host "
+                        "bring-up (with --num_processes and --process_id); "
+                        "omit for one host")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--export_dir", default=None,
                    help="export trained blobnet/lora in reference formats")
     return p
@@ -100,24 +115,115 @@ def load_dataset(data_root: str, size: int):
     return images, masks, [prompts.get(n, "") for n in names]
 
 
+def ranks(args):
+    """-> (world, backend, spawn): the data-parallel ranks the flags ask
+    for, the backend of their group (None for one rank) and whether this
+    process spawns ranks 1.. itself. A card named by index (``cuda:K``)
+    without --coordinator is one rank on that card. Inconsistent flags,
+    and more spawned ranks than visible cards, raise SystemExit before
+    anything loads."""
+    explicit = (args.coordinator, args.num_processes, args.process_id)
+    cuda = torch.device(args.device).type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    if any(x is not None for x in explicit):
+        if any(x is None for x in explicit):
+            raise SystemExit("--coordinator, --num_processes and "
+                             "--process_id go together")
+        n, i = args.num_processes, args.process_id
+        if n < 1 or not 0 <= i < n:
+            raise SystemExit(f"--process_id {i} is not a rank of "
+                             f"--num_processes {n}")
+        if args.data_parallel not in (0, n):
+            raise SystemExit(f"--data_parallel {args.data_parallel} with "
+                             f"--num_processes {n}: one rank a process, so "
+                             f"the data axis is {n} (or 0)")
+        return n, backend if n > 1 else None, False
+    if args.data_parallel < 0:
+        raise SystemExit(f"--data_parallel {args.data_parallel} < 0")
+    if cuda and torch.device(args.device).index is not None:
+        # one named card trains alone: spawned ranks go on cuda:0..N-1
+        if args.data_parallel > 1:
+            raise SystemExit(f"--data_parallel {args.data_parallel} puts "
+                             f"rank r on cuda:r: name --device cuda, not "
+                             f"{args.device}")
+        return 1, None, False
+    cards = torch.cuda.device_count() if cuda else 1
+    n = args.data_parallel or max(cards, 1)
+    if n > 1 and cuda and n > cards:
+        raise SystemExit(f"--data_parallel {n} needs {n} cards, one a rank; "
+                         f"{cards} are visible (--device cpu runs the ranks "
+                         f"over gloo)")
+    return n, backend if n > 1 else None, n > 1
+
+
 def run(args):
-    """Train as ``args`` say. -> the final train state."""
+    """Train as ``args`` say. -> the final train state (rank 0's)."""
+    world, backend, spawn = ranks(args)
+    if not spawn:
+        rank = args.process_id or 0
+        return run_rank(args, rank, world, args.coordinator, backend,
+                        args.device)
+    address = f"127.0.0.1:{multihost.free_port()}"
+    followers = multihost.Followers(_follower, world, address,
+                                    (args, backend))
+    err = None
+    try:
+        state = run_rank(args, 0, world, address, backend, args.device)
+    except (Exception, SystemExit) as e:  # reported with the ranks' codes
+        err = e
+    finally:
+        codes = followers.close()
+    if err is not None or any(c != 0 for c in codes):
+        raise SystemExit(f"data-parallel training failed: rank 0: "
+                         f"{'ok' if err is None else err}; ranks 1-"
+                         f"{world - 1}: exit codes {codes}") from err
+    return state
+
+
+def _follower(rank, world, address, conn, args, backend):
+    """Ranks 1.. of a spawned data-parallel run (the pipe stays unread)."""
+    run_rank(args, rank, world, address, backend, args.device)
+
+
+def run_rank(args, rank: int, world: int, address, backend, device):
+    """Rank ``rank`` of ``world`` data-parallel ranks, the whole run when
+    world is 1 (no group). -> the final train state."""
+    resolve_device(device)   # no CUDA: refused before the data is read
+    images, masks, prompt_texts = load_dataset(args.data_root, args.size)
+    # every rank refuses alike, before the group: a rank whose stride
+    # cannot fill a batch would leave the others waiting in a collective
+    if len(images) // world < args.batch_size:
+        raise SystemExit(f"{len(images)} examples over {world} ranks leave "
+                         f"{len(images) // world} a rank, fewer than "
+                         f"--batch_size {args.batch_size}")
+    if world == 1:
+        return _train(args, 0, 1, device, images, masks, prompt_texts)
+    # each rank loads a disjoint stride of the data set and feeds its rows
+    # of the global batch; --batch_size is per rank
+    device = multihost.initialize(address, world, rank, device=device,
+                                  backend=backend)
+    try:
+        log_event("multihost", process=rank, processes=world,
+                  local_examples=len(images[rank::world]))
+        return _train(args, rank, world, device, images[rank::world],
+                      masks[rank::world], prompt_texts[rank::world])
+    finally:
+        multihost.shutdown()
+
+
+def _train(args, rank, world, device, images, masks, prompt_texts):
+    """The training of one rank on its examples; rank 0 narrates, writes
+    and exports."""
     from blobctrl_torch.models import lora as lora_lib
     from blobctrl_torch.params import io as params_io
     from blobctrl_torch.train import checkpoint as ckpt_lib
     from blobctrl_torch.train import data as data_lib
     from blobctrl_torch.train import train_step as ts
 
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None or args.data_parallel > 1):
-        raise SystemExit("--coordinator, --num_processes, --process_id and "
-                         "--data_parallel > 1 need data-parallel training, "
-                         "which the port does not have yet (ROADMAP item "
-                         "17b)")
+    lead = rank == 0
     pipe = params_io.load_pipeline(args.models_root, dtype=torch.bfloat16,
-                                   device=args.device)
+                                   device=device)
     dev = pipe.device
-    images, masks, prompt_texts = load_dataset(args.data_root, args.size)
     log_event("dataset_loaded", examples=len(images))
     with torch.no_grad():
         pes = [pipe.encode_prompt(t, None, 1, do_cfg=False)[0].float()
@@ -132,7 +238,11 @@ def run(args):
                          lr_warmup_steps=args.lr_warmup_steps,
                          lr_schedule=args.lr_schedule,
                          lr_total_steps=args.steps)
-    if args.resume and ckpt_lib.latest_step(args.ckpt_dir) is not None:
+    # only rank 0's disk is sure to hold what rank 0 wrote: it reads the
+    # checkpoint, the other ranks make a fresh state to receive it, and
+    # every rank starts from rank 0's
+    if lead and args.resume and ckpt_lib.latest_step(args.ckpt_dir) \
+            is not None:
         state = ckpt_lib.restore(args.ckpt_dir, device=dev)
         log_event("resumed", step=state["step"])
     else:
@@ -142,8 +252,14 @@ def run(args):
                                       pipe.unet_params, rank=args.lora_rank,
                                       device=dev))
         state = ts.init_train_state(cfg, pipe.blobnet_params, adapter)
-    step_fn = ts.make_train_step(cfg, pipe.unet_cfg, pipe.blobnet_cfg)
+        del adapter
+    state = ts.replicate_state(state)
+    step_fn = ts.make_train_step(cfg, pipe.unet_cfg, pipe.blobnet_cfg,
+                                 group=multihost.world_group()
+                                 if world > 1 else None)
 
+    global_batch = args.batch_size * world
+    rows = multihost.local_rows(global_batch, world, rank)
     step = state["step"]
     t0 = time.perf_counter()
     while step < args.steps:
@@ -151,24 +267,27 @@ def run(args):
             if step >= args.steps:
                 break
             t, noise = ts.draw_t_noise(
-                torch.Generator().manual_seed(step), args.batch_size,
-                batch["x0_latents"].shape[1:], cfg.num_train_timesteps, dev)
+                torch.Generator().manual_seed(step), global_batch,
+                batch["x0_latents"].shape[1:], cfg.num_train_timesteps, dev,
+                rows=rows)
             state, metrics = step_fn(state, pipe.unet_params, batch, t,
                                      noise)
             step += 1
-            if step % args.log_every == 0:
+            if step % args.log_every == 0 and lead:
                 loss = float(metrics["loss"])  # waits for the step
                 dt = (time.perf_counter() - t0) / args.log_every
                 t0 = time.perf_counter()
                 log_event("train", step=step, loss=round(loss, 5),
                           grad_norm=round(float(metrics["grad_norm"]), 4),
                           sec_per_step=round(dt, 3),
-                          img_per_sec=round(args.batch_size / dt, 2))
+                          img_per_sec=round(global_batch / dt, 2))
             if step % args.ckpt_every == 0 or step == args.steps:
-                ckpt_lib.save(args.ckpt_dir, state)
-                log_event("checkpoint", step=step)
+                if lead:
+                    ckpt_lib.save(args.ckpt_dir, state)
+                    log_event("checkpoint", step=step)
+                multihost.barrier(f"checkpoint {step}")
 
-    if args.export_dir:
+    if args.export_dir and lead:
         # with EMA on, the shadow weights are what ships
         params = state.get("ema", state["params"])
         ckpt_lib.export_blobnet_safetensors(

@@ -13,8 +13,8 @@ host seconds inside the call. Readers take differences (``mark`` /
 
 A group of one rank (or no group at all: an unsharded run) makes every call
 the identity and logs nothing. Over gloo, a CUDA tensor goes through host
-memory (one copy each way); over nccl it stays on the card, and the seconds
-are the host's enqueue time.
+memory (a pinned copy each way); over nccl it stays on the card, and the
+seconds are the host's enqueue time.
 """
 
 from __future__ import annotations
@@ -55,6 +55,16 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def _buffer(t: torch.Tensor, group) -> torch.Tensor:
+    """A contiguous copy of ``t`` for the collective to work in: in pinned
+    host memory when gloo stages a CUDA tensor (a pageable copy each way
+    takes about as long as gloo itself), else on t's device."""
+    if _staged(t, group):
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return buf.copy_(t.detach())
+    return t.detach().clone(memory_format=torch.contiguous_format)
+
+
 @contextlib.contextmanager
 def _logged(op: str, nbytes: int):
     """Log the collective in the body, also when it raises (a rank then
@@ -72,8 +82,7 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return t
     with _logged("all_reduce", t.numel() * t.element_size()):
-        buf = t.detach().to("cpu" if _staged(t, group) else t.device,
-                            copy=True).contiguous()
+        buf = _buffer(t, group)
         dist.all_reduce(buf, group=group)
         return buf.to(t.device)
 
@@ -84,9 +93,7 @@ def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     if n == 1:
         return t
     with _logged("all_gather", t.numel() * t.element_size()):
-        src = t.detach().contiguous()
-        if _staged(t, group):
-            src = src.cpu()
+        src = _buffer(t, group)
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=group)
         return torch.cat(parts, dim=dim).to(t.device)
@@ -101,8 +108,7 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     if group_size(group) == 1:
         return t
     with _logged("broadcast", t.numel() * t.element_size()):
-        buf = t.detach().to("cpu" if _staged(t, group) else t.device,
-                            copy=True).contiguous()
+        buf = _buffer(t, group)
         dist.broadcast(buf, src=src, group=group)
         return buf.to(t.device)
 
@@ -147,6 +153,14 @@ def summary(entries: Optional[List[Entry]] = None) -> Dict[str, Dict]:
 def counts(entries: Optional[List[Entry]] = None) -> Dict[str, Dict[str, int]]:
     """{scope: {op: count}} of ``entries`` (the whole log by default)."""
     return {scope: {op: c["count"] for op, c in ops.items()}
+            for scope, ops in summary(entries).items()}
+
+
+def sizes(entries: Optional[List[Entry]] = None) -> Dict[str, Dict]:
+    """{scope: {op: {"count", "bytes"}}} of ``entries`` (the whole log by
+    default): ``summary`` without the seconds."""
+    return {scope: {op: {"count": c["count"], "bytes": c["bytes"]}
+                    for op, c in ops.items()}
             for scope, ops in summary(entries).items()}
 
 

@@ -5,8 +5,10 @@ Under explicit SPMD a rank is one process with one device. ``initialize``
 starts ``torch.distributed`` with the backend the caller names, never one
 picked for it:
 
-  * ``"nccl"``: one card a rank (rank r on ``cuda:r``); refused when the
-    ranks outnumber the cards.
+  * ``"nccl"``: one card a rank: the card the device names
+    (``cuda:K``), or, for bare ``cuda``, ``cuda:r`` for rank r, refused
+    when r is not a card of this host (ranks on several hosts name their
+    card).
   * ``"gloo"``: the CPU, or every rank on the one card the caller names
     (``device="cuda:0"``): the form a one-card machine can run, which
     exercises the local-shard kernels and the collectives (through host
@@ -61,16 +63,10 @@ def initialize(coordinator_address: str, num_processes: int,
                          f"one card a rank; gloo: the CPU, or ranks that "
                          f"share the one card named by device), got "
                          f"{backend!r}")
-    dev = resolve_device(device)
     if backend == "nccl":
-        if dev.type != "cuda":
-            raise ValueError("nccl runs on the card: device must be cuda")
-        cards = torch.cuda.device_count()
-        if num_processes > cards:
-            raise RuntimeError(
-                f"nccl needs one card a rank: {num_processes} ranks, "
-                f"{cards} cards (name gloo to share one card)")
-        dev = torch.device("cuda", process_id)
+        dev = nccl_card(device, process_id)
+    else:
+        dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     addr = coordinator_address
@@ -84,6 +80,30 @@ def initialize(coordinator_address: str, num_processes: int,
     return dev
 
 
+def nccl_card(device, process_id: int) -> torch.device:
+    """The card rank ``process_id`` runs on over nccl: the one ``device``
+    names (``cuda:K``), or for bare ``cuda`` ``cuda:process_id``, which
+    must be a card of this host. Ranks spread over several hosts each
+    name their card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("nccl runs on the card: device must be cuda")
+    resolve_device(dev)
+    cards = torch.cuda.device_count()
+    if dev.index is None:
+        dev = torch.device("cuda", process_id)
+        if process_id >= cards:
+            raise RuntimeError(
+                f"nccl needs one card a rank: rank {process_id} would run "
+                f"on cuda:{process_id}, and this host has {cards} cards; "
+                f"ranks on several hosts must each name their card "
+                f"(--device cuda:K), or name gloo to share one card")
+    elif dev.index >= cards:
+        raise RuntimeError(f"{dev} is not a card of this host ({cards} "
+                           f"cards)")
+    return dev
+
+
 def new_group(ranks):
     """A sub-group of the world with the world's timeout (``new_group``
     would otherwise take the backend's default, 30 minutes)."""
@@ -93,6 +113,12 @@ def new_group(ranks):
 def shutdown():
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def world_group():
+    """The group of every rank, or None in one process (collectives are
+    then the identity)."""
+    return dist.group.WORLD if process_count() > 1 else None
 
 
 def process_count() -> int:

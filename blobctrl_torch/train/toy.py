@@ -3,7 +3,9 @@ toy.py``): synthetic "coloured ellipse on a gradient" scenes, the toy VAE
 and the diffusion training (BlobNet + the full UNet, the production
 objective of ``train/train_step.py``), and the trained checkpoints
 (``assets/toy_ckpt``, ``assets/toy_ckpt_256``): configs, the fixed class
-embeddings, ``save_toy`` and ``load_toy``.
+embeddings, ``save_toy`` and ``load_toy``; and the evaluation half, the
+quality gate's surface: the pipeline kwargs of a move, a two-blob compose
+and a remove edit on a scene, ``psnr`` and ``color_error_inside``.
 
 The scenes follow the inference path's conventions: bg conditioning is the
 image with the object region blacked; in some examples a distractor
@@ -392,3 +394,110 @@ def load_toy(ckpt_dir: str, device="cuda", dtype=torch.float32):
                            vae_cfg=vae_cfg, vae_params=params["vae"],
                            dtype=dtype, device=device)
     return pipe, meta
+
+
+# ---------------------------------------------------------------------------
+# evaluation (the quality gate's surface)
+# ---------------------------------------------------------------------------
+
+def edit_kwargs(scene: Dict, target_ellipse, size: int = 128,
+                steps: int = 50, guidance: float = 4.0, seed: int = 3,
+                ctx: int = 16, dino_c: int = 16) -> Dict:
+    """Pipeline kwargs that move the object of a ``make_scene`` scene to
+    ``target_ellipse``, under the session's conventions: the vacated
+    region white, the target black."""
+    emb = class_embeddings(ctx=ctx, dino_c=dino_c)
+    img, mask, cls = scene["image"], scene["mask"], scene["cls"]
+    fg_img = editor_lib.object_region_on_canvas(img, mask, canvas=size)
+    bg = viz_lib.composite_mask_and_image(mask, img, (255, 255, 255))
+    tmask = viz_lib.ellipse_mask(target_ellipse, size, size)
+    bg = viz_lib.composite_mask_and_image(tmask, bg, (0, 0, 0))
+    lh = lw = size // 8
+    gs = blob_math.blob_score_from_ellipse(target_ellipse, size, size,
+                                           (lh, lw)).numpy()
+    return dict(
+        fg_image=fg_img, bg_image=bg, gs_score=gs, height=size, width=size,
+        num_inference_steps=steps, guidance_scale=guidance, seed=seed,
+        prompt_embeds=emb["text"][cls][None],
+        negative_prompt_embeds=np.zeros_like(emb["text"][cls])[None],
+        fg_dino_feats=emb["appearance"][cls][None])
+
+
+def compose_kwargs(scene: Dict, target_ellipse, size: int = 128,
+                   steps: int = 50, guidance: float = 4.0, seed: int = 3,
+                   ctx: int = 16, dino_c: int = 16) -> Dict:
+    """Pipeline kwargs of a two-blob compose edit on a two-object scene
+    (``make_scene(n_objects=2)``): the first object moves to
+    ``target_ellipse`` while the second stays in place (summed score
+    layers, one appearance a blob)."""
+    emb = class_embeddings(ctx=ctx, dino_c=dino_c)
+    objs = scene["objects"]
+    if len(objs) < 2:
+        raise ValueError("compose_kwargs needs a 2-object scene")
+    o0, o1 = objs[0], objs[1]
+    img = scene["image"]
+    # each object's pixels at its score layer's place: the moved one
+    # pasted at the target's centre, the kept one where it is
+    fg_img = np.full((size, size, 3), 255, np.uint8)
+    (sx, sy), _, _ = o0["ellipse"]
+    (tx, ty), _, _ = target_ellipse
+    ys, xs = np.nonzero(o0["mask"] > 127)
+    ny = np.clip(ys + int(round(ty - sy)), 0, size - 1)
+    nx = np.clip(xs + int(round(tx - sx)), 0, size - 1)
+    fg_img[ny, nx] = img[ys, xs]
+    fg_img = np.where(o1["mask"][..., None] > 127, img, fg_img)
+    # white = erase (o0's vacated source), black = generate (o0's target
+    # and o1's region)
+    bg = viz_lib.composite_mask_and_image(o0["mask"], img, (255, 255, 255))
+    tmask = viz_lib.ellipse_mask(target_ellipse, size, size)
+    bg = viz_lib.composite_mask_and_image(tmask, bg, (0, 0, 0))
+    bg = viz_lib.composite_mask_and_image(o1["mask"], bg, (0, 0, 0))
+    lh = lw = size // 8
+    gs = blob_math.blob_scores_from_ellipses(
+        [target_ellipse, o1["ellipse"]], size, size, (lh, lw)).numpy()
+    feats = np.stack([emb["appearance"][o0["cls"]],
+                      emb["appearance"][o1["cls"]]])
+    return dict(
+        fg_image=fg_img, bg_image=bg, gs_score=gs, height=size, width=size,
+        num_inference_steps=steps, guidance_scale=guidance, seed=seed,
+        prompt_embeds=emb["text"][o0["cls"]][None],
+        negative_prompt_embeds=np.zeros_like(emb["text"][o0["cls"]])[None],
+        fg_dino_feats=feats)
+
+
+def remove_kwargs(scene: Dict, size: int = 128, steps: int = 50,
+                  seed: int = 3, ctx: int = 16, dino_c: int = 16) -> Dict:
+    """Pipeline kwargs that remove the object of a scene. BlobNet stays on
+    with the all-background score (the toy was trained so), where the
+    reference's recipe sets the strength to 0."""
+    img, mask = scene["image"], scene["mask"]
+    bg = viz_lib.composite_mask_and_image(mask, img, (255, 255, 255))
+    lh = lw = size // 8
+    gs = np.stack([np.ones((1, lh, lw)), np.zeros((1, lh, lw))],
+                  -1).astype(np.float32)
+    return dict(
+        fg_image=np.full((size, size, 3), 255, np.uint8), bg_image=bg,
+        gs_score=gs, height=size, width=size, num_inference_steps=steps,
+        guidance_scale=4.0, seed=seed,
+        prompt_embeds=np.zeros((1, 7, ctx), np.float32),
+        negative_prompt_embeds=np.zeros((1, 7, ctx), np.float32),
+        fg_dino_feats=np.zeros((1, dino_c), np.float32))
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR in dB of two images in [0, 1]."""
+    mse = float(np.mean(np.square(np.asarray(a, np.float32)
+                                  - np.asarray(b, np.float32))))
+    return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
+
+
+def color_error_inside(image01: np.ndarray, ellipse, cls: int,
+                       size: int = 128, erode_frac: float = 0.75) -> float:
+    """Mean absolute error, in [0, 1] units, between the pixels inside the
+    shrunken ellipse and class ``cls``'s colour: did the object appear
+    where the blob says?"""
+    (xc, yc), (d1, d2), ang = ellipse
+    inner = ((xc, yc), (d1 * erode_frac, d2 * erode_frac), ang)
+    m = viz_lib.ellipse_mask(inner, size, size) > 127
+    color = np.asarray(COLORS[cls][1], np.float32) / 255.0
+    return float(np.abs(image01[m] - color).mean())

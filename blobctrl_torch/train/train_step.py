@@ -1,5 +1,6 @@
 """Self-supervised BlobCtrl training, BlobNet + UNet-LoRA (counterpart of
-``blobctrl_tpu/train/train_step.py``), on one device.
+``blobctrl_tpu/train/train_step.py``), on one device or data-parallel
+over ranks.
 
 The objective is the JAX package's: reconstruct the noise added to the
 target's latents, conditioned on the fg blob splat + DINOv2 appearance
@@ -17,13 +18,23 @@ square root, decoupled weight decay on every trainable leaf, the learning
 rate read at the count before the update. The state is ``{"params",
 "opt_state", "step"}`` (+ ``"ema"`` with ``ema_decay``); the optimizer
 updates it in place.
+
+Data parallelism is explicit SPMD, the port's form of what GSPMD does for
+the JAX step with the batch sharded over ``data``: every rank holds the
+whole replicated state and differentiates the mean loss of its own rows;
+``mean_over_ranks`` then averages the gradients (and the loss) over the
+ranks in fp32 before the clip, so every rank runs the same clip, AdamW and
+EMA on the same values and the state stays bit-equal on every rank. The
+gradients travel in a few flat fp32 buckets, not one call a leaf, as XLA
+combines its all-reduces.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple, Union
+import zlib
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,9 +42,12 @@ import torch
 from blobctrl_torch.models import blobnet as blobnet_lib
 from blobctrl_torch.models import lora as lora_lib
 from blobctrl_torch.models import unet as unet_lib
+from blobctrl_torch.parallel import collectives
 from blobctrl_torch.schedulers import ddim as ddim_lib
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+# 256 MiB of fp32 a collective; read at each call, so a test may shrink it
+GRAD_BUCKET_BYTES = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,16 +221,77 @@ def init_train_state(cfg: TrainConfig, blobnet_params, adapter_params):
 
 
 def draw_t_noise(generator: torch.Generator, batch: int, latent_shape,
-                 num_train_timesteps: int = 1000, device=None
+                 num_train_timesteps: int = 1000, device=None,
+                 rows: Optional[range] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A step's timesteps t (B,) in [0, num_train_timesteps) and standard
     normal noise (B, *latent_shape), drawn from ``generator`` on its device
-    and moved to ``device``."""
+    and moved to ``device``. ``rows``: the rows of the batch this rank
+    keeps (``multihost.local_rows``); data parallelism draws for the global
+    batch, so each rank's rows carry the draws of the one-process step."""
     t = torch.randint(0, num_train_timesteps, (batch,), generator=generator,
                       device=generator.device)
     noise = torch.randn((batch,) + tuple(latent_shape), generator=generator,
                         device=generator.device)
+    if rows is not None:
+        t, noise = t[rows.start:rows.stop], noise[rows.start:rows.stop]
     return t.to(device), noise.to(device)
+
+
+@torch.no_grad()
+def _in_buckets(parts: List[torch.Tensor], fn):
+    """``fn`` applied to the flat fp32 tensors ``parts`` laid end to end
+    and cut into buckets of ``GRAD_BUCKET_BYTES`` (a part may span two),
+    each bucket's result written back over the parts in place."""
+    cap = GRAD_BUCKET_BYTES // 4
+    total = sum(p.numel() for p in parts)
+    buf = torch.empty(min(cap, total), dtype=torch.float32,
+                      device=parts[0].device)
+    pieces, fill = [], 0   # (part, start, end, offset in the bucket)
+
+    def flush():
+        out = fn(buf[:fill])
+        for part, start, end, at in pieces:
+            parts[part][start:end] = out[at:at + end - start]
+        pieces.clear()
+
+    for i, p in enumerate(parts):
+        start = 0
+        while start < p.numel():
+            take = min(p.numel() - start, cap - fill)
+            buf[fill:fill + take] = p[start:start + take]
+            pieces.append((i, start, start + take, fill))
+            fill, start = fill + take, start + take
+            if fill == cap:
+                flush()
+                fill = 0
+    if fill:
+        flush()
+
+
+@torch.no_grad()
+def mean_over_ranks(grads: List[torch.Tensor], loss: torch.Tensor, group
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The gradients and the loss averaged over the ranks of ``group`` in
+    fp32 (the identity for one rank): the leaves, then the loss, in flat
+    buckets of ``GRAD_BUCKET_BYTES``, one all-reduce (a sum) each, divided by
+    the group's size. Every rank gets the same values. The gradients are
+    overwritten in place (one that shares storage with another is copied
+    first)."""
+    n = collectives.group_size(group)
+    if n == 1:
+        return grads, loss
+    grads, seen = list(grads), set()
+    for i, g in enumerate(grads):
+        if (not g.is_contiguous() or g.dtype != torch.float32
+                or g.untyped_storage().data_ptr() in seen):
+            grads[i] = g.to(torch.float32, copy=True,
+                            memory_format=torch.contiguous_format)
+        seen.add(grads[i].untyped_storage().data_ptr())
+    loss = loss.detach().to(torch.float32).reshape(1).clone()
+    _in_buckets([g.view(-1) for g in grads] + [loss],
+                lambda b: collectives.all_reduce(b, group) / n)
+    return grads, loss.reshape(())
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -236,11 +311,17 @@ class TrainStep:
     x0_latents, fg_latents, bg_latents (B, h, w, 4), fg_score, bg_score
     (B, h, w, 1), fg_feats (B, h, w, Cd), text_embeds (B, T, Ct)) and the
     step's draws t (B,) and noise (B, h, w, 4). Metrics: loss, grad_norm
-    (before the clip, 0-d tensors) and lr (the rate of this update)."""
+    (before the clip, 0-d tensors) and lr (the rate of this update).
+
+    ``group``: the data-parallel ranks (None: this process alone). Each
+    rank passes its own rows and their draws; the gradients and the loss
+    are averaged over the group before the clip (``mean_over_ranks``), so
+    the metrics are the global batch's and identical on every rank."""
 
     def __init__(self, cfg: TrainConfig, unet_cfg: unet_lib.UNetConfig,
-                 blobnet_cfg: blobnet_lib.BlobNetConfig):
+                 blobnet_cfg: blobnet_lib.BlobNetConfig, group=None):
         self.cfg, self.unet_cfg, self.blobnet_cfg = cfg, unet_cfg, blobnet_cfg
+        self.group = group
         self.tables = ddim_lib.training_tables(cfg.num_train_timesteps)
 
     def loss(self, trainable, frozen_unet_params, batch, t, noise
@@ -283,9 +364,10 @@ class TrainStep:
 
     def loss_and_grads(self, state, frozen_unet_params, batch, t, noise
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """The loss and its gradients, in ``tree_leaves(state["params"])``'s
-        order; nothing is updated (autograd sees detached aliases of the
-        masters, which themselves never require grad)."""
+        """The loss of this rank's rows and its gradients, in
+        ``tree_leaves(state["params"])``'s order; nothing is updated and
+        nothing is averaged over ranks (autograd sees detached aliases of
+        the masters, which themselves never require grad)."""
         live = tree_map(lambda p: p.detach().requires_grad_(),
                         state["params"])
         leaves = tree_leaves(live)
@@ -300,6 +382,7 @@ class TrainStep:
         lr = lr_at(cfg, state["step"])
         loss, grads = self.loss_and_grads(state, frozen_unet_params, batch,
                                           t, noise)
+        grads, loss = mean_over_ranks(grads, loss, self.group)
         g_norm = apply_optimizer(cfg, state["params"], state["opt_state"],
                                  grads)
         del grads
@@ -314,5 +397,91 @@ class TrainStep:
 
 
 def make_train_step(cfg: TrainConfig, unet_cfg: unet_lib.UNetConfig,
-                    blobnet_cfg: blobnet_lib.BlobNetConfig) -> TrainStep:
-    return TrainStep(cfg, unet_cfg, blobnet_cfg)
+                    blobnet_cfg: blobnet_lib.BlobNetConfig, group=None
+                    ) -> TrainStep:
+    return TrainStep(cfg, unet_cfg, blobnet_cfg, group)
+
+
+def _layout(tree, path: str = ""):
+    """One line a leaf of ``tree`` in ``tree_leaves`` order: its path and
+    its shape and dtype, or its type for a leaf that is not a tensor."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _layout(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _layout(v, f"{path}/{i}")]
+    if isinstance(tree, torch.Tensor):
+        return [f"{path}:{tuple(tree.shape)}:{tree.dtype}"]
+    return [f"{path}:{type(tree).__name__}"]
+
+
+def replicate_state(state):
+    """Rank 0's train state on every rank, in place. First every rank's
+    layout (its leaves' paths, shapes and dtypes) is gathered, and every
+    rank refuses alike a state whose layout differs from rank 0's (a
+    checkpoint resumed under flags that build another tree). Then its
+    tensors (fp32, as ``init_train_state`` and ``checkpoint.restore`` make
+    them) are laid end to end in buckets of ``GRAD_BUCKET_BYTES``, each
+    broadcast (``multihost.replicate``) and copied back, then its two
+    counters, the step and the update count, as one int64 pair on the
+    state's device. The identity in one process."""
+    from blobctrl_torch.parallel import multihost
+    if multihost.process_count() == 1:
+        return state
+    tensors = [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
+    lines = _layout(state)
+    mine = torch.tensor([len(lines), zlib.crc32("\n".join(lines).encode())],
+                        dtype=torch.int64, device=tensors[0].device)
+    every = collectives.all_gather(mine, multihost.world_group(), dim=0)
+    every = every.view(-1, 2).tolist()
+    if any(x != every[0] for x in every):
+        raise ValueError(
+            f"replicate_state: the train state's layout differs across "
+            f"ranks ([leaves, digest] a rank: {every}); a checkpoint "
+            f"resumed on rank 0 must be made under the flags that build "
+            f"the state (--lora_rank, --ema_decay, --full_finetune)")
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in tensors):
+        raise ValueError("replicate_state: the state's tensors must be "
+                         "contiguous fp32")
+    _in_buckets([t.view(-1) for t in tensors], multihost.replicate)
+    step, count = multihost.replicate(torch.tensor(
+        [state["step"], state["opt_state"]["count"]], dtype=torch.int64,
+        device=tensors[0].device)).tolist()
+    state["step"], state["opt_state"]["count"] = step, count
+    return state
+
+
+def training_counts(trainable, world: int, steps: int = 1,
+                    replicated=None, checkpoints: int = 0
+                    ) -> Dict[str, Dict]:
+    """{"pipeline": {op: {"count", "bytes"}}} that data-parallel training
+    logs on each of ``world`` ranks (``TrainStep`` with a group,
+    ``apps/train_cli``), in the bucket layout of this module: each of
+    ``steps`` steps one fp32 all-reduce a bucket of ``GRAD_BUCKET_BYTES``
+    over the trainable leaves laid end to end, then the loss
+    (``mean_over_ranks``); ``replicated``, the train state replicated from
+    rank 0 at the start (``replicate_state``: one all-gather of the
+    layouts, its fp32 tensors in buckets, one broadcast each, then the
+    step and update count as one int64 pair); one barrier a checkpoint.
+    Nothing in one process."""
+    if world <= 1:
+        return {}
+    cap = GRAD_BUCKET_BYTES // 4
+
+    def elems(tree):
+        return sum(t.numel() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+    out = {}
+    if steps:
+        n = elems(trainable) + 1
+        out["all_reduce"] = {"count": steps * -(-n // cap),
+                             "bytes": steps * 4 * n}
+    if replicated is not None:
+        n = elems(replicated)
+        out["all_gather"] = {"count": 1, "bytes": 16}
+        out["broadcast"] = {"count": -(-n // cap) + 1, "bytes": 4 * n + 16}
+    if checkpoints:
+        out["barrier"] = {"count": checkpoints, "bytes": 0}
+    return {"pipeline": out} if out else {}

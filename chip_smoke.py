@@ -41,8 +41,9 @@ script exits non-zero:
      same function where there is one (none computes either int8 function;
      the fused GEMMs and the Winograd conv are set against the library's
      product or conv without their prologue).
-  3. The trained 256^2 toy checkpoint: a move and a remove edit (20 steps,
-     fp32), exact, in the int8-everything mode and as the fused-kernel
+  3. The trained 256^2 toy checkpoint: a move and a remove edit
+     (TOY_CPU_STEPS steps, fp32; the CPU reference is the phase's cost),
+     exact, in the int8-everything mode and as the fused-kernel
      edit, on the card with the kernels and on the CPU with the plain
      route; PSNR of card against CPU >= 40 dB; the mode's kernels launched,
      every int8 conv launch on the tensor cores (both dtypes run there).
@@ -50,6 +51,15 @@ script exits non-zero:
      the same bar: DDIM with eta 0.5 and DPM-Solver++ 2M SDE Karras (their
      variance noise drawn on the CPU generator, so both sides see the same
      numbers) and the encoder cache (interval 3).
+     Then the quality gate (``train/toy.py``'s evaluation half) on the
+     card, fp32, GATE_STEPS steps, the held-out scenes and bars of
+     ``tests/test_toy_quality_gate_256.py``: the move edit's colour at the
+     target < 0.06 (every other class more than twice as far) and its
+     source inpainted (> 0.1), a two-blob compose (< 0.08 each, source >
+     0.1), a remove (> 0.1 inside, inside/outside gap < 0.08), and each
+     lossy mode (encoder cache, guidance-interval CFG, int8-everything,
+     int8 with the cache, fused) > 27 dB against the exact edit with the
+     colour at the target < 0.06; a table of the colour errors and PSNRs.
      Then the bf16 pass, which runs the bf16 tensor-core kernels on trained
      weights (fp32 keeps the SIMT flash, direct-conv, GEMM and Winograd
      kernels): the move edit, exact, fused and int8, loaded in bf16 on the
@@ -238,7 +248,36 @@ script exits non-zero:
      c. Every K1/K3/K5/K6/K8/K11/K12 shape that one-step full-width edits
         at model=2 and model=4 launch in each mode, not already checked in
         phase 2, checked under phase 2's bars in bf16 and fp32.
- 10. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
+ 10. Data-parallel training (``TrainStep`` with a group,
+     ``apps/train_cli.run_rank``), after phase 9: DP_WORLD ranks spawned on
+     this card over gloo, as phase 9's; each rank zeroes its counters and
+     collective log just before each step or CLI run and reads them just
+     after. The gradient means go card -> host -> loopback TCP, so their
+     seconds are for information only.
+     a. The trained 256^2 toy (``train_unet_full``, fp32, TF32 off), 2 rows
+        a rank of a global batch of 4, its t and noise drawn for the
+        global batch: the state replicated from rank 0, the mean over the
+        ranks of the first batch's loss within 1e-6 relative and each
+        gradient leaf within 1e-5 of its max of the single-process step
+        on the card; DP_STEPS steps, the state bit-equal on both ranks;
+        the collective log equal to ``train_step.training_counts``.
+     b. 8c's configuration at one row a rank of a global batch of 2:
+        against the single-process B = 2 step, loss within 1e-2 and the
+        gradient norm within 2e-2 relative at each of DP_STEPS steps
+        (bf16); every K1 and K6 launch on the tensor cores at a shape 8a
+        checked; the all-reduce bytes a step exactly 3,392,833,024 (the
+        848,208,256 fp32 trainables) plus the loss, the log equal to the
+        derived count; the parameters bit-equal on both ranks; seconds
+        inside the all-reduces, step seconds and each rank's peak memory
+        printed.
+     c. ``train_cli.run_rank`` on phase 6's models root, 1 row a rank:
+        DP_CLI_STEPS[0] steps with a checkpoint after each (rank 0 writes
+        one ``step_N`` a step), then ``--resume`` to DP_CLI_STEPS[1] with
+        the export; rank 0 alone narrates; the
+        collective log equal to the derived count; the final state
+        bit-equal on both ranks and to rank 0's last checkpoint; the
+        export reloaded as 8d reloads its own.
+ 11. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those
      shapes, and the whole run's seconds.
@@ -249,7 +288,8 @@ fused-kernel edit's four from the fused one), ``served_launches`` phase
 7's, ``train_launches`` phase 8c's (K1 and K6; their
 ``train_max_abs_err`` is 8a's worst forward or gradient error),
 ``parallel_launches`` phase 9's (9a, 9b and 9c's one-step edits in
-every mode), summed over the ranks;
+every mode), ``dp_train_launches`` phase 10's (K1 and K6; the others
+refuse under grad or have no training path), each summed over the ranks;
 the splat's from phase 5 (its views), with ``device_ms`` beside its wall
 ``ms``;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
@@ -997,13 +1037,109 @@ def mode_context(mode):
             "fused": benchkit.fused_kernels}[mode]()
 
 
+GATE_STEPS = 20   # the gate's edits, as tests/test_toy_quality_gate_256.py
+TOY_CPU_STEPS = 10  # the edits held against the CPU, the phase's cost
+# the gate's lossy modes: (name, extra kwargs, the switches around the edit)
+GATE_MODES = (("encoder cache", dict(encoder_cache_interval=3,
+                                     encoder_cache_warmup=5), "exact"),
+              ("guidance-interval CFG", dict(cfg_guidance_start=0.15,
+                                             cfg_guidance_end=0.75), "exact"),
+              ("int8-everything", {}, "int8"),
+              ("int8 + encoder cache", dict(encoder_cache_interval=3,
+                                            encoder_cache_warmup=5), "int8"),
+              ("fused", {}, "fused"))
+
+
+def quality_gate(pipe, size: int = 256, steps: int = GATE_STEPS):
+    """Phase 3's quality gate on the trained toy (``train/toy.py``'s
+    evaluation half), the held-out scenes and bars of
+    ``tests/test_toy_quality_gate_256.py``: the move edit's colour at the
+    target (< 0.06, every other class more than twice as far) with its
+    source inpainted (> 0.1); a two-blob compose (each object < 0.08, the
+    vacated source > 0.1); a remove (> 0.1 inside, inside/outside mean gap
+    < 0.08); each lossy mode > 27 dB against the exact edit with the
+    colour at the target < 0.06. Counters zeroed before each edit, read
+    after it: the mode's kernels ran."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.blob import viz
+    from blobctrl_torch.train import toy
+    rng = np.random.RandomState(10_000)  # held out: training used seed 0
+    scene = toy.make_scene(rng, size)
+    target = toy._random_ellipse(rng, size)
+    cls = scene["cls"]
+    kw = toy.edit_kwargs(scene, target, size=size, steps=steps)
+
+    def edit(mode, kwargs):
+        with mode_context(mode):
+            ops.reset_counts()
+            out = pipe(**kwargs).images[0]
+            ran = {k: launch_counts()[k] for k in MODES[mode]}
+        if min(ran.values()) == 0 or not np.isfinite(out).all():
+            raise AssertionError(f"gate edit {mode}: launches {ran}")
+        return out, ran
+
+    def err(img, ellipse, c):
+        return toy.color_error_inside(img, ellipse, c, size)
+
+    exact, ran = edit("exact", kw)
+    e = err(exact, target, cls)
+    wrong = min(err(exact, target, c) for c in range(len(toy.COLORS))
+                if c != cls)
+    src = err(exact, scene["ellipse"], cls)
+    log(f"  quality gate, trained {size}^2 toy, {steps} steps, fp32 on the "
+        f"card (bars of tests/test_toy_quality_gate_256.py):")
+    log(f"    {'edit':<28} {'colour error':>12} {'PSNR vs exact':>14}  "
+        f"launches")
+    log(f"    {'move, exact':<28} {e:12.4f} {'':>14}  {ran} (other classes "
+        f">= {wrong:.4f}, source {src:.4f})")
+    fails = []
+    if not (e < 0.06 and wrong > 2 * e and src > 0.1):
+        fails.append(f"move: {e}, {wrong}, {src}")
+    crng = np.random.RandomState(20_000)
+    two = tgt = None
+    for _ in range(50):   # the first 2-object scene that admits a target
+        cand = toy.make_scene(crng, size, n_objects=2)
+        if len(cand["objects"]) != 2:
+            continue
+        tgt = toy._distractor_ellipse(
+            crng, size, [o["ellipse"] for o in cand["objects"]])
+        if tgt is not None:
+            two = cand
+            break
+    o0, o1 = two["objects"]
+    out, ran = edit("exact", toy.compose_kwargs(two, tgt, size=size,
+                                                steps=steps))
+    e0, e1 = err(out, tgt, o0["cls"]), err(out, o1["ellipse"], o1["cls"])
+    src0 = err(out, o0["ellipse"], o0["cls"])
+    log(f"    {'compose, 2 blobs':<28} {max(e0, e1):12.4f} {'':>14}  {ran} "
+        f"(moved {e0:.4f}, kept {e1:.4f}, source {src0:.4f})")
+    if not (e0 < 0.08 and e1 < 0.08 and src0 > 0.1):
+        fails.append(f"compose: {e0}, {e1}, {src0}")
+    out, ran = edit("exact", toy.remove_kwargs(scene, size=size, steps=steps))
+    inside = err(out, scene["ellipse"], cls)
+    m = viz.ellipse_mask(scene["ellipse"], size, size) > 127
+    gap = float(np.abs(out[m].mean(0) - out[~m].mean(0)).max())
+    log(f"    {'remove':<28} {inside:12.4f} {'':>14}  {ran} (inside/outside "
+        f"gap {gap:.4f})")
+    if not (inside > 0.1 and gap < 0.08):
+        fails.append(f"remove: {inside}, {gap}")
+    for name, extra, mode in GATE_MODES:
+        out, ran = edit(mode, dict(kw, **extra))
+        p, e = psnr(out, exact), err(out, target, cls)
+        log(f"    {'move, ' + name:<28} {e:12.4f} {p:11.2f} dB  {ran}")
+        if not (p > 27.0 and e < 0.06):
+            fails.append(f"{name}: {p} dB, {e}")
+    if fails:
+        raise AssertionError(f"quality gate: {fails}")
+
+
 def toy_phase():
     from blobctrl_torch import ops
     from blobctrl_torch.train import toy
     ckpt = os.path.join(ROOT, "assets", "toy_ckpt_256")
     card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.float32)
     cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.float32)
-    edits = toy_edits(256, 20)
+    edits = toy_edits(256, TOY_CPU_STEPS)
     cpu_fp32 = {}
     for mode, kernels in MODES.items():
         for name, kw in edits.items():
@@ -1046,6 +1182,7 @@ def toy_phase():
         if not (p >= 40.0 and min(ran.values()) > 0
                 and np.isfinite(got).all()):
             raise AssertionError(f"toy {name}: PSNR {p}, launches {counts}")
+    quality_gate(card)
     del card
     card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.bfloat16)
     cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.bfloat16)
@@ -2616,11 +2753,12 @@ def train_batch(step, b: int, seed: int = 0):
             "text_embeds": rng.randn(b, 77, ctx).astype(np.float32)}
 
 
-def training_setup():
+def training_setup(group=None):
     """8c's configuration: the UNet (5-ch conv_in) frozen in bf16, a
     rank-16 LoRA, the full BlobNet as fp32 masters with AdamW, bf16
-    compute, remat; random weights from ``apps/flagship.production_params``.
-    -> (step, state, frozen UNet)."""
+    compute, remat; random weights from ``apps/flagship.production_params``
+    (the same on every rank). ``group``: the data-parallel ranks (phase
+    10). -> (step, state, frozen UNet)."""
     from blobctrl_torch.apps import flagship
     from blobctrl_torch.models import lora
     from blobctrl_torch.train import train_step as ts
@@ -2632,7 +2770,7 @@ def training_setup():
     cfg = ts.TrainConfig()
     state = ts.init_train_state(cfg, blob, adapter)
     del blob
-    return ts.make_train_step(cfg, ucfg, bcfg), state, frozen
+    return ts.make_train_step(cfg, ucfg, bcfg, group=group), state, frozen
 
 
 def record_training_shapes(step, state, frozen):
@@ -2952,6 +3090,57 @@ class EventLog(logging.Handler):
             pass
 
 
+def reload_export(models_root: str, export_dir: str, params, copy: str,
+                  device="cuda"):
+    """The exported BlobNet and LoRA put into a copy of the models root
+    (links to the rest) and loaded with ``load_pipeline(dtype=bf16)``:
+    every BlobNet leaf and the LoRA bit-equal to ``params`` as the loader
+    casts them, each UNet LoRA target the fp32 merge of the adapter then
+    the cast. -> the loaded pipeline."""
+    from blobctrl_torch.models import lora as lora_lib
+    from blobctrl_torch.params import export, io
+    for dirpath, dirnames, filenames in os.walk(models_root):
+        rel = os.path.relpath(dirpath, models_root)
+        os.makedirs(os.path.join(copy, rel), exist_ok=True)
+        if rel in (os.path.join("BlobCtrl", "blobnet"),
+                   os.path.join("BlobCtrl", "unet_lora")):
+            continue
+        for f in filenames:
+            os.symlink(os.path.join(dirpath, f), os.path.join(copy, rel, f))
+    shutil.copy(os.path.join(models_root, "BlobCtrl", "blobnet",
+                             "config.json"),
+                os.path.join(copy, "BlobCtrl", "blobnet"))
+    for sub, name in (("blobnet", "diffusion_pytorch_model.safetensors"),
+                      ("unet_lora", "adapter_model.safetensors")):
+        os.replace(os.path.join(export_dir, sub, name),
+                   os.path.join(copy, "BlobCtrl", sub, name))
+    pipe, secs = timed(lambda: io.load_pipeline(copy, dtype=torch.bfloat16,
+                                                device=device))
+    bf16 = torch.bfloat16
+    got, want = (export.flatten(pipe.blobnet_params),
+                 export.flatten(params["blobnet"]))
+    bad = [k for k in want if not torch.equal(got[k],
+                                              want[k].to(bf16))]
+    lora = params["lora"]
+    bad += [k for k, ab in lora.items() for n in ("A", "B")
+            if not torch.equal(pipe._lora_tree[k][n], ab[n])]
+    base = export.flatten(io.load_sd15_unet(os.path.join(
+        models_root, "stable-diffusion-v1-5", "unet"), device=device))
+    loaded = export.flatten(pipe.unet_params)
+    for k, w in base.items():
+        target = k.rsplit(".", 1)[0].replace(".", "/")
+        if k.endswith(".kernel") and target in lora:
+            w = lora_lib.merge_kernel(w, lora[target], 1.0, None)
+        if not torch.equal(loaded[k], w.to(bf16)):
+            bad.append("unet." + k)
+    log(f"  load_pipeline of the copy with the export: {secs:.2f} s; "
+        f"{len(want)} BlobNet leaves, {2 * len(lora)} LoRA leaves and "
+        f"{len(base)} UNet leaves checked, {len(bad)} differ")
+    if bad or len(got) != len(want):
+        raise AssertionError(f"exported leaves differ: {bad[:5]}")
+    return pipe
+
+
 def cli_training_phase(models_root: str, work: str, device="cuda",
                        size: int = 512, edit_steps: int = CLI_EDIT_STEPS):
     """8d: ``python -m blobctrl_torch.apps.train_cli`` (its ``main``) on the
@@ -2965,8 +3154,6 @@ def cli_training_phase(models_root: str, work: str, device="cuda",
     stage printed."""
     from blobctrl_torch import ops
     from blobctrl_torch.apps import train_cli
-    from blobctrl_torch.models import lora as lora_lib
-    from blobctrl_torch.params import export, io
     data_root = os.path.join(work, "train_data")
     ckpt_dir = os.path.join(work, "train_ckpts")
     export_dir = os.path.join(work, "train_export")
@@ -3008,49 +3195,10 @@ def cli_training_phase(models_root: str, work: str, device="cuda",
             e["step"] for e in later] != [5, 6] or state["step"] != 6 \
             or not all(np.isfinite(e["loss"]) for e in trained + later):
         raise AssertionError(f"train_cli: {first} / {second}")
-    # the export in a copy of the root
-    copy = os.path.join(work, "models_root_trained")
-    for dirpath, dirnames, filenames in os.walk(models_root):
-        rel = os.path.relpath(dirpath, models_root)
-        os.makedirs(os.path.join(copy, rel), exist_ok=True)
-        if rel in (os.path.join("BlobCtrl", "blobnet"),
-                   os.path.join("BlobCtrl", "unet_lora")):
-            continue
-        for f in filenames:
-            os.symlink(os.path.join(dirpath, f), os.path.join(copy, rel, f))
-    shutil.copy(os.path.join(models_root, "BlobCtrl", "blobnet",
-                             "config.json"),
-                os.path.join(copy, "BlobCtrl", "blobnet"))
-    for sub, name in (("blobnet", "diffusion_pytorch_model.safetensors"),
-                      ("unet_lora", "adapter_model.safetensors")):
-        os.replace(os.path.join(export_dir, sub, name),
-                   os.path.join(copy, "BlobCtrl", sub, name))
     shutil.rmtree(ckpt_dir)
-    pipe, secs = timed(lambda: io.load_pipeline(copy, dtype=torch.bfloat16,
-                                                device=device))
-    bf16 = torch.bfloat16
-    got, want = (export.flatten(pipe.blobnet_params),
-                 export.flatten(state["params"]["blobnet"]))
-    bad = [k for k in want if not torch.equal(got[k],
-                                              want[k].to(bf16))]
-    lora = state["params"]["lora"]
-    bad += [k for k, ab in lora.items() for n in ("A", "B")
-            if not torch.equal(pipe._lora_tree[k][n], ab[n])]
-    base = export.flatten(io.load_sd15_unet(os.path.join(
-        models_root, "stable-diffusion-v1-5", "unet"), device=device))
-    loaded = export.flatten(pipe.unet_params)
-    for k, w in base.items():
-        target = k.rsplit(".", 1)[0].replace(".", "/")
-        if k.endswith(".kernel") and target in lora:
-            w = lora_lib.merge_kernel(w, lora[target], 1.0, None)
-        if not torch.equal(loaded[k], w.to(bf16)):
-            bad.append("unet." + k)
-    log(f"  load_pipeline of the copy with the export: {secs:.2f} s; "
-        f"{len(want)} BlobNet leaves, {2 * len(lora)} LoRA leaves and "
-        f"{len(base)} UNet leaves checked, {len(bad)} differ")
-    if bad or len(got) != len(want):
-        raise AssertionError(f"exported leaves differ: {bad[:5]}")
-    del state, base, loaded
+    pipe = reload_export(models_root, export_dir, state["params"],
+                         os.path.join(work, "models_root_trained"), device)
+    del state
     ops.reset_counts()
     out, secs, launches, mem = run_request(pipe, text_edit_kwargs(
         size, edit_steps))
@@ -3208,7 +3356,14 @@ def _sharded_run(which, shape, recipe, fn, digests=False):
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+def _job_name(job) -> str:
+    """A rank job is its name (phase 9) or (name, payload) (phase 10)."""
+    return job if isinstance(job, str) else job[0]
+
+
 def _rank_job(job):
+    if not isinstance(job, str):
+        return DP_JOBS[job[0]](job[1])
     edits = parallel_edits()
     if job == "toy_model":
         return _sharded_run("toy", {"data": 1, "model": 2}, "model",
@@ -3238,7 +3393,8 @@ def _rank_job(job):
 
 
 def _rank_main(rank, world, port, jobs, out):
-    """One rank of a phase-9 group: every rank on cuda:0, over gloo."""
+    """One rank of a phase-9 or phase-10 group: every rank on cuda:0, over
+    gloo."""
     import traceback
     try:
         sys.path.insert(0, ROOT)
@@ -3247,17 +3403,19 @@ def _rank_main(rank, world, port, jobs, out):
                              device="cuda:0", backend="gloo",
                              timeout_s=PARALLEL_TIMEOUT_S)
         try:
-            out.put((rank, "ok", {job: _rank_job(job) for job in jobs}))
+            out.put((rank, "ok", {_job_name(job): _rank_job(job)
+                                  for job in jobs}))
         finally:
             multihost.shutdown()
     except BaseException:  # noqa: BLE001 — reported to the parent
         out.put((rank, "error", traceback.format_exc()))
 
 
-def spawn_ranks(world: int, jobs):
-    """Run ``jobs`` on ``world`` spawned ranks; -> their results in rank
-    order. A rank that fails or dies fails the phase; every process is
-    joined, or killed, before this returns."""
+def spawn_ranks(world: int, jobs, meanwhile=None):
+    """Run ``jobs`` on ``world`` spawned ranks, and ``meanwhile()`` here
+    while they start and run; -> their results in rank order. A rank that
+    fails or dies fails the phase; every process is joined, or killed,
+    before this returns."""
     import multiprocessing
     import queue
     from blobctrl_torch.parallel import multihost
@@ -3271,6 +3429,8 @@ def spawn_ranks(world: int, jobs):
     got = {}
     try:
         deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        if meanwhile is not None:
+            meanwhile()
         while len(got) < world:
             try:
                 rank, status, value = out.get(timeout=5.0)
@@ -3450,7 +3610,412 @@ def parallel_phase(results):
     return dict(launched)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data-parallel training on ranks that share the one card
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2              # ranks
+DP_TOY_BATCH = 4          # 10a's global batch (2 rows a rank)
+DP_STEPS = 2              # 10a's and 10b's steps
+DP_FULL_BATCH = 2         # 10b's global batch (1 row a rank)
+DP_CLI_STEPS = (2, 3)     # 10c: steps with a checkpoint, then --resume to
+DP_CLI_CKPT_EVERY = 1     # 10c: a checkpoint before the last step too
+DP_SEED = 8
+DP_FULL_GRAD_BYTES = 3_392_833_024   # 4 bytes of each of 8c's trainables
+TOY_256 = os.path.join(ROOT, "assets", "toy_ckpt_256")
+
+
+def digest(tree) -> str:
+    """A hash of a tree's leaves in its order: of each fp32 tensor two sums
+    of its bits as int32 words, computed where it lives (plain and
+    weighted by odd position weights, in wrapping int64: one changed word
+    always moves the weighted sum), and of each number its repr. Hashing
+    the bytes on the host would cost about 2.7 s a GB."""
+    import hashlib
+    from blobctrl_torch.train import train_step as ts
+    h = hashlib.blake2b(digest_size=16)
+    for t in ts.tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            words = t.detach().contiguous().view(torch.int32).reshape(-1).to(
+                torch.int64)
+            odd = torch.arange(words.numel(), device=words.device) * 2 + 1
+            h.update(repr((tuple(t.shape), int(words.sum()),
+                           int((words * odd).sum()))).encode())
+        else:
+            h.update(repr(t).encode())
+    return h.hexdigest()
+
+
+def dp_toy_step(pipe, group=None):
+    """10a's state and step: the trained toy as 8b trains it
+    (``train_unet_full``, fp32, remat)."""
+    from blobctrl_torch.train import train_step as ts
+    cfg = ts.TrainConfig(learning_rate=1e-4, weight_decay=1e-3,
+                         train_unet_full=True, compute_dtype=torch.float32)
+    return (ts.init_train_state(cfg, pipe.blobnet_params, pipe.unet_params),
+            ts.make_train_step(cfg, pipe.unet_cfg, pipe.blobnet_cfg,
+                               group=group))
+
+
+def dp_draw(i: int, batch: int, latent, rows=None):
+    """Step i's t and noise for the global batch (its ``rows``), on the
+    card."""
+    from blobctrl_torch.train import train_step as ts
+    return ts.draw_t_noise(torch.Generator().manual_seed(DP_SEED + i), batch,
+                           latent, device="cuda", rows=rows)
+
+
+def _rows(tree, rows):
+    return {k: v[rows.start:rows.stop] for k, v in tree.items()}
+
+
+def _steps(step, state, frozen, batches, draws):
+    """The data-parallel steps of a rank, counters and the collective log
+    zeroed before each and read after it. -> (state, per-step records)."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.parallel import collectives
+    out = []
+    for batch, (t, noise) in zip(batches, draws):
+        ops.reset_counts()
+        collectives.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, frozen, batch, t, noise)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        out.append({"secs": time.perf_counter() - t0, "loss": loss,
+                    "grad_norm": norm, "launches": launch_counts(),
+                    "tc": tensor_core_counts(),
+                    "shapes": {k: dict(v) for k, v in launch_shapes().items()},
+                    "summary": collectives.summary(),
+                    "sizes": collectives.sizes()})
+    return state, out
+
+
+def _dp_toy(data):
+    """10a on a rank: the toy state replicated from rank 0, the averaged
+    gradients of the first batch (nothing updated), then DP_STEPS steps on
+    this rank's rows of the global batch."""
+    from blobctrl_torch.parallel import collectives, multihost
+    from blobctrl_torch.train import toy
+    from blobctrl_torch.train import train_step as ts
+    torch.backends.cudnn.allow_tf32 = False  # as the single-process step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe, _ = toy.load_toy(TOY_256, device="cuda", dtype=torch.float32)
+    group = multihost.world_group()
+    state, step = dp_toy_step(pipe, group)
+    del pipe
+    rows = multihost.local_rows(DP_TOY_BATCH)
+    latent = data["x0_latents"].shape[1:]
+    local = _rows(data, rows)
+    collectives.reset()
+    state = ts.replicate_state(state)
+    rep = collectives.sizes()
+    loss, grads = step.loss_and_grads(state, None, local,
+                                      *dp_draw(0, DP_TOY_BATCH, latent, rows))
+    grads, loss = ts.mean_over_ranks(grads, loss, group)
+    first = {"loss": float(loss), "norm": float(ts.global_norm(grads)),
+             "grads": ([g.cpu().numpy() for g in grads]
+                       if multihost.is_coordinator() else None)}
+    del grads
+    state, recs = _steps(step, state, None, [local] * DP_STEPS,
+                         [dp_draw(i, DP_TOY_BATCH, latent, rows)
+                          for i in range(DP_STEPS)])
+    return {"first": first, "steps": recs, "replicate": rep,
+            "want_replicate": ts.training_counts(
+                state["params"], DP_WORLD, steps=0, replicated=state),
+            "want_step": ts.training_counts(state["params"], DP_WORLD),
+            "digest": digest(state)}
+
+
+def _dp_full(seed):
+    """10b on a rank: 8c's configuration at one row of the global batch,
+    DP_STEPS steps; the peak memory over them."""
+    from blobctrl_torch.parallel import multihost
+    from blobctrl_torch.train import train_step as ts
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = TF32_DEFAULTS
+    step, state, frozen = training_setup(multihost.world_group())
+    rows = multihost.local_rows(DP_FULL_BATCH)
+    batch = _rows(train_batch(step, DP_FULL_BATCH, seed), rows)
+    draws = [dp_draw(i, DP_FULL_BATCH, TRAIN_LATENT, rows)
+             for i in range(DP_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    state, recs = _steps(step, state, frozen, [batch] * DP_STEPS, draws)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"steps": recs, "peak_gib": peak,
+           "want_step": ts.training_counts(state["params"], DP_WORLD),
+           "digest": digest(state["params"])}
+    del step, state, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_cli(job):
+    """10c on a rank: ``train_cli.run_rank`` on the models root, 1 row a
+    rank: DP_CLI_STEPS[0] steps with a checkpoint every DP_CLI_CKPT_EVERY,
+    then ``--resume`` to DP_CLI_STEPS[1] with the export, each in a group
+    of its own; the checkpoint directories after each run."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.apps import train_cli
+    from blobctrl_torch.parallel import collectives, multihost
+    from blobctrl_torch.train import train_step as ts
+    argv, export_dir, ports = job
+    rank = multihost.process_index()
+    multihost.shutdown()   # the CLI's rank body joins groups of its own
+    events = EventLog()
+    logging.getLogger("blobctrl_torch").addHandler(events)
+    runs = []
+    try:
+        for steps, port, extra in (
+                (DP_CLI_STEPS[0], ports[0], []),
+                (DP_CLI_STEPS[1], ports[1],
+                 ["--resume", "--export_dir", export_dir])):
+            args = train_cli.build_parser().parse_args(
+                argv + ["--steps", str(steps)] + extra)
+            events.events.clear()
+            ops.reset_counts()
+            collectives.reset()
+            t0 = time.perf_counter()
+            state = train_cli.run_rank(args, rank, DP_WORLD,
+                                       f"127.0.0.1:{port}", "gloo", "cuda:0")
+            secs = time.perf_counter() - t0
+            start = DP_CLI_STEPS[0] if extra else 0
+            runs.append({
+                "secs": secs, "events": list(events.events),
+                "launches": launch_counts(), "sizes": collectives.sizes(),
+                "ckpts": sorted(os.listdir(args.ckpt_dir)),
+                "want": ts.training_counts(
+                    state["params"], DP_WORLD, steps=steps - start,
+                    replicated=state,
+                    checkpoints=len(dp_cli_checkpoints(start, steps))),
+                "step": state["step"], "digest": digest(state["params"])})
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        logging.getLogger("blobctrl_torch").removeHandler(events)
+    return runs
+
+
+def dp_cli_checkpoints(start: int, end: int):
+    """The steps at which a 10c run from ``start`` to ``end`` checkpoints."""
+    return [s for s in range(start + 1, end + 1)
+            if s % DP_CLI_CKPT_EVERY == 0 or s == end]
+
+
+DP_JOBS = {"dp_toy": _dp_toy, "dp_full": _dp_full, "dp_cli": _dp_cli}
+
+
+def dp_training_phase(models_root: str, work: str, train_shapes):
+    """Phase 10. ``train_shapes``: phase 8a's K1 and K6 keys. -> {kernel:
+    launches of the phase, summed over ranks}."""
+    from blobctrl_torch.parallel import multihost
+    from blobctrl_torch.train import checkpoint as ckpt_lib
+    from blobctrl_torch.train import toy
+    from blobctrl_torch.train import train_step as ts
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, meta = toy.load_toy(TOY_256, device="cuda", dtype=torch.float32)
+    data = toy.encode_dataset(card.vae_params, card.vae_cfg,
+                              toy.build_dataset(DP_TOY_BATCH, size=256,
+                                                seed=DP_SEED,
+                                                ctx=meta["ctx"],
+                                                dino_c=meta["dino_c"]))
+    latent = data["x0_latents"].shape[1:]
+    data_root = os.path.join(work, "dp_data")    # 10c's data set
+    write_scenes(data_root, TRAIN_SIZE)
+    ckpt_dir = os.path.join(work, "dp_ckpts")
+    export_dir = os.path.join(work, "dp_export")
+    argv = ["--models_root", models_root, "--data_root", data_root,
+            "--size", str(TRAIN_SIZE), "--batch_size", "1", "--ckpt_every",
+            str(DP_CLI_CKPT_EVERY), "--log_every", "1", "--ckpt_dir",
+            ckpt_dir]
+    ports = set()
+    while len(ports) < 2:
+        ports.add(multihost.free_port())
+    refs = {}
+
+    def references():
+        """The single-process steps of the global batches, on the card
+        while the ranks start: 10a's toy gradients (fp32, TF32 off), then
+        10b's DP_STEPS steps in 8c's configuration."""
+        state, step = dp_toy_step(card)
+        loss, grads = step.loss_and_grads(state, None, data,
+                                          *dp_draw(0, DP_TOY_BATCH, latent))
+        refs["a"] = (float(loss), float(ts.global_norm(grads)),
+                     [g.cpu().numpy() for g in grads])
+        del state, step, grads
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = TF32_DEFAULTS
+        step, state, frozen = training_setup()
+        batch = train_batch(step, DP_FULL_BATCH, DP_SEED)
+        refs["b"] = []
+        for i in range(DP_STEPS):
+            state, m = step(state, frozen, batch,
+                            *dp_draw(i, DP_FULL_BATCH, TRAIN_LATENT))
+            refs["b"].append((float(m["loss"]), float(m["grad_norm"])))
+        del step, state, frozen
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  the single-process references on the card, made while the "
+            f"ranks ran: 10a's toy gradients at B = {DP_TOY_BATCH} (loss "
+            f"{refs['a'][0]:.8f}), 10b's {DP_STEPS} steps at B = "
+            f"{DP_FULL_BATCH} (losses "
+            f"{[f'{x[0]:.6f}' for x in refs['b']]})")
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(DP_WORLD, [("dp_toy", data), ("dp_full", DP_SEED),
+                                   ("dp_cli", (argv, export_dir,
+                                               sorted(ports)))],
+                        meanwhile=references)
+    del card
+    ref_a, ref_b = refs["a"], refs["b"]
+    log(f"  {DP_WORLD} ranks on cuda:0 ran 10a, 10b and 10c in "
+        f"{time.perf_counter() - t0:.1f} s (spawn and loads included)")
+    launched = collections.Counter()
+    # 10a
+    loss_a, norm_a, g_ref = ref_a
+    for rank, run in enumerate(r["dp_toy"] for r in ranks):
+        first = run["first"]
+        rel_loss = abs(first["loss"] - loss_a) / loss_a
+        rel_norm = abs(first["norm"] - norm_a) / norm_a
+        worst = None
+        if first["grads"] is not None:
+            worst = max(float(np.abs(g - w).max()) / max(
+                float(np.abs(w).max()), 1e-30)
+                for g, w in zip(first["grads"], g_ref))
+        counts = [{k: r["launches"][k] for k in EXACT} for r in run["steps"]]
+        log(f"  10a rank {rank}: the mean over ranks of the first batch: "
+            f"loss {first['loss']:.8f} against {loss_a:.8f} in one process "
+            f"(rel {rel_loss:.2e}, tol 1e-06), grad norm rel {rel_norm:.2e}"
+            + ("" if worst is None else f", worst leaf {worst:.2e} of its "
+               f"max |gradient| (tol 1e-05)") + "; steps: "
+            + ", ".join(f"loss {r['loss']:.6f} norm {r['grad_norm']:.5f} "
+                        f"{r['secs']:.3f} s" for r in run["steps"])
+            + f"; launches a step {counts}")
+        if rel_loss > 1e-6 or (worst is not None and worst > 1e-5):
+            raise AssertionError(f"10a rank {rank}: loss rel {rel_loss}, "
+                                 f"gradients {worst}")
+        if run["replicate"] != run["want_replicate"] or any(
+                r["sizes"] != run["want_step"] for r in run["steps"]):
+            raise AssertionError(
+                f"10a rank {rank}: collectives {run['replicate']} / "
+                f"{[r['sizes'] for r in run['steps']]} != "
+                f"{run['want_replicate']} / {run['want_step']}")
+        if min(min(c.values()) for c in counts) == 0:
+            raise AssertionError(f"10a rank {rank}: launches {counts}")
+        for r in run["steps"]:
+            launched.update({k: r["launches"][k] for k in EXACT})
+    toy_runs = [r["dp_toy"] for r in ranks]
+    if any(r["digest"] != toy_runs[0]["digest"]
+           or [s["loss"] for s in r["steps"]]
+           != [s["loss"] for s in toy_runs[0]["steps"]] for r in toy_runs):
+        raise AssertionError("10a: the ranks' states differ")
+    log(f"  10a: the state (params, moments) bit-equal on both ranks after "
+        f"{DP_STEPS} steps; collectives a step "
+        f"{toy_runs[0]['want_step']}, the replicate "
+        f"{toy_runs[0]['want_replicate']}")
+    # 10b
+    full = [r["dp_full"] for r in ranks]
+    for rank, run in enumerate(full):
+        for i, (r, (loss_b, norm_b)) in enumerate(zip(run["steps"], ref_b)):
+            check_tensor_cores(f"10b rank {rank} step {i + 1}", r["launches"],
+                               EXACT, r["tc"])
+            off = {k: set(r["shapes"][k]) - set(train_shapes[k])
+                   for k in EXACT}
+            ar = r["sizes"]["pipeline"]["all_reduce"]
+            secs_in = r["summary"]["pipeline"]["all_reduce"]["seconds"]
+            rel_loss = abs(r["loss"] - loss_b) / loss_b
+            rel_norm = abs(r["grad_norm"] - norm_b) / norm_b
+            log(f"  10b rank {rank} step {i + 1}: loss {r['loss']:.6f} "
+                f"(rel {rel_loss:.2e} of B = {DP_FULL_BATCH} in one "
+                f"process, tol 1e-02), grad norm {r['grad_norm']:.5f} (rel "
+                f"{rel_norm:.2e}, tol 2e-02); {r['secs']:.3f} s a step, "
+                f"{secs_in:.3f} s of it inside {ar['count']} all-reduces of "
+                f"{ar['bytes']} bytes (ranks sharing one card over gloo: "
+                f"information only); launches "
+                f"{ {k: r['launches'][k] for k in EXACT} }")
+            if rel_loss > 1e-2 or rel_norm > 2e-2:
+                raise AssertionError(f"10b rank {rank} step {i + 1}: loss "
+                                     f"{rel_loss}, norm {rel_norm}")
+            if any(off.values()) or min(r["launches"][k] for k in EXACT) \
+                    == 0:
+                raise AssertionError(f"10b rank {rank}: K1/K6 shapes not "
+                                     f"checked in 8a: {off}")
+            if r["sizes"] != run["want_step"] or \
+                    ar["bytes"] != DP_FULL_GRAD_BYTES + 4:
+                raise AssertionError(f"10b rank {rank}: collectives "
+                                     f"{r['sizes']} != {run['want_step']}")
+            launched.update({k: r["launches"][k] for k in EXACT})
+        log(f"  10b rank {rank}: peak memory {run['peak_gib']:.2f} GiB; "
+            f"step seconds {[round(r['secs'], 3) for r in run['steps']]}")
+    if any(r["digest"] != full[0]["digest"] for r in full):
+        raise AssertionError("10b: the ranks' parameters differ")
+    log(f"  10b: the parameters bit-equal on both ranks after {DP_STEPS} "
+        f"steps")
+    # 10c
+    for rank, runs in enumerate(r["dp_cli"] for r in ranks):
+        first, last = DP_CLI_STEPS
+        for run, (what, want, dirs) in zip(runs, (
+                ("steps", {"train": list(range(1, first + 1)),
+                           "checkpoint": dp_cli_checkpoints(0, first)},
+                 dp_cli_checkpoints(0, first)),
+                ("--resume", {"resumed": [first],
+                              "train": list(range(first + 1, last + 1)),
+                              "checkpoint": dp_cli_checkpoints(first, last),
+                              "exported": None},
+                 dp_cli_checkpoints(0, first)
+                 + dp_cli_checkpoints(first, last)))):
+            got = {}
+            for e in run["events"]:
+                if e.get("event") in ("train", "checkpoint", "resumed",
+                                      "exported"):
+                    got.setdefault(e["event"], []).append(e.get("step"))
+            lead_want = {k: v if v is not None else [None]
+                         for k, v in want.items()}
+            calls = {op: c["count"]
+                     for op, c in run["sizes"].get("pipeline", {}).items()}
+            ran = {k: n for k, n in run["launches"].items() if n}
+            log(f"  10c rank {rank} {what}: {run['secs']:.2f} s, events "
+                f"{got}, collectives {calls}, launches {ran}, checkpoints "
+                f"{run['ckpts']}")
+            if got != (lead_want if rank == 0 else {}):
+                raise AssertionError(f"10c rank {rank} {what}: events {got}")
+            if run["ckpts"] != [f"step_{s:08d}" for s in dirs]:
+                raise AssertionError(f"10c rank {rank} {what}: checkpoints "
+                                     f"{run['ckpts']}, want steps {dirs}")
+            if run["sizes"] != run["want"]:
+                raise AssertionError(f"10c rank {rank} {what}: collectives "
+                                     f"{run['sizes']} != {run['want']}")
+            launched.update({k: run["launches"][k] for k in EXACT})
+    cli = [r["dp_cli"] for r in ranks]
+    if any([x["digest"] for x in r] != [x["digest"] for x in cli[0]]
+           for r in cli) or cli[0][-1]["step"] != DP_CLI_STEPS[1]:
+        raise AssertionError("10c: the ranks' final states differ")
+    final = ckpt_lib.restore(ckpt_dir, device="cuda")
+    if final["step"] != DP_CLI_STEPS[1] or digest(final["params"]) != \
+            cli[0][-1]["digest"]:
+        raise AssertionError("10c: rank 0's last checkpoint is not the "
+                             "final state")
+    pipe = reload_export(models_root, export_dir, final["params"],
+                         os.path.join(work, "dp_models_root_trained"))
+    del pipe, final
+    shutil.rmtree(ckpt_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s; launches "
+        f"over every rank {dict(launched)}")
+    return dict(launched)
+
+
 T_START = time.perf_counter()
+
+
+def log_elapsed():
+    log(f"  ({time.perf_counter() - T_START:.1f} s into the run)")
 
 
 def main() -> int:
@@ -3478,6 +4043,7 @@ def main() -> int:
         f"exponentials/s")
     log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    log_elapsed()
     t0 = time.perf_counter()
     _build.build_all()
     log(f"  kernel build {time.perf_counter() - t0:.2f} s")
@@ -3487,6 +4053,7 @@ def main() -> int:
 
     # -- phase 2 ------------------------------------------------------------
     log("phase 2: kernels against their plain versions at the 512^2 shapes")
+    log_elapsed()
     pipe = benchkit.make_flagship_pipe(seed=0, device="cuda",
                                        dtype=torch.bfloat16)
     # one step, inside the control window, so BlobNet runs too
@@ -3517,10 +4084,12 @@ def main() -> int:
 
     # -- phase 3 ------------------------------------------------------------
     log("phase 3: trained toy checkpoint, card against CPU")
+    log_elapsed()
     toy_phase()
 
     # -- phase 4 ------------------------------------------------------------
     log(f"phase 4: full width, bf16, {STEPS} steps per request")
+    log_elapsed()
     requests = full_width_requests(STEPS)
     ops.reset_counts()
     for name, kw in requests:
@@ -3575,6 +4144,7 @@ def main() -> int:
     # -- phase 5 ------------------------------------------------------------
     log(f"phase 5: the interactive session at full width, bf16, {STEPS} "
         f"steps per run")
+    log_elapsed()
     benchkit.add_encoders(pipe, seed=3)
     counts["blob_splat"], totals["blob_splat"] = session_phase(pipe, STEPS)
     for key, n in counts["blob_splat"].items():
@@ -3602,6 +4172,7 @@ def main() -> int:
     # -- phase 6 ------------------------------------------------------------
     log("phase 6: a reference-layout checkpoint at full geometry, loaded in "
         "bf16; requests at 512^2")
+    log_elapsed()
     del pipe
     torch.cuda.empty_cache()
     _, pipe = checkpoint_phase(models_root)
@@ -3610,6 +4181,7 @@ def main() -> int:
     log(f"phase 7: serving on phase 6's loaded pipeline: edit_batch at B = "
         f"{', '.join(map(str, BATCH_SIZES))}, the HTTP server, a traced "
         f"edit, the int8 linear path")
+    log_elapsed()
     served_shapes, served = serving_phase(pipe)
     for name in EXACT + INT8:
         missing = set(served_shapes.get(name, ())) - set(results[name])
@@ -3623,6 +4195,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"checkpoint day on phase 6's models root, bf16, over phase 5's two "
         f"states, {CKPT_DAY_STEPS} steps")
+    log_elapsed()
     checkpoint_day_phase(models_root, demo_root)
 
     # -- phase 8 ------------------------------------------------------------
@@ -3630,6 +4203,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 8: training (device memory held before it: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+    log_elapsed()
     train_errs, trained = training_phase(models_root, work.name)
 
     # -- phase 9 ------------------------------------------------------------
@@ -3637,9 +4211,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 9: the edit sharded over ranks that share this card over "
         "gloo: the toy and full width at model=2, data=2 and hybrid 2 x 2")
+    log_elapsed()
     parallel = parallel_phase(results)
 
     # -- phase 10 -----------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10: data-parallel training on {DP_WORLD} ranks that share "
+        f"this card over gloo: the toy, full width, the training CLI")
+    log_elapsed()
+    dp_trained = dp_training_phase(models_root, work.name,
+                                   {k: set(v) for k, v in train_errs.items()})
+
+    # -- phase 11 -----------------------------------------------------------
     meta = {"flash_attention": ("blobctrl_torch/csrc/flash_attention.cu",
                                 "blobctrl_tpu/ops/flash_attention.py:80"),
             "conv3x3": ("blobctrl_torch/csrc/conv3x3.cu",
@@ -3676,6 +4260,7 @@ def main() -> int:
                  "served_launches": served.get(name, 0),
                  "train_launches": trained.get(name, 0),
                  "parallel_launches": parallel.get(name, 0),
+                 "dp_train_launches": dp_trained.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"]
                                     for r in results[name].values())}
         if name in train_errs:  # the Function's forward and gradients

@@ -292,6 +292,48 @@ def test_bring_up_needs_a_named_backend():
                                  backend="gloo")
 
 
+@pytest.mark.parametrize("device,rank,want", [
+    ("cuda:3", 9, "cuda:3"),      # rank 9 on a host of 8 cards names its card
+    ("cuda:0", 1, "cuda:0"),
+    ("cuda", 2, "cuda:2"),        # bare cuda: the rank's index
+    ("cuda", 9, "several hosts must each name their card"),
+    ("cuda:8", 0, "not a card of this host"),
+])
+def test_nccl_card_rule(device, rank, want, monkeypatch):
+    """Under nccl a rank runs on the card its device names; bare ``cuda``
+    means ``cuda:rank``, refused only where this host has no such card
+    (a host of 8 cards faked)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    if want.startswith("cuda"):
+        assert multihost.nccl_card(device, rank) == torch.device(want)
+    else:
+        with pytest.raises(RuntimeError, match=want):
+            multihost.nccl_card(device, rank)
+
+
+def test_initialize_takes_the_named_card_before_the_group(monkeypatch):
+    """``initialize`` applies the card rule before the process group starts:
+    rank 9 of 16 with ``cuda:3`` on a host of 8 cards is set to cuda:3 and
+    joins; with bare ``cuda`` it is refused and never joins."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(torch.cuda, "set_device", seen.append)
+    monkeypatch.setattr(multihost.dist, "init_process_group",
+                        lambda backend, **kw: seen.append((backend, kw)))
+    dev = multihost.initialize("10.0.0.1:29500", 16, 9, device="cuda:3",
+                               backend="nccl")
+    assert dev == torch.device("cuda:3") and seen[0] == dev
+    assert seen[1][0] == "nccl" and seen[1][1]["rank"] == 9
+    assert seen[1][1]["init_method"] == "tcp://10.0.0.1:29500"
+    seen.clear()
+    with pytest.raises(RuntimeError, match="name their card"):
+        multihost.initialize("10.0.0.1:29500", 16, 9, device="cuda",
+                             backend="nccl")
+    assert seen == []
+
+
 def test_mesh_flags_on_the_cpu():
     """data=auto and --hybrid_cfg_data without a mesh fill the cards, which
     the CPU does not have: refused; a hybrid mesh needs data >= 2 (JAX's

@@ -3,13 +3,18 @@ on a models root that ``params/export.write_models_root`` writes from
 tiny random trees: ``load_dataset`` against the JAX CLI's (PIL) on PNG and
 JPEG images and RGB masks of another size; 2 steps with a checkpoint, a
 resume to 4 (starting at step 2) and the export, which reloads through
-the port's loaders bit-equal to the final state; the refused
-multi-process flags."""
+the port's loaders bit-equal to the final state; data-parallel training
+on 2 gloo ranks (``--data_parallel 2``, and the same run as two
+``--coordinator`` processes, bit-equal to it), its checkpoints, resume,
+export and collective count; the refused flags."""
 
 import io
 import json
 import logging
 import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -20,12 +25,15 @@ from blobctrl_tpu.apps import train_cli as jcli
 from blobctrl_torch.apps import train_cli as tcli
 from blobctrl_torch.params import export as texport
 from blobctrl_torch.params import io as tio
+from blobctrl_torch.parallel import collectives, multihost
 from blobctrl_torch.train import checkpoint as tckpt
+from blobctrl_torch.train import train_step as tts
 from blobctrl_torch.utils import benchkit, png
 from tests.test_torch_loaders import lora_tree, tiny_trees
 
 torch.set_num_threads(2)
 SIZE = 64
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -137,10 +145,189 @@ def test_train_checkpoint_resume_export(models_root, data_root, tmp_path,
     assert moved == len(lora)  # every B left zero
 
 
-@pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
-                                   ["--num_processes", "2"],
-                                   ["--process_id", "0"],
-                                   ["--data_parallel", "2"]])
-def test_multi_process_flags_refused(flags, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP item 17"):
-        tcli.main(["--data_root", str(tmp_path), "--device", "cpu", *flags])
+def test_data_parallel_checkpoint_resume_export(models_root, data_root,
+                                                tmp_path, caplog,
+                                                monkeypatch):
+    """``--data_parallel 2 --device cpu``: this process is rank 0 and
+    spawns rank 1 (gloo; one thread, as the test workers share the
+    cores); 4 steps of the global batch of 4 with a checkpoint every 2 and
+    the export, then ``--resume`` on 2 ranks to 6, which starts at step 4.
+    Rank 0 narrates and writes (no ``.tmp`` left); its collective log is
+    the derived count: the replicate, the steps' gradient means, one
+    barrier a checkpoint."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    caplog.set_level(logging.INFO, logger="blobctrl_torch")
+    collectives.reset()
+    state = tcli.main(_argv(models_root, data_root, tmp_path, "--steps", "4",
+                            "--data_parallel", "2", "--export_dir",
+                            str(tmp_path / "export")))
+    assert collectives.sizes() == tts.training_counts(
+        state["params"], 2, steps=4, replicated=state, checkpoints=2)
+    assert state["step"] == 4 and state["opt_state"]["count"] == 4
+    train = _events(caplog, "train")
+    assert [e["step"] for e in train] == [1, 2, 3, 4]
+    assert all(np.isfinite(e["loss"]) for e in train)
+    assert [e["step"] for e in _events(caplog, "checkpoint")] == [2, 4]
+    assert _events(caplog, "multihost") == [
+        {"event": "multihost", "process": 0, "processes": 2,
+         "local_examples": 2}]
+    assert sorted(os.listdir(tmp_path / "ckpts")) == ["step_00000002",
+                                                      "step_00000004"]
+    saved = tckpt.restore(str(tmp_path / "ckpts"), device="cpu")
+    for a, b in zip(tts.tree_leaves(saved), tts.tree_leaves(state)):
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+    blob = tio.load_blobnet(str(tmp_path / "export" / "blobnet"),
+                            device="cpu")
+    for a, b in zip(texport.flatten(blob).values(),
+                    texport.flatten(state["params"]["blobnet"]).values()):
+        assert torch.equal(a, b)
+    caplog.clear()
+    collectives.reset()
+    fresh = []   # rank 0 reads the checkpoint and makes no fresh state
+    monkeypatch.setattr(tts, "init_train_state",
+                        lambda *a, f=tts.init_train_state: fresh.append(1)
+                        or f(*a))
+    state = tcli.main(_argv(models_root, data_root, tmp_path, "--steps", "6",
+                            "--data_parallel", "2", "--resume"))
+    assert fresh == []
+    assert _events(caplog, "resumed") == [{"event": "resumed", "step": 4}]
+    assert [e["step"] for e in _events(caplog, "train")] == [5, 6]
+    assert state["step"] == 6 and state["opt_state"]["count"] == 6
+    assert collectives.sizes() == tts.training_counts(
+        state["params"], 2, steps=2, replicated=state, checkpoints=1)
+
+
+def _cli(argv, env_threads="1"):
+    """``python -m blobctrl_torch.apps.train_cli argv`` started in the
+    repository root, one thread a process."""
+    env = dict(os.environ, OMP_NUM_THREADS=env_threads, PYTHONPATH=ROOT)
+    return subprocess.Popen(
+        [sys.executable, "-m", "blobctrl_torch.apps.train_cli", *argv],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _wait(procs, timeout=240):
+    out = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=timeout)
+            out.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def test_coordinator_form_equals_the_spawned_form(models_root, data_root,
+                                                  tmp_path):
+    """The same 2-rank run started as two ``--coordinator`` processes (each
+    with its own checkpoint and export directories) ends bit-equal to the
+    ``--data_parallel 2`` run: rank 1's directories are never made."""
+    common = ["--steps", "2", "--device", "cpu"]
+    spawned = _argv(models_root, data_root, tmp_path / "spawned", *common,
+                    "--data_parallel", "2")
+    [(rc, err)] = _wait([_cli(spawned)])
+    assert rc == 0, err
+    port = multihost.free_port()
+    procs = [_cli(_argv(models_root, data_root, tmp_path / f"rank{i}",
+                        *common, "--coordinator", f"127.0.0.1:{port}",
+                        "--num_processes", "2", "--process_id", str(i),
+                        "--export_dir", str(tmp_path / f"rank{i}" / "exp")))
+             for i in range(2)]
+    for rc, err in _wait(procs):
+        assert rc == 0, err
+    a = tckpt.restore(str(tmp_path / "spawned" / "ckpts"), device="cpu")
+    b = tckpt.restore(str(tmp_path / "rank0" / "ckpts"), device="cpu")
+    assert a["step"] == b["step"] == 2
+    for x, y in zip(tts.tree_leaves(a), tts.tree_leaves(b), strict=True):
+        assert torch.equal(x, y) if torch.is_tensor(x) else x == y
+    assert os.path.isdir(tmp_path / "rank0" / "exp" / "blobnet")
+    assert not os.path.exists(tmp_path / "rank1")
+
+
+def test_a_stride_short_of_a_batch_is_refused_on_every_rank(
+        models_root, data_root, tmp_path, monkeypatch):
+    """4 examples over 2 ranks leave 2 a rank, fewer than --batch_size 3:
+    both forms refuse on every rank with one message, before the group
+    forms (so nobody waits for the group's timeout)."""
+    argv = _argv(models_root, data_root, tmp_path, "--steps", "2")
+    argv[argv.index("--batch_size") + 1] = "3"
+    msg = "4 examples over 2 ranks leave 2 a rank, fewer than --batch_size 3"
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the spawned rank's
+    with pytest.raises(SystemExit, match=msg):
+        tcli.main(argv + ["--data_parallel", "2"])
+    port = multihost.free_port()
+    t0 = time.monotonic()
+    res = _wait([_cli(argv + ["--coordinator", f"127.0.0.1:{port}",
+                              "--num_processes", "2", "--process_id", str(i)])
+                 for i in range(2)], timeout=120)
+    assert time.monotonic() - t0 < 60
+    for rc, err in res:
+        assert rc != 0 and msg in err, err
+    assert not os.path.exists(tmp_path / "ckpts")
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--coordinator", "127.0.0.1:1234"], "go together"),
+    (["--coordinator", "127.0.0.1:1234", "--num_processes", "2"],
+     "go together"),
+    (["--process_id", "0"], "go together"),
+    (["--coordinator", "127.0.0.1:1234", "--num_processes", "2",
+      "--process_id", "2"], "not a rank of --num_processes 2"),
+    (["--coordinator", "127.0.0.1:1234", "--num_processes", "2",
+      "--process_id", "0", "--data_parallel", "3"],
+     "--data_parallel 3 with --num_processes 2"),
+    (["--data_parallel", "-1", "--device", "cpu"], "< 0"),
+])
+def test_inconsistent_rank_flags_refused(flags, match, tmp_path):
+    """Refused before anything loads (the data root does not exist)."""
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(["--data_root", str(tmp_path / "absent"), *flags])
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+@pytest.mark.parametrize("cards", [0, 1])
+def test_more_spawned_ranks_than_cards_refused(device, cards, tmp_path,
+                                               monkeypatch):
+    """--data_parallel 2 on the card wants two cards, rank r on cuda:r:
+    refused where CUDA has none or one (faked), and for a device that
+    names one card, before anything loads."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    match = (f"needs 2 cards, one a rank; {cards} are visible"
+             if device == "cuda" else "name --device cuda, not cuda:0")
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(["--data_root", str(tmp_path / "absent"), "--device",
+                   device, "--data_parallel", "2"])
+
+
+@pytest.mark.parametrize("device", ["cuda:0", "cuda:1"])
+def test_a_named_card_trains_one_rank(device, tmp_path, monkeypatch):
+    """On a host with 2 (faked) cards, ``--device cuda:K`` without
+    --coordinator is one rank on that card (spawning a rank a card onto
+    one card would fail in NCCL), and ``--data_parallel 2`` with it is
+    refused before anything loads."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    args = tcli.build_parser().parse_args(["--data_root", "x", "--device",
+                                           device])
+    assert tcli.ranks(args) == (1, None, False)
+    args.data_parallel = 1
+    assert tcli.ranks(args) == (1, None, False)
+    with pytest.raises(SystemExit, match=f"not {device}"):
+        tcli.main(["--data_root", str(tmp_path / "absent"), "--device",
+                   device, "--data_parallel", "2"])
+
+
+def test_data_parallel_zero_means_every_card(monkeypatch):
+    args = tcli.build_parser().parse_args(["--data_root", "x", "--device",
+                                           "cpu"])
+    assert tcli.ranks(args) == (1, None, False)
+    args.device = "cuda"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tcli.ranks(args) == (4, "nccl", True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert tcli.ranks(args) == (1, None, False)
+    args.coordinator, args.num_processes, args.process_id = "h:1", 8, 5
+    assert tcli.ranks(args) == (8, "nccl", False)

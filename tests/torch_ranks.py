@@ -215,3 +215,92 @@ def replicate_rank(shape):
     multihost.barrier("after replicate")
     return (multihost.fetch(tree), list(multihost.local_rows(4)),
             collectives.counts())
+
+
+def train_dp_rank(trees, batches, draws, runs, ckpt_dir):
+    """Data-parallel training of the tiny nets: each rank takes its rows of
+    each global batch and of the step's draws. ``trees``: numpy
+    {"unet", "blobnet", "lora"}; ``runs``: [(TrainConfig kwargs,
+    ``train_step.GRAD_BUCKET_BYTES`` for the run)], each started from a state that rank 1 perturbs before
+    ``replicate_state``. Each run ends with a checkpoint (rank 0 writes,
+    every rank meets at the barrier). -> per run: {"grads": the averaged
+    gradients of the first batch (nothing updated), "metrics": [(loss,
+    grad_norm)] a step, "states": [the state, numpy leaves] a step,
+    "replicate" / "steps" / "ckpt": the collective log's sizes of the
+    replicate, of each step and of the checkpoint, "draw": this rank's
+    rows of a drawn global batch}."""
+    import torch
+    from blobctrl_torch.apps import flagship
+    from blobctrl_torch.params.from_jax import from_jax
+    from blobctrl_torch.parallel import collectives, multihost
+    from blobctrl_torch.train import checkpoint
+    from blobctrl_torch.train import train_step as ts
+    rank = multihost.process_index()
+    b = len(batches[0]["x0_latents"])
+    rows = multihost.local_rows(b)
+    ucfg, bcfg = flagship.tiny_configs()
+    frozen = from_jax(trees["unet"], "cpu")
+    out = []
+    for kw, bucket in runs:
+        ts.GRAD_BUCKET_BYTES = bucket   # this rank's process alone
+        cfg = ts.TrainConfig(compute_dtype=torch.float32, remat=False, **kw)
+        state = ts.init_train_state(cfg, from_jax(trees["blobnet"], "cpu"),
+                                    from_jax(trees["lora"], "cpu"))
+        if rank:   # replicate_state must undo this
+            for t in ts.tree_leaves(state["params"]):
+                t.add_(1.0)
+            state["step"] = 7
+        collectives.reset()
+        state = ts.replicate_state(state)
+        rec = {"replicate": collectives.sizes(), "metrics": [], "states": [],
+               "steps": []}
+        step = ts.make_train_step(cfg, ucfg, bcfg,
+                                  group=multihost.world_group())
+
+        def local(i):
+            batch = {k: v[rows.start:rows.stop] for k, v in
+                     batches[i].items()}
+            t, noise = (torch.from_numpy(np.asarray(a)[rows.start:rows.stop])
+                        for a in draws[i])
+            return batch, t.long(), noise
+        loss, grads = step.loss_and_grads(state, frozen, *local(0))
+        grads, _ = ts.mean_over_ranks(grads, loss, step.group)
+        rec["grads"] = [g.numpy().copy() for g in grads]
+        for i in range(len(batches)):
+            collectives.reset()
+            state, m = step(state, frozen, *local(i))
+            rec["steps"].append(collectives.sizes())
+            rec["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+            rec["states"].append(ts.tree_map(
+                lambda t: t.numpy().copy() if isinstance(t, torch.Tensor)
+                else t, state))
+        collectives.reset()
+        if rank == 0:
+            checkpoint.save(ckpt_dir, state)
+        multihost.barrier("checkpoint")
+        rec["ckpt"] = collectives.sizes()
+        t, noise = ts.draw_t_noise(torch.Generator().manual_seed(5), b,
+                                   (4, 4, 4), rows=rows)
+        rec["draw"] = (t.numpy(), noise.numpy())
+        out.append(rec)
+    return out
+
+
+def mismatched_state_rank():
+    """``replicate_state`` on a train state whose layout differs by rank:
+    rank 0's carries an EMA shadow, the others' do not (a checkpoint made
+    with EMA resumed without it). -> (the error every rank raised, the
+    collective counts)."""
+    import torch
+    from blobctrl_torch.parallel import collectives, multihost
+    from blobctrl_torch.train import train_step as ts
+    rank = multihost.process_index()
+    cfg = ts.TrainConfig(ema_decay=0.9 if rank == 0 else 0.0)
+    state = ts.init_train_state(cfg, {"w": torch.ones(3, 2)},
+                                {"a": torch.zeros(4)})
+    collectives.reset()
+    try:
+        ts.replicate_state(state)
+    except ValueError as e:
+        return str(e), collectives.counts()
+    return None, collectives.counts()
