@@ -16,17 +16,27 @@ Usage:
 Data-parallel training: ``--data_parallel N`` (0, the default: every
 visible card; 1 on the CPU) runs N ranks from this process, which is rank
 0 and spawns the others: one card a rank over NCCL, or gloo with
-``--device cpu``. On several hosts run the SAME command on every host with
+``--device cpu``. This is JAX's one process over N devices: --batch_size
+is the global batch B, which N must divide, every rank runs the same
+loader (seed 0) over the whole data set and trains rows
+``multihost.local_rows(B, N, r)`` of each batch, the rows JAX's
+``P("data")`` puts on device r. Every rank encodes every example at
+start-up (start-up seconds, not step seconds), held compact.
+On several hosts run the SAME command on every host with
 ``--coordinator host:port --num_processes N --process_id i`` (nccl on the
 card, gloo on the CPU; bare ``--device cuda`` puts rank i on ``cuda:i``,
-so a host whose ranks do not start at 0 names its card, ``cuda:K``). The
-spawned form takes bare ``cuda``; ``--device cuda:K`` alone trains one
-rank on that card.
---batch_size is per rank: each rank loads a disjoint stride of the data
-set, t and noise are drawn for the global batch and each rank keeps its
-rows, and the gradients are averaged over the ranks before the clip. Rank
-0 narrates, writes the checkpoints (then every rank meets at a barrier),
-reads them on --resume (then broadcasts the state) and exports.
+so a host whose ranks do not start at 0 names its card, ``cuda:K``). As
+in JAX's multi-process form, --batch_size is then per process and each
+process reads its stride of the data set (``images[i::N]``): the global
+batch is --batch_size x N. A port process is one card where a JAX
+process is one host, so the port's global batch counts cards where
+JAX's counts hosts. The spawned form takes bare ``cuda``;
+``--device cuda:K`` alone trains one rank on that card.
+In both forms t and noise are drawn for the global batch and each rank
+keeps its rows, and the gradients are averaged over the ranks before the
+clip. Rank 0 narrates (``img_per_sec`` over the global batch), writes
+the checkpoints (then every rank meets at a barrier), reads them on
+--resume (then broadcasts the state) and exports.
 """
 
 from __future__ import annotations
@@ -162,7 +172,7 @@ def run(args):
     if not spawn:
         rank = args.process_id or 0
         return run_rank(args, rank, world, args.coordinator, backend,
-                        args.device)
+                        args.device, per_process=args.coordinator is not None)
     address = f"127.0.0.1:{multihost.free_port()}"
     followers = multihost.Followers(_follower, world, address,
                                     (args, backend))
@@ -185,35 +195,58 @@ def _follower(rank, world, address, conn, args, backend):
     run_rank(args, rank, world, address, backend, args.device)
 
 
-def run_rank(args, rank: int, world: int, address, backend, device):
+def check_data(examples: int, batch: int, world: int, per_process: bool):
+    """SystemExit where the data set cannot feed ``world`` ranks a batch:
+    a global batch the ranks do not divide or larger than the data set,
+    or (``per_process``) a process's stride shorter than its batch."""
+    if per_process:
+        if examples // world < batch:
+            raise SystemExit(f"{examples} examples over {world} ranks "
+                             f"leave {examples // world} a rank, fewer than "
+                             f"--batch_size {batch}")
+        return
+    if batch % world:
+        raise SystemExit(f"--batch_size {batch} is the global batch: "
+                         f"{world} ranks do not divide it")
+    if examples < batch:   # the loader's own message
+        raise SystemExit(f"dataset has {examples} examples but batch_size "
+                         f"is {batch}; the loader would yield zero batches")
+
+
+def run_rank(args, rank: int, world: int, address, backend, device,
+             per_process: bool = False):
     """Rank ``rank`` of ``world`` data-parallel ranks, the whole run when
-    world is 1 (no group). -> the final train state."""
+    world is 1 (no group). per_process: the --coordinator form
+    (--batch_size per process, this process's stride of the data set);
+    otherwise --batch_size is the global batch and this rank trains its
+    rows of it. -> the final train state."""
     resolve_device(device)   # no CUDA: refused before the data is read
     images, masks, prompt_texts = load_dataset(args.data_root, args.size)
-    # every rank refuses alike, before the group: a rank whose stride
-    # cannot fill a batch would leave the others waiting in a collective
-    if len(images) // world < args.batch_size:
-        raise SystemExit(f"{len(images)} examples over {world} ranks leave "
-                         f"{len(images) // world} a rank, fewer than "
-                         f"--batch_size {args.batch_size}")
+    # every rank refuses alike, before the group: a rank that cannot fill
+    # its rows would leave the others waiting in a collective
+    check_data(len(images), args.batch_size, world, per_process)
+    if per_process:
+        images, masks, prompt_texts = (x[rank::world] for x in (
+            images, masks, prompt_texts))
+    global_batch = args.batch_size * (world if per_process else 1)
     if world == 1:
-        return _train(args, 0, 1, device, images, masks, prompt_texts)
-    # each rank loads a disjoint stride of the data set and feeds its rows
-    # of the global batch; --batch_size is per rank
+        return _train(args, 0, 1, device, images, masks, prompt_texts,
+                      global_batch, per_process)
     device = multihost.initialize(address, world, rank, device=device,
                                   backend=backend)
     try:
         log_event("multihost", process=rank, processes=world,
-                  local_examples=len(images[rank::world]))
-        return _train(args, rank, world, device, images[rank::world],
-                      masks[rank::world], prompt_texts[rank::world])
+                  local_examples=len(images))
+        return _train(args, rank, world, device, images, masks,
+                      prompt_texts, global_batch, per_process)
     finally:
         multihost.shutdown()
 
 
-def _train(args, rank, world, device, images, masks, prompt_texts):
-    """The training of one rank on its examples; rank 0 narrates, writes
-    and exports."""
+def _train(args, rank, world, device, images, masks, prompt_texts,
+           global_batch, per_process):
+    """The training of one rank on its examples, its rows of each global
+    batch; rank 0 narrates, writes and exports."""
     from blobctrl_torch.models import lora as lora_lib
     from blobctrl_torch.params import io as params_io
     from blobctrl_torch.train import checkpoint as ckpt_lib
@@ -228,9 +261,11 @@ def _train(args, rank, world, device, images, masks, prompt_texts):
     with torch.no_grad():
         pes = [pipe.encode_prompt(t, None, 1, do_cfg=False)[0].float()
                .cpu().numpy() for t in prompt_texts]
-    loader = data_lib.BlobDataLoader(pipe, images, masks, pes,
-                                     batch_size=args.batch_size,
-                                     size=args.size)
+    rows = multihost.local_rows(global_batch, world, rank)
+    # the --coordinator form's loader yields this process's rows already
+    loader = data_lib.BlobDataLoader(
+        pipe, images, masks, pes, batch_size=args.batch_size,
+        size=args.size, rows=None if per_process else rows)
 
     cfg = ts.TrainConfig(learning_rate=args.learning_rate,
                          train_unet_full=args.full_finetune,
@@ -258,8 +293,6 @@ def _train(args, rank, world, device, images, masks, prompt_texts):
                                  group=multihost.world_group()
                                  if world > 1 else None)
 
-    global_batch = args.batch_size * world
-    rows = multihost.local_rows(global_batch, world, rank)
     step = state["step"]
     t0 = time.perf_counter()
     while step < args.steps:

@@ -132,13 +132,19 @@ def convex_hull(points: np.ndarray) -> np.ndarray:
 
 
 def fit_ellipse(points: np.ndarray) -> Ellipse:
-    """OpenCV's ``fitEllipse`` (the algebraic least-squares fit it runs by
-    default) in float64 over float32 points: a conic fit for the center,
-    a re-fit of the quadratic terms about it, then the axes and angle."""
+    """OpenCV's ``fitEllipse`` of a convex hull, in float64 over float32
+    points: the direct least-squares fit for exactly 5 points, the
+    algebraic fit otherwise."""
     p = np.asarray(points, np.float32).reshape(-1, 2)
-    n = len(p)
-    if n < 5:
+    if len(p) < 5:
         raise ValueError("fitting an ellipse needs at least 5 points")
+    return _fit_direct(p) if len(p) == 5 else _fit_algebraic(p)
+
+
+def _fit_algebraic(p: np.ndarray) -> Ellipse:
+    """cv2's default fit: a conic fit for the center, a re-fit of the
+    quadratic terms about it, then the axes and angle."""
+    n = len(p)
     c = np.zeros(2, np.float32)
     for q in p:                       # float32 running sum, as cv2 sums
         c += q
@@ -189,18 +195,63 @@ def fit_ellipse(points: np.ndarray) -> Ellipse:
     cx = float(f(f(rp[0] / scale) + c[0]))
     cy = float(f(f(rp[1] / scale) + c[1]))
     w_, h_ = float(f(r2 * 2 / scale)), float(f(r3 * 2 / scale))
-    angle = float(f(ang * 180 / math.pi))
+    # cv2 sets the angle only where it swaps width and height; an
+    # ellipse always swaps (r2 < r3), a hyperbola with |r2| > r3 keeps 0
+    angle = 0.0
     if w_ > h_:
         w_, h_ = h_, w_
         angle = float(f(90 + ang * 180 / math.pi))
-    if 4 * gfp[0] * gfp[1] < gfp[2] * gfp[2]:
-        # the fitted conic is no ellipse (a hyperbola): cv2 reports 0
-        angle = 0.0
     if angle < -180:
         angle += 360
     if angle > 360:
         angle -= 360
     return ((cx, cy), (w_, h_), angle)
+
+
+def _fit_direct(p: np.ndarray) -> Ellipse:
+    """cv2's ``fitEllipseDirect`` (Fitzgibbon's ellipse-specific fit in
+    Halir and Flusser's reduced form): of the reduced scatter system's
+    eigenvectors, the one furthest inside 4ac - b^2 > 0. cv2 refits a
+    nudged set where its determinant of that system is at most 1e-10; for
+    5 points the system is singular in exact arithmetic (their conic is
+    its null vector), so the test reads rounding, which stays far above
+    the bar unless the points are collinear, as a hull's never are."""
+    n = len(p)
+    c = p.astype(np.float64).sum(0) / n
+    s = float(np.abs(p.astype(np.float64) - c).sum())
+    eps32 = float(np.finfo(np.float32).eps)
+    scale = 100.0 / (s if s > eps32 else eps32)
+    px, py = (p[:, 0] - c[0]) * scale, (p[:, 1] - c[1]) * scale
+    a = np.stack([px * px, px * py, py * py, px, py, np.ones(n)], 1)
+    dm = a.T @ a / n
+    s1, s2, s3 = dm[:3, :3], dm[:3, 3:], dm[3:, 3:]
+    t = -np.linalg.solve(s3, s2.T)   # the linear terms eliminated
+    red = s1 + s2 @ t
+    m = np.stack([red[2] / 2, -red[1], red[0] / 2])
+    vecs = np.linalg.eig(m)[1].real.T
+    cond = 4 * vecs[:, 0] * vecs[:, 2] - vecs[:, 1] ** 2
+    ea, eb, ec = vecs[int(np.argmax(cond))]
+    ed, ee, ef = t @ np.array([ea, eb, ec])
+    l1 = math.sqrt(eb * eb + (ea - ec) ** 2)
+    l2 = ea + ec
+    l3 = eb * eb - 4 * ea * ec
+    u = ec * ed * ed - eb * ed * ee + ea * ee * ee + l3 * ef
+    x0 = (2 * ec * ed - eb * ee) / l3 / scale + c[0]
+    y0 = (2 * ea * ee - eb * ed) / l3 / scale + c[1]
+    ra = math.sqrt(2.0) * math.sqrt(u / ((l1 - l2) * l3)) / scale
+    rb = math.sqrt(2.0) * math.sqrt(-u / ((l1 + l2) * l3)) / scale
+    if eb == 0:
+        theta = 0.0 if ea < ec else math.pi / 2
+    else:
+        theta = math.pi / 2 + 0.5 * math.atan2(eb, ea - ec)
+    f = np.float32
+    w_, h_ = float(f(2 * ra)), float(f(2 * rb))
+    deg = theta * 180 / math.pi
+    if w_ > h_:
+        w_, h_ = h_, w_
+        deg += 90
+    return ((float(f(x0)), float(f(y0))), (w_, h_),
+            float(f(math.fmod(deg, 180.0))))
 
 
 def ellipse_from_mask(mask: np.ndarray) -> Ellipse:

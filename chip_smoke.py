@@ -270,13 +270,19 @@ script exits non-zero:
         derived count; the parameters bit-equal on both ranks; seconds
         inside the all-reduces, step seconds and each rank's peak memory
         printed.
-     c. ``train_cli.run_rank`` on phase 6's models root, 1 row a rank:
+     c. ``train_cli.run_rank``, the spawned form's rank body, on phase
+        6's models root at --batch_size DP_CLI_BATCH, the global batch (1
+        row a rank; every rank's loader over the whole data set):
         DP_CLI_STEPS[0] steps with a checkpoint after each (rank 0 writes
         one ``step_N`` a step), then ``--resume`` to DP_CLI_STEPS[1] with
-        the export; rank 0 alone narrates; the
-        collective log equal to the derived count; the final state
-        bit-equal on both ranks and to rank 0's last checkpoint; the
-        export reloaded as 8d reloads its own.
+        the export; rank 0 alone narrates, img_per_sec over the global
+        batch; each rank's loader yields its one row; the collective log
+        equal to the derived count; the final state bit-equal on both
+        ranks and to rank 0's last checkpoint; the export reloaded as 8d
+        reloads its own. Printed: each rank's bytes an example holds and
+        the peak rise of its resident memory while its loader is built,
+        against the same examples held as ``build_example`` returns them
+        (with their DINOv2 splat).
  11. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those
@@ -3618,6 +3624,7 @@ DP_WORLD = 2              # ranks
 DP_TOY_BATCH = 4          # 10a's global batch (2 rows a rank)
 DP_STEPS = 2              # 10a's and 10b's steps
 DP_FULL_BATCH = 2         # 10b's global batch (1 row a rank)
+DP_CLI_BATCH = 2          # 10c's --batch_size, the global batch
 DP_CLI_STEPS = (2, 3)     # 10c: steps with a checkpoint, then --resume to
 DP_CLI_CKPT_EVERY = 1     # 10c: a checkpoint before the last step too
 DP_SEED = 8
@@ -3752,20 +3759,83 @@ def _dp_full(seed):
     return out
 
 
+def rss_peak(fn):
+    """``fn()`` while a thread samples this process's resident set every
+    2 ms (``/proc/self/statm``). -> (its result, the peak rise over the
+    resident set at the start, in bytes)."""
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+    start = rss()
+    peak = [start]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.002):
+            peak[0] = max(peak[0], rss())
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        t.join()
+    return out, max(peak[0], rss()) - start
+
+
+def example_bytes(example) -> int:
+    return sum(v.nbytes for v in example.values())
+
+
+def _measure_loader(data_lib, mem):
+    """Wrap ``BlobDataLoader.__init__`` so that the first loader built
+    records into ``mem`` its rows, examples and the bytes an example
+    holds, and the peak rise of the resident set while it is built (after
+    one example encoded unmeasured, so neither measure holds the
+    encoders' first call), then the same for its examples built again as
+    ``build_example`` returns them. -> the original ``__init__``."""
+    real = data_lib.BlobDataLoader.__init__
+
+    def init(self, pipeline, images, masks, pes, **kw):
+        if not mem:   # the encoders' first call, outside both measures
+            data_lib.encode_example(pipeline, images[0], masks[0], pes[0],
+                                    kw["size"])
+        _, rise = rss_peak(lambda: real(self, pipeline, images, masks, pes,
+                                        **kw))
+        if mem:
+            return
+        full, full_rise = rss_peak(lambda: [
+            data_lib.build_example(pipeline, im, mk, pe, kw["size"])
+            for im, mk, pe in zip(images, masks, pes)])
+        mem.update(rows=[self.rows.start, self.rows.stop],
+                   examples=len(self.examples),
+                   bytes=example_bytes(self.examples[0]), rise=rise,
+                   full_bytes=example_bytes(full[0]), full_rise=full_rise)
+    data_lib.BlobDataLoader.__init__ = init
+    return real
+
+
 def _dp_cli(job):
-    """10c on a rank: ``train_cli.run_rank`` on the models root, 1 row a
-    rank: DP_CLI_STEPS[0] steps with a checkpoint every DP_CLI_CKPT_EVERY,
-    then ``--resume`` to DP_CLI_STEPS[1] with the export, each in a group
-    of its own; the checkpoint directories after each run."""
+    """10c on a rank: ``train_cli.run_rank`` on the models root at the
+    global batch DP_CLI_BATCH, 1 row a rank: DP_CLI_STEPS[0] steps with a
+    checkpoint every DP_CLI_CKPT_EVERY, then ``--resume`` to
+    DP_CLI_STEPS[1] with the export, each in a group of its own; the
+    checkpoint directories after each run, and the first loader's
+    memory (``_measure_loader``)."""
     from blobctrl_torch import ops
     from blobctrl_torch.apps import train_cli
     from blobctrl_torch.parallel import collectives, multihost
+    from blobctrl_torch.train import data as data_lib
     from blobctrl_torch.train import train_step as ts
     argv, export_dir, ports = job
     rank = multihost.process_index()
     multihost.shutdown()   # the CLI's rank body joins groups of its own
     events = EventLog()
     logging.getLogger("blobctrl_torch").addHandler(events)
+    mem = {}
+    real_init = _measure_loader(data_lib, mem)
     runs = []
     try:
         for steps, port, extra in (
@@ -3790,11 +3860,13 @@ def _dp_cli(job):
                     state["params"], DP_WORLD, steps=steps - start,
                     replicated=state,
                     checkpoints=len(dp_cli_checkpoints(start, steps))),
-                "step": state["step"], "digest": digest(state["params"])})
+                "step": state["step"], "digest": digest(state["params"]),
+                "memory": dict(mem)})
             del state
             gc.collect()
             torch.cuda.empty_cache()
     finally:
+        data_lib.BlobDataLoader.__init__ = real_init
         logging.getLogger("blobctrl_torch").removeHandler(events)
     return runs
 
@@ -3803,6 +3875,71 @@ def dp_cli_checkpoints(start: int, end: int):
     """The steps at which a 10c run from ``start`` to ``end`` checkpoints."""
     return [s for s in range(start + 1, end + 1)
             if s % DP_CLI_CKPT_EVERY == 0 or s == end]
+
+
+def check_dp_cli(cli):
+    """10c's checks of each rank's two ``_dp_cli`` runs (``cli[rank]``),
+    their lines printed. -> the K1/K6 launches over the ranks."""
+    launched = collections.Counter()
+    for rank, runs in enumerate(cli):
+        first, last = DP_CLI_STEPS
+        for run, (what, want, dirs) in zip(runs, (
+                ("steps", {"train": list(range(1, first + 1)),
+                           "checkpoint": dp_cli_checkpoints(0, first)},
+                 dp_cli_checkpoints(0, first)),
+                ("--resume", {"resumed": [first],
+                              "train": list(range(first + 1, last + 1)),
+                              "checkpoint": dp_cli_checkpoints(first, last),
+                              "exported": None},
+                 dp_cli_checkpoints(0, first)
+                 + dp_cli_checkpoints(first, last)))):
+            got = {}
+            for e in run["events"]:
+                if e.get("event") in ("train", "checkpoint", "resumed",
+                                      "exported"):
+                    got.setdefault(e["event"], []).append(e.get("step"))
+            lead_want = {k: v if v is not None else [None]
+                         for k, v in want.items()}
+            calls = {op: c["count"]
+                     for op, c in run["sizes"].get("pipeline", {}).items()}
+            ran = {k: n for k, n in run["launches"].items() if n}
+            rates = [(e["step"], e["img_per_sec"], e["sec_per_step"])
+                     for e in run["events"] if e.get("event") == "train"]
+            log(f"  10c rank {rank} {what}: {run['secs']:.2f} s, global "
+                f"batch {DP_CLI_BATCH}, rows {run['memory']['rows']} of "
+                f"each, img_per_sec (step, img/s, s) {rates}, events "
+                f"{got}, collectives {calls}, launches {ran}, checkpoints "
+                f"{run['ckpts']}")
+            if got != (lead_want if rank == 0 else {}):
+                raise AssertionError(f"10c rank {rank} {what}: events {got}")
+            # img_per_sec is the global batch over the step's seconds, each
+            # logged rounded to 2 and 3 decimals
+            if any(abs(r - DP_CLI_BATCH / dt) > 0.005 + DP_CLI_BATCH * 5e-4
+                   / (dt * (dt - 5e-4)) for _, r, dt in rates):
+                raise AssertionError(f"10c rank {rank} {what}: img_per_sec "
+                                     f"{rates} not over {DP_CLI_BATCH}")
+            if run["ckpts"] != [f"step_{s:08d}" for s in dirs]:
+                raise AssertionError(f"10c rank {rank} {what}: checkpoints "
+                                     f"{run['ckpts']}, want steps {dirs}")
+            if run["sizes"] != run["want"]:
+                raise AssertionError(f"10c rank {rank} {what}: collectives "
+                                     f"{run['sizes']} != {run['want']}")
+            launched.update({k: run["launches"][k] for k in EXACT})
+    for rank, runs in enumerate(cli):
+        m = runs[0]["memory"]
+        log(f"  10c rank {rank} loader: {m['examples']} examples, rows "
+            f"{m['rows']} of each batch of {DP_CLI_BATCH}; "
+            f"{m['bytes']} bytes an example held compact, peak resident "
+            f"rise {m['rise'] / 2 ** 20:.1f} MiB while the loader was "
+            f"built; as build_example returns them (with the DINOv2 splat) "
+            f"{m['full_bytes']} bytes an example, peak rise "
+            f"{m['full_rise'] / 2 ** 20:.1f} MiB")
+        if m["rows"] != [rank, rank + 1] or m["examples"] != CLI_SCENES:
+            raise AssertionError(f"10c rank {rank}: loader {m}")
+    if any([x["digest"] for x in r] != [x["digest"] for x in cli[0]]
+           for r in cli) or cli[0][-1]["step"] != DP_CLI_STEPS[1]:
+        raise AssertionError("10c: the ranks' final states differ")
+    return launched
 
 
 DP_JOBS = {"dp_toy": _dp_toy, "dp_full": _dp_full, "dp_cli": _dp_cli}
@@ -3830,9 +3967,9 @@ def dp_training_phase(models_root: str, work: str, train_shapes):
     ckpt_dir = os.path.join(work, "dp_ckpts")
     export_dir = os.path.join(work, "dp_export")
     argv = ["--models_root", models_root, "--data_root", data_root,
-            "--size", str(TRAIN_SIZE), "--batch_size", "1", "--ckpt_every",
-            str(DP_CLI_CKPT_EVERY), "--log_every", "1", "--ckpt_dir",
-            ckpt_dir]
+            "--size", str(TRAIN_SIZE), "--batch_size", str(DP_CLI_BATCH),
+            "--ckpt_every", str(DP_CLI_CKPT_EVERY), "--log_every", "1",
+            "--ckpt_dir", ckpt_dir]
     ports = set()
     while len(ports) < 2:
         ports.add(multihost.free_port())
@@ -3957,44 +4094,8 @@ def dp_training_phase(models_root: str, work: str, train_shapes):
     log(f"  10b: the parameters bit-equal on both ranks after {DP_STEPS} "
         f"steps")
     # 10c
-    for rank, runs in enumerate(r["dp_cli"] for r in ranks):
-        first, last = DP_CLI_STEPS
-        for run, (what, want, dirs) in zip(runs, (
-                ("steps", {"train": list(range(1, first + 1)),
-                           "checkpoint": dp_cli_checkpoints(0, first)},
-                 dp_cli_checkpoints(0, first)),
-                ("--resume", {"resumed": [first],
-                              "train": list(range(first + 1, last + 1)),
-                              "checkpoint": dp_cli_checkpoints(first, last),
-                              "exported": None},
-                 dp_cli_checkpoints(0, first)
-                 + dp_cli_checkpoints(first, last)))):
-            got = {}
-            for e in run["events"]:
-                if e.get("event") in ("train", "checkpoint", "resumed",
-                                      "exported"):
-                    got.setdefault(e["event"], []).append(e.get("step"))
-            lead_want = {k: v if v is not None else [None]
-                         for k, v in want.items()}
-            calls = {op: c["count"]
-                     for op, c in run["sizes"].get("pipeline", {}).items()}
-            ran = {k: n for k, n in run["launches"].items() if n}
-            log(f"  10c rank {rank} {what}: {run['secs']:.2f} s, events "
-                f"{got}, collectives {calls}, launches {ran}, checkpoints "
-                f"{run['ckpts']}")
-            if got != (lead_want if rank == 0 else {}):
-                raise AssertionError(f"10c rank {rank} {what}: events {got}")
-            if run["ckpts"] != [f"step_{s:08d}" for s in dirs]:
-                raise AssertionError(f"10c rank {rank} {what}: checkpoints "
-                                     f"{run['ckpts']}, want steps {dirs}")
-            if run["sizes"] != run["want"]:
-                raise AssertionError(f"10c rank {rank} {what}: collectives "
-                                     f"{run['sizes']} != {run['want']}")
-            launched.update({k: run["launches"][k] for k in EXACT})
     cli = [r["dp_cli"] for r in ranks]
-    if any([x["digest"] for x in r] != [x["digest"] for x in cli[0]]
-           for r in cli) or cli[0][-1]["step"] != DP_CLI_STEPS[1]:
-        raise AssertionError("10c: the ranks' final states differ")
+    launched.update(check_dp_cli(cli))
     final = ckpt_lib.restore(ckpt_dir, device="cuda")
     if final["step"] != DP_CLI_STEPS[1] or digest(final["params"]) != \
             cli[0][-1]["digest"]:

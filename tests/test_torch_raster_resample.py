@@ -1,7 +1,7 @@
 """The port's host-side rasters and resizers against the libraries the JAX
 package calls (cv2 and PIL, oracles here; the port imports neither):
 filled ellipse masks and thickness-3 outlines bit for bit, the editor's
-mask -> ellipse fit, the object crop, and PIL's and cv2's uint8
+mask -> ellipse fit on ellipse and non-elliptic masks, the object crop, and PIL's and cv2's uint8
 resizes bit for bit."""
 
 import numpy as np
@@ -118,6 +118,133 @@ def test_ellipse_from_mask_matches_cv2():
         _fit_close(teditor.ellipse_from_mask(m), want)
         n += 1
     assert n >= 40
+
+
+def seeded_non_elliptic_masks(seed, n, size):
+    """Masks drawn by cv2: 4n filled polygons of 3-8 vertices (the family
+    whose hulls most often fit hyperbolas), and n of each other family:
+    unions of 2-4 discs, point sets dilated by a square, a triangle plus
+    one full-width row, and rotated rectangles, every other one notched
+    at a corner."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        for _ in range(4):
+            m = np.zeros((size, size), np.uint8)
+            cv2.fillPoly(m, [rng.integers(10, size - 9, (rng.integers(3, 9),
+                                                         2)).astype(np.int32)],
+                         255)
+            out.append(m)
+        m = np.zeros((size, size), np.uint8)
+        for _ in range(rng.integers(2, 5)):
+            c = rng.integers(20, size - 20, 2)
+            cv2.circle(m, (int(c[0]), int(c[1])),
+                       int(rng.integers(5, size // 5)), 255, -1)
+        out.append(m)
+        m = np.zeros((size, size), np.uint8)
+        p = rng.integers(20, size - 20, (rng.integers(2, 8), 2))
+        m[p[:, 1], p[:, 0]] = 255
+        r = int(rng.integers(2, 15))
+        out.append(cv2.dilate(m, np.ones((r, r), np.uint8)))
+        m = np.zeros((size, size), np.uint8)
+        cv2.fillPoly(m, [rng.integers(10, size - 9, (3, 2)).astype(np.int32)],
+                     255)
+        m[rng.integers(0, size)] = 255
+        out.append(m)
+    for i in range(n):
+        m = np.zeros((size, size), np.uint8)
+        wh = tuple(float(x) for x in rng.uniform(5, 0.6 * size, 2))
+        box = cv2.boxPoints((tuple(float(x) for x in rng.uniform(
+            0.15 * size, 0.85 * size, 2)), wh, float(rng.uniform(0, 180))))
+        cv2.fillPoly(m, [np.round(box).astype(np.int32)], 255)
+        if i % 2:
+            x0, y0 = np.round(box.min(0)).astype(int)
+            m[max(y0, 0):y0 + int(wh[1] / 3), max(x0, 0):x0 + int(wh[0] / 3)] = 0
+        out.append(m)
+    return out
+
+
+def _hull(mask):
+    """The JAX package's hull: of the outer contours, by cv2."""
+    contours, _ = cv2.findContours((mask > 0).astype(np.uint8),
+                                   cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
+    return cv2.convexHull(np.concatenate(contours)).reshape(-1, 2)
+
+
+def _is_hyperbola(hull):
+    """Whether the conic that cv2's algebraic fit first fits to ``hull``
+    is a hyperbola (the sign of its discriminant, which neither a shift
+    nor a scale of the points moves)."""
+    d = hull.astype(np.float64) - hull.mean(0)
+    a = np.stack([-d[:, 0] ** 2, -d[:, 1] ** 2, -d[:, 0] * d[:, 1], d[:, 0],
+                  d[:, 1]], 1)
+    g = np.linalg.lstsq(a, np.ones(len(d)), rcond=None)[0]
+    return 4 * g[0] * g[1] < g[2] ** 2
+
+
+FAR = 4   # a fit whose long axis passes FAR canvas sides lies far outside
+
+
+def _fit_close_or_far(got, want, size):
+    """``_fit_close``; or, for a fit far larger than the canvas (long axis
+    L over FAR sides), center and axes within 1e-4 px x (L / size)^2.
+    The hull spans at most the canvas, so its points pin such a conic's
+    center and axes only through a curvature that shrinks as (size / L)^2:
+    both cv2 and the port compute it in float64 from the same float32
+    points, and their rounding (and cv2's float32 result) moves it that
+    much more than an on-canvas fit."""
+    big = max(want[1]) / size
+    if big <= FAR:
+        _fit_close(got, want)
+        return
+    tol = 1e-4 * big ** 2
+    np.testing.assert_allclose(got[0], want[0], atol=tol, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=tol, rtol=0)
+    assert abs((got[2] - want[2] + 90.0) % 180.0 - 90.0) <= 1e-3, (got, want)
+
+
+def test_ellipse_from_mask_matches_cv2_on_non_elliptic_masks():
+    """320 masks of the five families on a 256^2 canvas against the JAX
+    package's cv2 path. They hold hyperbolas (whose angle cv2 sets only
+    where it swaps width and height, and keeps 0 otherwise), 5-point hulls
+    (which cv2 fits with its direct least-squares fit) and fits far
+    outside the canvas."""
+    size = 256
+    kinds = {"hyperbola, angle": 0, "hyperbola, angle 0": 0, "5 points": 0,
+             "far": 0}
+    n = 0
+    for m in seeded_non_elliptic_masks(0, 40, size):
+        hull = _hull(m)
+        if len(hull) < 5:
+            with pytest.raises(ValueError):
+                teditor.ellipse_from_mask(m)
+            continue
+        want = jeditor.ellipse_from_mask(m)
+        _fit_close_or_far(teditor.ellipse_from_mask(m), want, size)
+        n += 1
+        if _is_hyperbola(hull) and len(hull) > 5:
+            kinds["hyperbola, angle" + (" 0" if want[2] == 0 else "")] += 1
+        kinds["5 points"] += len(hull) == 5
+        kinds["far"] += max(want[1]) > FAR * size
+    assert n >= 280 and kinds.pop("hyperbola, angle") >= 1 and min(
+        kinds.values()) >= 3, (n, kinds)
+
+
+@pytest.mark.parametrize("hull,want", [
+    # an 11-point hull whose conic is a hyperbola: cv2 keeps its angle
+    ([[204, 206], [203, 206], [197, 204], [160, 191], [143, 185],
+      [135, 182], [133, 181], [75, 148], [54, 106], [13, 22], [13, 21]],
+     ((81.20476531982422, 164.08535766601562),
+      (15.238569259643555, 36.74530029296875), 131.7476348876953)),
+    # a triangle plus a full-width row: a 5-point hull, cv2's direct fit
+    ([[255, 107], [224, 133], [223, 133], [0, 107], [216, 67]],
+     ((-38.09623336791992, 30.169857025146484),
+      (128.61325073242188, 610.6258544921875), 106.21659088134766)),
+])
+def test_fit_ellipse_matches_cv2_on_non_elliptic_hulls(hull, want):
+    hull = np.asarray(hull, np.int32)
+    _fit_close(cv2.fitEllipse(hull), want)
+    _fit_close(teditor.fit_ellipse(hull), want)
 
 
 def test_convex_hull_drops_collinear_points():

@@ -4,11 +4,15 @@ tiny random trees: ``load_dataset`` against the JAX CLI's (PIL) on PNG and
 JPEG images and RGB masks of another size; 2 steps with a checkpoint, a
 resume to 4 (starting at step 2) and the export, which reloads through
 the port's loaders bit-equal to the final state; data-parallel training
-on 2 gloo ranks (``--data_parallel 2``, and the same run as two
-``--coordinator`` processes, bit-equal to it), its checkpoints, resume,
-export and collective count; the refused flags."""
+on 2 gloo ranks: ``--data_parallel 2``, where --batch_size is the global
+batch (its checkpoints, resume, export and collective count, its rows
+those JAX's loader gives each device, its run that of one rank at the
+same batch), and two ``--coordinator`` processes, where it is per
+process (against one process fed their global batches); the refused
+flags and batches."""
 
 import io
+import itertools
 import json
 import logging
 import os
@@ -22,13 +26,16 @@ import torch
 from PIL import Image
 
 from blobctrl_tpu.apps import train_cli as jcli
+from blobctrl_tpu.train import data as jdata
 from blobctrl_torch.apps import train_cli as tcli
 from blobctrl_torch.params import export as texport
 from blobctrl_torch.params import io as tio
 from blobctrl_torch.parallel import collectives, multihost
 from blobctrl_torch.train import checkpoint as tckpt
+from blobctrl_torch.train import data as tdata
 from blobctrl_torch.train import train_step as tts
 from blobctrl_torch.utils import benchkit, png
+from tests import torch_ranks
 from tests.test_torch_loaders import lora_tree, tiny_trees
 
 torch.set_num_threads(2)
@@ -150,11 +157,12 @@ def test_data_parallel_checkpoint_resume_export(models_root, data_root,
                                                 monkeypatch):
     """``--data_parallel 2 --device cpu``: this process is rank 0 and
     spawns rank 1 (gloo; one thread, as the test workers share the
-    cores); 4 steps of the global batch of 4 with a checkpoint every 2 and
-    the export, then ``--resume`` on 2 ranks to 6, which starts at step 4.
-    Rank 0 narrates and writes (no ``.tmp`` left); its collective log is
-    the derived count: the replicate, the steps' gradient means, one
-    barrier a checkpoint."""
+    cores); 4 steps of the global batch of 2 (--batch_size 2, 1 row a
+    rank, every rank's loader over the whole data set) with a checkpoint
+    every 2 and the export, then ``--resume`` on 2 ranks to 6, which
+    starts at step 4. Rank 0 narrates and writes (no ``.tmp`` left); its
+    collective log is the derived count: the replicate, the steps'
+    gradient means, one barrier a checkpoint."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     caplog.set_level(logging.INFO, logger="blobctrl_torch")
     collectives.reset()
@@ -170,7 +178,7 @@ def test_data_parallel_checkpoint_resume_export(models_root, data_root,
     assert [e["step"] for e in _events(caplog, "checkpoint")] == [2, 4]
     assert _events(caplog, "multihost") == [
         {"event": "multihost", "process": 0, "processes": 2,
-         "local_examples": 2}]
+         "local_examples": 4}]
     assert sorted(os.listdir(tmp_path / "ckpts")) == ["step_00000002",
                                                       "step_00000004"]
     saved = tckpt.restore(str(tmp_path / "ckpts"), device="cpu")
@@ -221,44 +229,155 @@ def _wait(procs, timeout=240):
     return out
 
 
+def _train_events(events):
+    return [e for e in events if e.get("event") == "train"]
+
+
+def _steps_agree(got, want):
+    """Two fp32 runs' step records (``torch_ranks.fp32_train_steps``),
+    held to chip_smoke.py 10a's bars: each step's loss within 1e-6
+    relative, and the averaged gradients of the first step (from the same
+    state) within 1e-5 of each leaf's max |gradient|. Later steps start
+    from states that Adam's rounding-level steps have parted, which
+    ``_states_agree`` bounds."""
+    assert len(got["loss"]) == len(want["loss"]) == len(want["grads"])
+    for i, (g, w) in enumerate(zip(got["loss"], want["loss"])):
+        assert abs(g - w) <= 1e-6 * abs(w), (i, got["loss"], want["loss"])
+    for j, (g, w) in enumerate(zip(got["grads"][0], want["grads"][0],
+                                   strict=True)):
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), j
+
+
+def _states_agree(got, want, steps):
+    """Two final states within ``test_torch_train_step.py``'s bar over
+    several steps: every parameter within the step bound (steps (1 + wd
+    |p|) lr) everywhere, and within 1e-3 lr but at a few elements (at
+    most 1e-3 of them) where Adam stepped a rounding-level gradient."""
+    lr, wd = 1e-3, tts.TrainConfig().weight_decay   # _argv's rate
+    assert got["step"] == want["step"] == steps
+    far = total = 0
+    for g, w in zip(tts.tree_leaves(got["params"]),
+                    tts.tree_leaves(want["params"]), strict=True):
+        err = (g - w).abs()
+        assert err.max() <= steps * (1 + wd * w.abs().max()) * lr
+        far += int((err > 1e-3 * lr).sum())
+        total += err.numel()
+    assert far <= 1e-3 * total, (far, total)
+
+
+DP_STEPS = 3   # two epochs of the 4 scenes at a global batch of 2
+
+
+@pytest.fixture(scope="module")
+def spawned(models_root, data_root, tmp_path_factory):
+    """The one-rank run at --batch_size 2 (in this process) and the
+    spawned form's rank body on 2 gloo ranks at the same flags, DP_STEPS
+    steps each, both in fp32 (``torch_ranks.fp32_train_steps``): -> (the
+    one rank's step losses, each rank's (loader indices, step losses, log
+    events), the two runs' checkpoint directories)."""
+    tmp = tmp_path_factory.mktemp("spawned")
+    with torch_ranks.fp32_train_steps() as losses:
+        tcli.main(_argv(models_root, data_root, tmp / "one", "--steps",
+                        str(DP_STEPS)))
+    ranks = torch_ranks.run_ranks(
+        torch_ranks.train_cli_rank, 2,
+        _argv(models_root, data_root, tmp / "two", "--steps", str(DP_STEPS),
+              "--data_parallel", "2"), multihost.free_port())
+    return losses, ranks, tmp / "one" / "ckpts", tmp / "two" / "ckpts"
+
+
+def test_spawned_ranks_train_the_one_rank_batch(spawned):
+    """--batch_size 2 over 2 spawned ranks trains what one rank trains at
+    --batch_size 2, up to the order of the fp32 gradient sum: each step's
+    loss and averaged gradients within 10a's bars, the final checkpoint
+    within the multi-step bar. Each rank trains 1 row a step, and
+    img_per_sec is 2 images over the step's seconds (each logged
+    rounded, to 2 and 3 decimals)."""
+    want, ranks, ckpt_one, ckpt_two = spawned
+    (seen0, got, ev0), (seen1, got1, ev1) = ranks
+    assert got["loss"] == got1["loss"]
+    _steps_agree(got, want)
+    assert _train_events(ev1) == []          # rank 0 alone narrates
+    logged = _train_events(ev0)
+    assert [e["step"] for e in logged] == [1, 2, 3]
+    for e in logged:
+        dt = e["sec_per_step"]
+        assert abs(e["img_per_sec"] - 2 / dt) <= 0.005 + 2 * 5e-4 / (
+            dt * (dt - 5e-4)), e
+    assert all(len(idx) == 1 for idx in seen0 + seen1)
+    _states_agree(tckpt.restore(str(ckpt_two), device="cpu"),
+                  tckpt.restore(str(ckpt_one), device="cpu"), DP_STEPS)
+
+
+def test_each_rank_trains_its_rows_of_the_jax_loader_batch(
+        spawned, data_root, monkeypatch):
+    """At every step rank r's examples are rows [r, r+1) of the batch the
+    JAX ``BlobDataLoader`` draws from the same seed over the same data set
+    (the rows JAX's ``P("data")`` puts on device r). Its examples are
+    their indices here: its order does not read them."""
+    _, ranks, _, _ = spawned
+    n = len(tcli.load_dataset(data_root, SIZE)[0])
+    count = itertools.count()
+    monkeypatch.setattr(jdata, "build_example",
+                        lambda *a, **k: {"i": np.int64(next(count))})
+    loader = jdata.BlobDataLoader(None, [None] * n, [None] * n, [None] * n,
+                                  batch_size=2)
+    jax_batches = [b["i"].tolist() for _ in range(2) for b in loader]
+    for r, (seen, _, _) in enumerate(ranks):
+        assert seen[:DP_STEPS] == [b[r:r + 1]
+                                   for b in jax_batches[:DP_STEPS]], (
+            r, seen, jax_batches)
+
+
 def test_coordinator_form_equals_the_spawned_form(models_root, data_root,
-                                                  tmp_path):
-    """The same 2-rank run started as two ``--coordinator`` processes (each
-    with its own checkpoint and export directories) ends bit-equal to the
-    ``--data_parallel 2`` run: rank 1's directories are never made."""
-    common = ["--steps", "2", "--device", "cpu"]
-    spawned = _argv(models_root, data_root, tmp_path / "spawned", *common,
-                    "--data_parallel", "2")
-    [(rc, err)] = _wait([_cli(spawned)])
-    assert rc == 0, err
-    port = multihost.free_port()
-    procs = [_cli(_argv(models_root, data_root, tmp_path / f"rank{i}",
-                        *common, "--coordinator", f"127.0.0.1:{port}",
-                        "--num_processes", "2", "--process_id", str(i),
-                        "--export_dir", str(tmp_path / f"rank{i}" / "exp")))
-             for i in range(2)]
-    for rc, err in _wait(procs):
-        assert rc == 0, err
-    a = tckpt.restore(str(tmp_path / "spawned" / "ckpts"), device="cpu")
-    b = tckpt.restore(str(tmp_path / "rank0" / "ckpts"), device="cpu")
-    assert a["step"] == b["step"] == 2
-    for x, y in zip(tts.tree_leaves(a), tts.tree_leaves(b), strict=True):
-        assert torch.equal(x, y) if torch.is_tensor(x) else x == y
+                                                  tmp_path, monkeypatch):
+    """Two ``--coordinator`` processes at --batch_size 1 (per process, as
+    in JAX's multi-process form; each with its own checkpoint and export
+    directories) against one process fed their global batches of 2: each
+    process's strided loader row, in rank order, with the same draws. The
+    spawned form reads other rows, so the reference is this one; both in
+    fp32, each step within 10a's bars and the final checkpoint within the
+    multi-step bar. Rank 1's directories are never made."""
+    argv = _argv(models_root, data_root, tmp_path / "rank{rank}", "--steps",
+                 "2", "--export_dir", str(tmp_path / "rank{rank}" / "exp"))
+    argv[argv.index("--batch_size") + 1] = "1"
+    ranks = torch_ranks.run_ranks(torch_ranks.train_cli_rank, 2, argv,
+                                  multihost.free_port(), True)
+    real = tdata.BlobDataLoader
+
+    class Strided:
+        """The two processes' loaders, their batches in rank order."""
+
+        def __init__(self, pipe, images, masks, pes, batch_size, size,
+                     rows):
+            assert batch_size == 2 and rows == range(2)
+            self.parts = [real(pipe, images[i::2], masks[i::2], pes[i::2],
+                               batch_size=1, size=size) for i in range(2)]
+
+        def __iter__(self):
+            for parts in zip(*self.parts):
+                yield {k: np.concatenate([b[k] for b in parts])
+                       for k in parts[0]}
+    monkeypatch.setattr(tdata, "BlobDataLoader", Strided)
+    with torch_ranks.fp32_train_steps() as want:
+        ref = tcli.main(_argv(models_root, data_root, tmp_path / "one",
+                              "--steps", "2"))
+    for _, got, _ in ranks:
+        _steps_agree(got, want)
+    _states_agree(tckpt.restore(str(tmp_path / "rank0" / "ckpts"),
+                                device="cpu"), ref, 2)
     assert os.path.isdir(tmp_path / "rank0" / "exp" / "blobnet")
     assert not os.path.exists(tmp_path / "rank1")
 
 
 def test_a_stride_short_of_a_batch_is_refused_on_every_rank(
-        models_root, data_root, tmp_path, monkeypatch):
-    """4 examples over 2 ranks leave 2 a rank, fewer than --batch_size 3:
-    both forms refuse on every rank with one message, before the group
-    forms (so nobody waits for the group's timeout)."""
+        models_root, data_root, tmp_path):
+    """``--coordinator``: 4 examples over 2 processes leave 2 a process,
+    fewer than its --batch_size 3: every process refuses with one message,
+    before the group forms (so nobody waits for the group's timeout)."""
     argv = _argv(models_root, data_root, tmp_path, "--steps", "2")
     argv[argv.index("--batch_size") + 1] = "3"
     msg = "4 examples over 2 ranks leave 2 a rank, fewer than --batch_size 3"
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the spawned rank's
-    with pytest.raises(SystemExit, match=msg):
-        tcli.main(argv + ["--data_parallel", "2"])
     port = multihost.free_port()
     t0 = time.monotonic()
     res = _wait([_cli(argv + ["--coordinator", f"127.0.0.1:{port}",
@@ -267,6 +386,32 @@ def test_a_stride_short_of_a_batch_is_refused_on_every_rank(
     assert time.monotonic() - t0 < 60
     for rc, err in res:
         assert rc != 0 and msg in err, err
+    assert not os.path.exists(tmp_path / "ckpts")
+
+
+@pytest.mark.parametrize("batch,msg", [
+    ("3", "--batch_size 3 is the global batch: 2 ranks do not divide it"),
+    ("6", "dataset has 4 examples but batch_size is 6; the loader would "
+          "yield zero batches")])
+def test_an_indivisible_batch_is_refused_on_every_rank(
+        batch, msg, models_root, data_root, tmp_path, monkeypatch):
+    """The spawned form's --batch_size is the global batch: 3 over 2 ranks
+    (JAX's ``shard_batch`` cannot place it either), or 6 of 4 examples.
+    Both ranks refuse with one message before the group forms, with this
+    process as rank 0 and under ``python -m`` (where both ranks' messages
+    reach stderr)."""
+    argv = _argv(models_root, data_root, tmp_path, "--steps", "2",
+                 "--data_parallel", "2")
+    argv[argv.index("--batch_size") + 1] = batch
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the spawned rank's
+    t0 = time.monotonic()
+    with pytest.raises(SystemExit) as e:
+        tcli.main(argv)
+    assert str(e.value) == (f"data-parallel training failed: rank 0: {msg}; "
+                            f"ranks 1-1: exit codes [1]")
+    [(rc, err)] = _wait([_cli(argv)], timeout=120)
+    assert time.monotonic() - t0 < 90
+    assert rc != 0 and err.count(msg) == 2, err
     assert not os.path.exists(tmp_path / "ckpts")
 
 

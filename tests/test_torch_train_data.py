@@ -1,11 +1,13 @@
 """The port's training data against the JAX package's on the CPU, fp32:
-``build_example`` (with and without a white-out ellipse) and
+``build_example`` (with and without a white-out ellipse, and on a
+non-elliptic mask) and
 ``BlobDataLoader`` on a tiny pipeline whose weights are carried across
 with ``from_jax``. Host arrays (scores, text) within 1e-6, encoder
 outputs within 1e-4 of max |JAX| (the fg image is mostly the white
 canvas, and the VAE's GroupNorm over a near-constant map amplifies the
 two packages' rounding: 3.5e-5 measured), the batch order equal, the
-zero-batch error."""
+zero-batch error; the loader's compact examples and its batches,
+bit-equal to the stacked examples."""
 
 import jax
 import numpy as np
@@ -94,6 +96,21 @@ def test_build_example_matches_jax(pipes, whiteout):
     assert np.abs(got["fg_feats"]).max() > 0
 
 
+def test_build_example_matches_jax_on_a_non_elliptic_mask(pipes):
+    """A polygon plus one full-width row: a 5-point hull, which cv2 fits
+    with its direct fit (an ellipse over the canvas, 64 px long)."""
+    cv2 = pytest.importorskip("cv2")
+    jpipe, tpipe = pipes
+    images, _, pes = _data(1)
+    mask = np.zeros((SIZE, SIZE), np.uint8)
+    cv2.fillPoly(mask, [np.array([[9, 16], [21, 24], [31, 23], [27, 24]],
+                                 np.int32)], 255)
+    mask[13] = 255
+    want = jdata.build_example(jpipe, images[0], mask, pes[0], SIZE)
+    got = tdata.build_example(tpipe, images[0], mask, pes[0], SIZE)
+    _assert_example_close(got, want)
+
+
 def test_loader_matches_jax_batch_order(pipes):
     jpipe, tpipe = pipes
     images, masks, pes = _data(5)
@@ -110,3 +127,32 @@ def test_loader_matches_jax_batch_order(pipes):
     with pytest.raises(ValueError, match="zero batches"):
         tdata.BlobDataLoader(tpipe, images[:1], masks[:1], pes[:1],
                              batch_size=2, size=SIZE)
+
+
+def test_loader_holds_compact_examples_and_batches_bit_equal(pipes):
+    """The loader keeps the pooled DINOv2 vector and forms each batch's
+    fg_feats when it collates: its batches bit-equal to the stacked
+    ``build_example`` outputs of the same indices; with ``rows`` it yields
+    those rows of the same batches."""
+    _, tpipe = pipes
+    images, masks, pes = _data(5)
+    full = [tdata.build_example(tpipe, im, mk, pe, SIZE)
+            for im, mk, pe in zip(images, masks, pes)]
+    loader = tdata.BlobDataLoader(tpipe, images, masks, pes, batch_size=2,
+                                  size=SIZE, seed=3)
+    part = tdata.BlobDataLoader(tpipe, images, masks, pes, batch_size=2,
+                                size=SIZE, seed=3, rows=range(1, 2))
+    assert all("fg_feats" not in e and e["dino_pooled"].shape == (16,)
+               for e in loader.examples)
+    order = np.random.RandomState(3)
+    for _ in range(2):
+        perm = order.permutation(5)
+        got, rows = list(loader), list(part)
+        for i, (g, r) in enumerate(zip(got, rows)):
+            idx = perm[2 * i:2 * i + 2]
+            assert list(g) == list(full[0])   # the keys in their order
+            for k, v in g.items():
+                want = np.stack([full[j][k] for j in idx])
+                assert v.dtype == want.dtype
+                np.testing.assert_array_equal(v, want, err_msg=k)
+                np.testing.assert_array_equal(r[k], want[1:], err_msg=k)

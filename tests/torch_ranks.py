@@ -304,3 +304,91 @@ def mismatched_state_rank():
     except ValueError as e:
         return str(e), collectives.counts()
     return None, collectives.counts()
+
+
+@contextlib.contextmanager
+def fp32_train_steps():
+    """The training CLI in fp32 (its pipeline loaded in fp32,
+    ``TrainConfig.compute_dtype`` fp32), each step's loss and the
+    gradients it applied (averaged over the ranks) recorded: yields
+    {"loss": [float], "grads": [[numpy]]}, a step each. The CLI trains in
+    bf16, whose rounding depends on the rows a call holds and would hide
+    the data-parallel arithmetic that the CLI tests compare at fp32
+    bars."""
+    import functools
+    import torch
+    from blobctrl_torch.params import io
+    from blobctrl_torch.train import train_step as ts
+    real = (ts.TrainConfig, ts.make_train_step, ts.apply_optimizer,
+            io.load_pipeline)
+    rec = {"loss": [], "grads": []}
+
+    def make(*a, **k):
+        step = real[1](*a, **k)
+
+        def run(*args):
+            state, m = step(*args)
+            rec["loss"].append(float(m["loss"]))
+            return state, m
+        return run
+
+    def apply(cfg, trainable, opt_state, grads):
+        rec["grads"].append([g.detach().numpy().copy() for g in grads])
+        return real[2](cfg, trainable, opt_state, grads)
+
+    def load(*a, **k):
+        return real[3](*a, **dict(k, dtype=torch.float32))
+    ts.TrainConfig = functools.partial(real[0], compute_dtype=torch.float32)
+    ts.make_train_step, ts.apply_optimizer, io.load_pipeline = (
+        make, apply, load)
+    try:
+        yield rec
+    finally:
+        (ts.TrainConfig, ts.make_train_step, ts.apply_optimizer,
+         io.load_pipeline) = real
+
+
+def train_cli_rank(argv, port, coordinator=False):
+    """The training CLI on ``argv`` (each ``{rank}`` in it this rank) in
+    a group of its own (the group ``run_ranks`` made is left first), its
+    steps in fp32 (``fp32_train_steps``), with a spy on its loader: the
+    spawned form's rank body ``train_cli.run_rank``, or with
+    ``coordinator`` ``train_cli.main`` as one ``--coordinator`` process.
+    -> (the example indices of each batch the loader gave this rank, in
+    order, the last one possibly drawn after the final step; the steps'
+    record of ``fp32_train_steps``; the log events, which rank 0 alone
+    narrates)."""
+    import json
+    import logging
+    from blobctrl_torch.apps import train_cli
+    from blobctrl_torch.parallel import multihost
+    from blobctrl_torch.train import data
+    rank, world = multihost.process_index(), multihost.process_count()
+    multihost.shutdown()
+    argv = [a.format(rank=rank) for a in argv]
+    address = f"127.0.0.1:{port}"
+    seen, events = [], []
+    real = data.BlobDataLoader.index_batches
+
+    def spy(self):
+        for idx in real(self):
+            seen.append([int(i) for i in idx])
+            yield idx
+    data.BlobDataLoader.index_batches = spy
+
+    class Events(logging.Handler):
+        def emit(self, record):
+            try:
+                events.append(json.loads(record.getMessage()))
+            except ValueError:
+                pass
+    logging.getLogger("blobctrl_torch").addHandler(Events())
+    with fp32_train_steps() as rec:
+        if coordinator:
+            train_cli.main(argv + ["--coordinator", address,
+                                   "--num_processes", str(world),
+                                   "--process_id", str(rank)])
+        else:
+            train_cli.run_rank(train_cli.build_parser().parse_args(argv),
+                               rank, world, address, "gloo", "cpu")
+    return seen, rec, events
