@@ -32,11 +32,13 @@ batch is --batch_size x N. A port process is one card where a JAX
 process is one host, so the port's global batch counts cards where
 JAX's counts hosts. The spawned form takes bare ``cuda``;
 ``--device cuda:K`` alone trains one rank on that card.
-In both forms t and noise are drawn for the global batch and each rank
-keeps its rows, and the gradients are averaged over the ranks before the
-clip. Rank 0 narrates (``img_per_sec`` over the global batch), writes
-the checkpoints (then every rank meets at a barrier), reads them on
---resume (then broadcasts the state) and exports.
+In both forms t and noise are JAX's draws for the global batch, from
+``PRNGKey(step)`` (``train_step.draw_t_noise``; the LoRA from
+``PRNGKey(0)``), each rank drawing only its rows, and the gradients are
+averaged over the ranks before the clip. Rank 0 narrates
+(``img_per_sec`` over the global batch), writes the checkpoints (then
+every rank meets at a barrier), reads them on --resume (then broadcasts
+the state) and exports.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ import torch
 from blobctrl_torch import resolve_device
 from blobctrl_torch.apps.cli import to_luma
 from blobctrl_torch.parallel import multihost
-from blobctrl_torch.utils import resample
+from blobctrl_torch.utils import resample, threefry
 from blobctrl_torch.utils.image import read_image
 from blobctrl_torch.utils.observability import log_event
 
@@ -283,9 +285,8 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
     else:
         # fp32 masters: bf16 ones would round away ~1e-5 AdamW updates
         adapter = (pipe.unet_params if args.full_finetune else
-                   lora_lib.init_lora(torch.Generator().manual_seed(0),
-                                      pipe.unet_params, rank=args.lora_rank,
-                                      device=dev))
+                   lora_lib.init_lora(threefry.key(0), pipe.unet_params,
+                                      rank=args.lora_rank, device=dev))
         state = ts.init_train_state(cfg, pipe.blobnet_params, adapter)
         del adapter
     state = ts.replicate_state(state)
@@ -300,7 +301,7 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
             if step >= args.steps:
                 break
             t, noise = ts.draw_t_noise(
-                torch.Generator().manual_seed(step), global_batch,
+                threefry.key(step), global_batch,
                 batch["x0_latents"].shape[1:], cfg.num_train_timesteps, dev,
                 rows=rows)
             state, metrics = step_fn(state, pipe.unet_params, batch, t,

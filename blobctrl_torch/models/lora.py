@@ -18,6 +18,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from blobctrl_torch.utils import threefry
+
 
 DEFAULT_TARGETS = ("to_q", "to_k", "to_v", "to_out")
 
@@ -36,23 +38,24 @@ def _attention_paths(params, prefix=()):
             yield from _attention_paths(v, prefix + (i,))
 
 
-def init_lora(generator: torch.Generator, unet_params, rank: int = 16,
+def init_lora(key, unet_params, rank: int = 16,
               targets: Tuple[str, ...] = DEFAULT_TARGETS,
               device=None) -> Dict[str, Any]:
     """A fresh fp32 adapter over ``targets``: "path/as/string" -> {"A": (in,
-    r) standard normal / sqrt(in), drawn from ``generator`` in the tree's
-    order, "B": (r, out) zeros}, on ``device`` (the UNet's by default). The
-    JAX package's ``init_lora`` with an explicit generator for its key."""
+    r) standard normal / sqrt(in), "B": (r, out) zeros}, on ``device`` (the
+    UNet's by default). The JAX package's ``init_lora`` and its draws for
+    ``key`` (``utils.threefry``): in the tree's order, ``key, sub =
+    split(key)`` and A from ``normal(sub, (in, r))``."""
     lora: Dict[str, Any] = {}
     for path, leaf in _attention_paths(unet_params):
         if path[-1] not in targets:
             continue
         d_in, d_out = leaf["kernel"].shape
         dev = leaf["kernel"].device if device is None else device
-        a = torch.randn((d_in, rank), generator=generator,
-                        device=generator.device, dtype=torch.float32)
+        key, sub = threefry.split(key)
+        a = threefry.normal(sub, (d_in, rank), device=dev)
         lora["/".join(map(str, path))] = {
-            "A": (a / math.sqrt(d_in)).to(dev),
+            "A": a / np.float32(math.sqrt(d_in)),
             "B": torch.zeros((rank, d_out), dtype=torch.float32, device=dev)}
     return lora
 

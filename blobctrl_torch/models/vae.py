@@ -7,7 +7,7 @@ package leaves it to XLA too)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -15,6 +15,7 @@ from blobctrl_torch import resolve_device
 from blobctrl_torch.nn import layers
 from blobctrl_torch.nn import resnet as rn
 from blobctrl_torch.parallel import kernel_sharding as ks
+from blobctrl_torch.utils import threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,20 +92,18 @@ def decode(params, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
                   cfg.out_channels)
 
 
-def sample_latents(moments: torch.Tensor,
-                   generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+def sample_latents(moments: torch.Tensor, key=None) -> torch.Tensor:
     """The diagonal Gaussian of the moments (B, h, w, 2 * latent): its mode
-    (the mean) when no generator is given, else mean + exp(logvar / 2) *
-    eps, the log variance clipped to [-30, 20], eps standard normal drawn
-    from ``generator`` on its device."""
+    (the mean) when no key is given, else mean + exp(logvar / 2) * eps, the
+    log variance clipped to [-30, 20], eps the JAX package's float32
+    ``normal(key, mean.shape)`` (``utils.threefry``), drawn on the mean's
+    device."""
     mean, logvar = moments.chunk(2, dim=-1)
-    if generator is None:
+    if key is None:
         return mean
     std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
-    eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                      device=generator.device).to(mean.device)
-    return mean + std * eps
+    eps = threefry.normal(key, mean.shape, device=mean.device)
+    return mean + std * eps.to(mean.dtype)
 
 
 @ks.scoped("vae")

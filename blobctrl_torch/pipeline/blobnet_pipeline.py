@@ -56,10 +56,10 @@ from blobctrl_torch.parallel import multihost
 from blobctrl_torch.schedulers import ddim as ddim_lib
 from blobctrl_torch.schedulers import dpm as dpm_lib
 from blobctrl_torch.schedulers import unipc as unipc_lib
-from blobctrl_torch.utils import resample
+from blobctrl_torch.utils import resample, threefry
 
 COND_LAT_MEMO = 8   # entries of the conditioning-latent memo (FIFO)
-VARIANCE_SEED_TAG = 0x5DE  # seeds a request's variance-noise stream
+VARIANCE_KEY_TAG = 0x5DE  # folded into a seed's key for its variance noise
 
 # the names make_scheduler knows, as the JAX package lists them
 SCHEDULER_NAMES = ("unipc", "ddim", "dpm", "dpm_karras", "dpm_sde",
@@ -564,27 +564,35 @@ class BlobNetPipeline:
         self._lora_scale = scale
 
     @staticmethod
-    def _seed_noise(seed: int, shape) -> tuple:
-        """One request's noise for ``seed``: its initial latents of
-        ``shape``, drawn from ``torch.Generator().manual_seed(seed)`` on the
-        CPU, and ``draw(i, shape)``, its variance noise of step i, from a CPU
-        generator of its own seeded from (seed, VARIANCE_SEED_TAG). The card
-        and the CPU draw the same numbers (by design not JAX's)."""
-        latents = torch.randn(tuple(shape),
-                              generator=torch.Generator().manual_seed(seed))
-        gen = torch.Generator().manual_seed(int(
-            np.random.SeedSequence([int(seed), VARIANCE_SEED_TAG])
-            .generate_state(1, np.uint64)[0]))
+    def _seed_noise(seed, shape, device=None) -> tuple:
+        """Noise for ``seed``, the JAX package's draws for it
+        (``utils.threefry``), made on ``device`` (the CPU by default; every
+        device draws the same bits): its initial latents ``normal(key(seed),
+        shape)``, and ``draw(i, shape)``, its variance noise of step i,
+        ``normal(fold_in(fold_in(key(seed), VARIANCE_KEY_TAG), i), shape)``.
+        ``seed`` may be a list of R seeds (``edit_batch``): then ``shape``
+        is one request's, row r of the latents (R, *shape[1:]) is seed r's
+        draw at it, as JAX's ``vmap`` over the keys draws it, and
+        ``draw(i, (R, ...))`` draws each row so, all R in one draw."""
+        many = isinstance(seed, (list, tuple))
+        k = (torch.stack([threefry.key(s) for s in seed]) if many
+             else threefry.key(seed))
+        vkey = threefry.fold_in(k, VARIANCE_KEY_TAG)
+
+        def normal(k, shape) -> torch.Tensor:
+            x = threefry.normal(k, shape, device=device)
+            return x.reshape((-1,) + tuple(shape[1:])) if many else x
 
         def draw(i: int, shape) -> torch.Tensor:
-            return torch.randn(tuple(shape), generator=gen)
-        return latents, draw
+            return normal(threefry.fold_in(vkey, i),
+                          (1,) + tuple(shape[1:]) if many else shape)
+        return normal(k, shape), draw
 
     def _variance_noise(self, i: int, shape) -> torch.Tensor:
         """Step i's standard-normal noise for a stochastic sampler (DDIM
-        with eta > 0, sde-dpmsolver++), drawn in step order from the call's
-        stream(s) (``_seed_noise``): one draw at ``shape`` for a single
-        edit, one row per request for ``edit_batch``."""
+        with eta > 0, sde-dpmsolver++), from the call's keys
+        (``_seed_noise``): one draw at ``shape`` for a single edit, one row
+        per request, each at the solo shape, for ``edit_batch``."""
         return self._noise_draw(i, shape).to(self.device)
 
     def _encode_images(self, images: np.ndarray, vae_params) -> torch.Tensor:
@@ -693,11 +701,13 @@ class BlobNetPipeline:
         fg_vae_image, else the first object image. Images are uint8 or
         float ndarrays (``preprocess_image_transport``).
 
-        latents: (n, h, w, 4) initial noise. Without them the noise is drawn
-        from ``torch.Generator().manual_seed(seed)`` on the CPU: the same
-        numbers on every device, but by design not JAX's draw for that seed.
-        The variance noise of a stochastic sampler comes from its own CPU
-        generator seeded from ``seed`` (``_variance_noise``).
+        latents: (n, h, w, 4) initial noise. Without them the noise is the
+        JAX package's draw for ``seed``, ``normal(PRNGKey(seed), (n, h, w,
+        4))``, made on the pipeline's device (``_seed_noise``): the same
+        numbers on every device. The variance noise of a stochastic sampler
+        is JAX's too, step i's from ``fold_in(fold_in(PRNGKey(seed),
+        0x5de), i)`` (``_variance_noise``). A seed left None is drawn from
+        urandom.
 
         scheduler: a name ``make_scheduler`` knows; timesteps:
         a custom descending schedule for any of them; eta: DDIM's variance
@@ -780,12 +790,13 @@ class BlobNetPipeline:
         n = batch_size * num_images_per_prompt
 
         seed = self._agreed_seeds([seed])[0]
-        drawn, self._noise_draw = self._seed_noise(seed, (n, h, w, 4))
+        drawn, self._noise_draw = self._seed_noise(seed, (n, h, w, 4), dev)
         if latents is None:
             latents = drawn
-        latents = torch.as_tensor(np.asarray(latents, np.float32))
-        if latents.shape[1] == 4 and latents.shape[-1] != 4:
-            latents = latents.permute(0, 2, 3, 1)
+        else:
+            latents = torch.as_tensor(np.asarray(latents, np.float32))
+            if latents.shape[1] == 4 and latents.shape[-1] != 4:
+                latents = latents.permute(0, 2, 3, 1)
         latents = latents.contiguous().to(dev)
 
         # conditioning: fg and bg through one batched VAE encode, memoized
@@ -880,7 +891,8 @@ class BlobNetPipeline:
         keyword arguments) and carry the same blob count M.
 
         Each request draws its initial and variance noise from its own seed
-        exactly as ``__call__`` does (``_seed_noise``), so a batched edit,
+        at the solo shape, as ``__call__`` draws them (``_seed_noise``) and
+        as the JAX package's ``edit_batch`` draws them, so a batched edit,
         stochastic samplers included, is its solo edit up to the rounding
         of batched operations. The 2B images go through one VAE encode
         (the conditioning-latent memo stays off: a serving batch's images
@@ -925,14 +937,8 @@ class BlobNetPipeline:
                 [r.get("negative_prompt") or "" for r in requests],
                 1, do_cfg, clip_skip)
 
-        lats, draws = [], []
-        for r in requests:
-            lat, draw = self._seed_noise(r["seed"], (1, h, w, 4))
-            lats.append(lat)
-            draws.append(draw)
-        latents = torch.cat(lats).to(dev)
-        self._noise_draw = lambda i, shape: torch.cat(
-            [d(i, (1,) + tuple(shape[1:])) for d in draws])
+        latents, self._noise_draw = self._seed_noise(
+            [r["seed"] for r in requests], (1, h, w, 4), dev)
 
         fgs, bgs, gss = [], [], []
         for r in requests:

@@ -15,41 +15,51 @@ import html
 import json
 import os
 import re
-import sys
 import unicodedata
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-def _ranges(pred) -> str:
-    """A regex character class body of every code point whose Unicode
-    category passes ``pred``, as ranges."""
-    out, start, prev = [], None, None
-    for cp in range(sys.maxunicode + 1):
-        if pred(unicodedata.category(chr(cp))):
-            if start is None:
-                start = cp
-            prev = cp
-        elif start is not None:
-            out.append(re.escape(chr(start)) if start == prev else
-                       f"{re.escape(chr(start))}-{re.escape(chr(prev))}")
-            start = None
-    if start is not None:
-        out.append(f"{re.escape(chr(start))}-{re.escape(chr(prev))}")
+from blobctrl_torch.tokenizer import unicode_classes
+
+
+def _class(table: str) -> str:
+    """A ``re`` character class body of a ``unicode_classes`` table."""
+    out = []
+    for item in table.split():
+        lo, _, hi = item.partition("-")
+        out.append(re.escape(chr(int(lo, 16))) + (
+            "-" + re.escape(chr(int(hi, 16))) if hi else ""))
     return "".join(out)
 
 
 @functools.lru_cache()
+def _classes() -> Tuple[str, str, str, str]:
+    """(letter, number, space, unmatched) class bodies."""
+    return tuple(_class(getattr(unicode_classes, n)) for n in (
+        "LETTER", "NUMBER", "SPACE", "UNMATCHED"))
+
+
+@functools.lru_cache()
 def token_pattern() -> "re.Pattern":
-    """CLIP's token pattern. The JAX package writes its letter and number
-    classes as \\p{L} and \\p{N} for the ``regex`` module; the standard ``re``
-    has no such classes, so they are spelled out from the Unicode database
-    (every category L* and N*)."""
-    letters = _ranges(lambda c: c[0] == "L")
-    numbers = _ranges(lambda c: c[0] == "N")
+    """CLIP's token pattern as the JAX package's tokenizer matches it. The
+    JAX package writes ``[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+`` for the
+    ``regex`` module with IGNORECASE; the standard ``re`` has no such
+    classes, and its own Unicode database and case folding differ, so the
+    three classes are spelled out from the code points ``regex`` matches
+    (``unicode_classes``) and only the literal alternatives are matched
+    without regard to case."""
+    letters, numbers, space, unmatched = _classes()
     return re.compile(
-        r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|"
-        f"[{letters}]+|[{numbers}]|[^\\s{letters}{numbers}]+", re.IGNORECASE)
+        r"(?i:<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d)|"
+        f"[{letters}]+|[{numbers}]|[^{space}{letters}{numbers}{unmatched}]+")
+
+
+@functools.lru_cache()
+def _space() -> "re.Pattern":
+    """``regex``'s ``\\s`` (which leaves out U+001C-U+001F, where ``re``'s
+    takes them)."""
+    return re.compile(f"[{_classes()[2]}]+")
 
 
 @functools.lru_cache()
@@ -72,7 +82,7 @@ def get_pairs(word: Tuple[str, ...]):
 
 
 def whitespace_clean(text: str) -> str:
-    return re.sub(r"\s+", " ", text).strip()
+    return _space().sub(" ", text).strip()
 
 
 class CLIPTokenizer:

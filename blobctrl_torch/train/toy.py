@@ -34,6 +34,7 @@ from blobctrl_torch.models import vae as vae_lib
 from blobctrl_torch.params import export
 from blobctrl_torch.params import from_jax as fj
 from blobctrl_torch.train import train_step as ts
+from blobctrl_torch.utils import threefry
 
 # (name, RGB): class identity is both the "prompt" and the "appearance"
 COLORS = (("red", (214, 48, 38)), ("green", (52, 168, 83)),
@@ -266,26 +267,39 @@ def _index_chunks(rng: np.random.RandomState, n: int, steps: int,
         done += k
 
 
+def _step_keys(key, steps: int):
+    """Each step's key, split from ``key`` in chunks of 100 steps as the
+    JAX package splits them (``utils.threefry``): ``key, sub = split(key)``,
+    then the chunk's ``split(sub, k)``."""
+    done = 0
+    while done < steps:
+        k = min(100, steps - done)
+        key, sub = threefry.split(key)
+        yield from threefry.split(sub, k)
+        done += k
+
+
 def train_toy_vae(images_u8: np.ndarray, vae_cfg, steps: int = 1500,
                   batch: int = 64, lr: float = 1e-3, kl_weight: float = 1e-4,
                   seed: int = 0, log_every: int = 250, device="cuda"):
     """MSE reconstruction + a tiny KL, Adam, the encoder and decoder
-    recomputed in the backward. -> (params, cfg with the measured scaling
-    factor 1 / std(latents), final mse)."""
+    recomputed in the backward. Step i samples its latents with the JAX
+    package's key for it, from ``PRNGKey(seed)`` (``_step_keys``); the
+    initial weights are not JAX's draws. -> (params, cfg with the measured
+    scaling factor 1 / std(latents), final mse)."""
     dev = resolve_device(device)
     params = vae_lib.init_vae(vae_cfg, seed, dev)
     leaves = ts.tree_leaves(params)
     opt = ts.init_opt_state(params)
-    gen = torch.Generator().manual_seed(seed)
     x_all = torch.from_numpy(np.asarray(images_u8)).to(dev)
 
-    def loss_fn(x):
+    def loss_fn(x, key):
         moments = checkpoint.checkpoint(
             lambda x: vae_lib.encode(params, vae_cfg, x), x,
             use_reentrant=False)
         mean, logvar = moments.chunk(2, dim=-1)
         logvar = torch.clamp(logvar, -30.0, 20.0)
-        z = vae_lib.sample_latents(moments, gen)
+        z = vae_lib.sample_latents(moments, key)
         rec = checkpoint.checkpoint(
             lambda z: vae_lib.decode(params, vae_cfg, z), z,
             use_reentrant=False)
@@ -298,10 +312,11 @@ def train_toy_vae(images_u8: np.ndarray, vae_cfg, steps: int = 1500,
     for p in leaves:
         p.requires_grad_(True)
     mse = None
-    for step, idx in enumerate(_index_chunks(rng, len(x_all), steps, batch),
-                               1):
+    for step, (idx, key) in enumerate(zip(
+            _index_chunks(rng, len(x_all), steps, batch),
+            _step_keys(threefry.key(seed), steps)), 1):
         x = x_all[torch.from_numpy(idx).to(dev)].float() / 127.5 - 1.0
-        loss, mse = loss_fn(x)
+        loss, mse = loss_fn(x, key)
         ts.adam_update(leaves, torch.autograd.grad(loss, leaves), opt, lr)
         mse = mse.detach()
         if log_every and step % log_every == 0:
@@ -321,8 +336,11 @@ def train_toy_diffusion(batch_data: Dict[str, np.ndarray], unet_cfg,
                         lr: float = 3e-4, seed: int = 0,
                         log_every: int = 500, device="cuda"):
     """From-scratch training of BlobNet + the full UNet
-    (``TrainConfig.train_unet_full``, weight decay 1e-3, no remat). ->
-    (unet_params, blobnet_params, final loss)."""
+    (``TrainConfig.train_unet_full``, weight decay 1e-3, no remat). Step
+    i draws t and noise from the JAX package's key for it, the third of
+    ``split(PRNGKey(seed), 3)`` split by ``_step_keys``; the initial
+    weights are not JAX's draws. -> (unet_params, blobnet_params, final
+    loss)."""
     dev = resolve_device(device)
     cfg = ts.TrainConfig(learning_rate=lr, weight_decay=1e-3,
                          train_unet_full=True, remat=False)
@@ -332,14 +350,14 @@ def train_toy_diffusion(batch_data: Dict[str, np.ndarray], unet_cfg,
     step_fn = ts.make_train_step(cfg, unet_cfg, blobnet_cfg)
     data = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
             for k, v in batch_data.items()}
-    gen = torch.Generator().manual_seed(seed)
     rng = np.random.RandomState(seed + 1)
+    keys = _step_keys(threefry.split(threefry.key(seed), 3)[2], steps)
     loss = None
-    for step, idx in enumerate(_index_chunks(
-            rng, len(data["x0_latents"]), steps, batch), 1):
+    for step, (idx, key) in enumerate(zip(_index_chunks(
+            rng, len(data["x0_latents"]), steps, batch), keys), 1):
         ix = torch.from_numpy(idx).to(dev)
         mb = {k: v[ix] for k, v in data.items()}
-        t, noise = ts.draw_t_noise(gen, batch, mb["x0_latents"].shape[1:],
+        t, noise = ts.draw_t_noise(key, batch, mb["x0_latents"].shape[1:],
                                    cfg.num_train_timesteps, dev)
         state, metrics = step_fn(state, None, mb, t, noise)
         loss = metrics["loss"]

@@ -44,6 +44,7 @@ from blobctrl_torch.models import lora as lora_lib
 from blobctrl_torch.models import unet as unet_lib
 from blobctrl_torch.parallel import collectives
 from blobctrl_torch.schedulers import ddim as ddim_lib
+from blobctrl_torch.utils import threefry
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # 256 MiB of fp32 a collective; read at each call, so a test may shrink it
@@ -220,22 +221,24 @@ def init_train_state(cfg: TrainConfig, blobnet_params, adapter_params):
     return state
 
 
-def draw_t_noise(generator: torch.Generator, batch: int, latent_shape,
+def draw_t_noise(key, batch: int, latent_shape,
                  num_train_timesteps: int = 1000, device=None,
                  rows: Optional[range] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A step's timesteps t (B,) in [0, num_train_timesteps) and standard
-    normal noise (B, *latent_shape), drawn from ``generator`` on its device
-    and moved to ``device``. ``rows``: the rows of the batch this rank
-    keeps (``multihost.local_rows``); data parallelism draws for the global
-    batch, so each rank's rows carry the draws of the one-process step."""
-    t = torch.randint(0, num_train_timesteps, (batch,), generator=generator,
-                      device=generator.device)
-    noise = torch.randn((batch,) + tuple(latent_shape), generator=generator,
-                        device=generator.device)
-    if rows is not None:
-        t, noise = t[rows.start:rows.stop], noise[rows.start:rows.stop]
-    return t.to(device), noise.to(device)
+    normal noise (B, *latent_shape), the JAX package's draws for ``key``
+    (``utils.threefry``): ``rng_t, rng_n = split(key)``, ``t =
+    randint(rng_t, (B,), 0, T)``, ``noise = normal(rng_n, (B,
+    *latent_shape))``, drawn on ``device``. ``rows``:
+    the rows of the batch this rank keeps (``multihost.local_rows``), drawn
+    alone; data parallelism draws for the global batch, so each rank's
+    rows carry the draws of the one-process step."""
+    rng_t, rng_n = threefry.split(key)
+    t = threefry.randint(rng_t, (batch,), 0, num_train_timesteps, rows=rows,
+                         device=device)
+    noise = threefry.normal(rng_n, (batch,) + tuple(latent_shape),
+                            rows=rows, device=device)
+    return t, noise
 
 
 @torch.no_grad()

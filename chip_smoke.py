@@ -151,11 +151,12 @@ script exits non-zero:
   7. Serving, on phase 6's loaded pipeline: ``edit_batch`` of 1, 2 and 4
      distinct 512^2 requests (text prompts, own images, ellipses and
      seeds; STEPS steps), warm, with seconds a batch and an image, peak
-     memory and every K1 and K6 launch on the tensor cores, each row of
-     the batch of four against its solo ``__call__`` (PSNR, for
+     memory and every K1 and K6 launch on the tensor cores, the first row
+     of the batch of four against its solo ``__call__`` (PSNR, for
      information); the toy 256^2 checkpoint in fp32, three batched rows
      against their solo edits, >= 40 dB; ``apps.server.serve`` with
-     ``max_batch=4`` and ``preview_every=10``, warmed at STEPS steps (the
+     ``max_batch=4`` and ``preview_every=10``, its requests at
+     CHECK_STEPS steps (they check behaviour, not speed), warmed at them (the
      seconds until ``/healthz`` is 200), then a solo request from PNG
      images, four concurrent requests that must come back as one batch
      of 4, the solo request from the 512^2 JPEG fixture's bytes against
@@ -163,7 +164,7 @@ script exits non-zero:
      tensor cores, counted as differences, so the phase's tally keeps
      every request) and a truncated JPEG (400), then the decode repair
      (request images decode in the server's worker processes: during a
-     STEPS-step edit the 12 MP JPEG request's handler thread spends < 0.1
+     CHECK_STEPS-step edit the 12 MP JPEG request's handler thread spends < 0.1
      s of CPU; the edit's step times alone and during the decode, and
      the workers' start-up in the warmup, printed), a remove request, a
      preview request with ``/v1/progress`` seen mid-edit and a 400 for a
@@ -171,7 +172,8 @@ script exits non-zero:
      (``utils/observability.profile_op_breakdown``: the top kernels, the
      hand-written kernels' share of device time, the device's busy share
      of the untraced edit's wall time, the device time by kind); the
-     int8-everything edit without and with the int8 linear path
+     int8-everything edit without and with the int8 linear path at
+     CHECK_STEPS steps against the exact edit at as many
      (``matmul_i8`` on the card bit-equal to the CPU's first). Phase 2
      checks every K1 and K6 shape of the batches (one-step batches at B
      = 2 and 4 record them). Counters zeroed at the start of the phase
@@ -229,7 +231,7 @@ script exits non-zero:
      each run and reads them just after. The ranks share one card and
      their collectives go through host memory: the seconds are for
      information only.
-     a. The trained 256^2 toy (fp32, 20 steps) against the same edit
+     a. The trained 256^2 toy (fp32, PARALLEL_TOY_STEPS steps) against the edit
         unsharded on the card, >= 40 dB each: model=2 ``__call__`` (the
         move edit), data=2 ``edit_batch`` of 4 rows (each row against its
         unsharded batched row), hybrid 2 x 2. On every rank K1 and K6
@@ -1170,7 +1172,7 @@ def toy_phase():
                 check_tensor_cores(f"toy 256^2 fp32 int8 {name}", counts,
                                    ("conv3x3_int8",))
     # this slice's samplers and options; the stochastic ones draw their
-    # variance noise from the CPU generator on both sides
+    # variance noise from the seed's keys, the same bits on both sides
     for name, extra in (("ddim eta 0.5", dict(scheduler="ddim", eta=0.5,
                                                 seed=5)),
                         ("dpm_sde_karras", dict(scheduler="dpm_sde_karras",
@@ -1965,9 +1967,14 @@ def text_edit_kwargs(size: int, steps: int):
     return kw
 
 
+HOST_DRAWS = "dpm_sde_karras again, seed 11, its noise drawn on the host"
+
+
 def checkpoint_requests(size: int):
     """The standard edit's kwargs from a text prompt and the object image,
-    under each sampler and option of this slice."""
+    under each sampler and option of this slice. The request labelled
+    ``HOST_DRAWS`` draws its noise on the CPU and moves it, as the port
+    drew before its draws ran on the card."""
     from blobctrl_torch.schedulers import common
     base = text_edit_kwargs(size, STEPS)
     first = dict(base, scheduler="dpm_karras", num_inference_steps=25)
@@ -1980,7 +1987,7 @@ def checkpoint_requests(size: int):
     return [("dpm_karras, 25 steps", first),
             ("dpm_karras repeat (conditioning memo)", dict(first)),
             ("dpm_sde_karras, 25 steps, seed 11", sde),
-            ("dpm_sde_karras again, seed 11", dict(sde)),
+            (HOST_DRAWS, dict(sde)),
             ("ddim, eta 0.5, 50 steps", dict(base, scheduler="ddim", eta=0.5,
                                              seed=12)),
             ("unipc, 20 trailing timesteps", dict(base, timesteps=trailing)),
@@ -2020,10 +2027,104 @@ def lora_reverted(loaded, half, now, lora) -> float:
     return worst
 
 
-def checkpoint_phase(root: str, device="cuda", size: int = 512):
+# jax.random 0.9.0 (threefry2x32, x64 off, partitionable) for seed 7, taken
+# from JAX on the CPU: the key data, step 3's variance key fold_in(fold_in(
+# key, 0x5de), 3), the first 8 random bits of a DRAW_SHAPE draw, and the
+# first 8 elements of normal(key) and normal(step 3's key) at DRAW_SHAPE as
+# float32 bits
+JAX_SEED7 = dict(
+    key=(0x0, 0x7), vkey3=(0xDC462665, 0x1C542F15),
+    bits=(0xAC91290B, 0xF9807E00, 0x4D8729AA, 0x71A74530, 0xBB1B6386,
+          0xA1849B6B, 0x72D43358, 0x6956D56A),
+    latents=(0x3EE7084B, 0x3FFA0AAE, 0xBF042845, 0xBE1052A7, 0x3F1D9131,
+             0x3EAB2B88, 0xBE046DB0, 0xBE651B2E),
+    step3=(0xBF84535D, 0xBE866F4B, 0xBF5BF753, 0x3FB03AB7, 0xBF51F534,
+           0x3F4B82DC, 0xBFB4FC4A, 0x3D5AD96C))
+DRAW_SHAPE = (1, 64, 64, 4)   # a 512^2 edit's latents
+DRAW_BATCH = 4
+
+
+def _ulps(got: torch.Tensor, want) -> int:
+    """The largest distance in float32 ulps between the first elements of
+    ``got`` and the float32 bit patterns ``want``."""
+    def ordered(i):
+        i = i.astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    g = got.flatten()[:len(want)].cpu().numpy().view(np.int32)
+    w = np.array(want, np.uint32).view(np.int32)
+    return int(np.abs(ordered(g) - ordered(w)).max())
+
+
+def seeded_draws(pipe, card: str, device="cuda"):
+    """Phase 6's seeded draws: the pipeline's ``_seed_noise(7, DRAW_SHAPE)``
+    made on ``device``, its latents and step 3's variance draw, against
+    ``JAX_SEED7`` (key data and bits exact, the normals within 4 ulp) and
+    against the same draws made on the CPU (bit-equal), as is one SDE
+    step's draw at B = ``DRAW_BATCH`` (a row per request, as
+    ``edit_batch`` draws them); then the seconds (median of 5, until the
+    noise is on ``device``) of one latent draw and of that SDE step's draw,
+    made on the host and moved, and made on ``device``. ``card``: the
+    card's name and power limit, for the log."""
+    from blobctrl_torch.utils import threefry
+    key = threefry.key(7)
+    exact = {
+        "key": tuple(int(x) for x in key) == JAX_SEED7["key"],
+        "vkey3": tuple(int(x) for x in threefry.fold_in(threefry.fold_in(
+            key, 0x5DE), 3)) == JAX_SEED7["vkey3"],
+        "bits": tuple(int(x) for x in threefry.random_bits(
+            key, DRAW_SHAPE, device=device).flatten()[:8].tolist())
+        == JAX_SEED7["bits"]}
+    lat, draw = pipe._seed_noise(7, DRAW_SHAPE, device)
+    ulps = {"latents": _ulps(lat, JAX_SEED7["latents"]),
+            "step3": _ulps(draw(3, DRAW_SHAPE), JAX_SEED7["step3"])}
+    host_lat, host_draw = pipe._seed_noise(7, DRAW_SHAPE)
+    seeds = list(range(DRAW_BATCH))
+    step_shape = (DRAW_BATCH,) + DRAW_SHAPE[1:]
+    draws = {where: pipe._seed_noise(seeds, DRAW_SHAPE, where)[1]
+             for where in ("cpu", device)}
+    same = {"latents": torch.equal(lat.cpu(), host_lat),
+            "step3": torch.equal(draw(3, DRAW_SHAPE).cpu(),
+                                 host_draw(3, DRAW_SHAPE)),
+            "sde_step": torch.equal(draws[device](5, step_shape).cpu(),
+                                    draws["cpu"](5, step_shape))}
+    log(f"  seed 7's draws against JAX's: exact {exact}; the first 8 "
+        f"latents and step 3's variance noise within {ulps} ulp (tol 4); "
+        f"made on {device} against the CPU, bit-equal: {same}")
+    if not all(exact.values()) or max(ulps.values()) > 4 \
+            or not all(same.values()):
+        raise AssertionError(f"seeded draws: {exact}, {ulps} ulp, {same}")
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+    secs = {}
+    for where in ("cpu", device):
+        for name, fn in (
+                ("latents", lambda: pipe._seed_noise(11, DRAW_SHAPE,
+                                                     where)[0]),
+                ("sde_step", lambda: draws[where](5, step_shape))):
+            times = []
+            for _ in range(5):
+                sync()
+                t0 = time.perf_counter()
+                fn().to(device)
+                sync()
+                times.append(time.perf_counter() - t0)
+            secs[(name, where)] = statistics.median(times)
+    log(f"  seconds of one draw on {card}, made on the host and moved / "
+        f"made on {device}: latents {DRAW_SHAPE} "
+        f"{secs[('latents', 'cpu')]:.4f} / {secs[('latents', device)]:.4f}"
+        f" s, one SDE step at B = {DRAW_BATCH} "
+        f"{secs[('sde_step', 'cpu')]:.4f} / {secs[('sde_step', device)]:.4f}"
+        f" s (median of 5, until the noise is on {device})")
+    return secs
+
+
+def checkpoint_phase(root: str, card: str, device="cuda", size: int = 512):
     """Phase 6 (``device`` and ``size`` let it be rehearsed on the CPU at a
     small size); -> (per-request records, the loaded pipeline). The models
-    root is written into the directory ``root``, which the caller owns."""
+    root is written into the directory ``root``, which the caller owns;
+    ``card`` is the card's name and power limit, for the log."""
     from blobctrl_torch import ops
     from blobctrl_torch.models import vae
     from blobctrl_torch.params import export, io
@@ -2056,6 +2157,7 @@ def checkpoint_phase(root: str, device="cuda", size: int = 512):
     log(f"  {leaves} leaves bit-equal to the drawn ones in bf16, {merged} "
         f"LoRA targets bit-equal to the fp32 merge then the cast; conv_in "
         f"widened 4 -> 5")
+    seeded_draws(pipe, card, device)
     del trees
     if device != "cpu":
         torch.cuda.empty_cache()
@@ -2068,6 +2170,9 @@ def checkpoint_phase(root: str, device="cuda", size: int = 512):
         return real_encode(*args, **kwargs)
     vae.encode_to_scaled_latents = counting_encode
     records, outputs = [], {}
+
+    def host_noise(seed, shape, device=None):
+        return type(pipe)._seed_noise(seed, shape)
     try:
         for label, kw in checkpoint_requests(size):
             fired = []
@@ -2078,7 +2183,10 @@ def checkpoint_phase(root: str, device="cuda", size: int = 512):
             ops.reset_counts()
             if device != "cpu":
                 torch.cuda.reset_peak_memory_stats()
+            if label == HOST_DRAWS:
+                pipe._seed_noise = host_noise
             res, secs = timed(lambda: pipe(**kw))
+            pipe.__dict__.pop("_seed_noise", None)
             counts, tc = launch_counts(), tensor_core_counts()
             peak = (torch.cuda.max_memory_allocated() / 2 ** 30
                     if device != "cpu" else float("nan"))
@@ -2125,8 +2233,10 @@ def checkpoint_phase(root: str, device="cuda", size: int = 512):
     labels = [r["label"] for r in records]
     same = {"repeat": np.array_equal(outputs[labels[0]], outputs[labels[1]]),
             "sde": np.array_equal(outputs[labels[2]], outputs[labels[3]])}
-    log(f"  dpm_sde_karras twice with one seed bit-equal: {same['sde']}; the "
-        f"repeat's image equals the first's: {same['repeat']}")
+    log(f"  dpm_sde_karras twice with one seed, its noise drawn on "
+        f"{device} ({records[2]['secs']:.3f} s) and on the host "
+        f"({records[3]['secs']:.3f} s): images bit-equal {same['sde']}; "
+        f"the repeat's image equals the first's: {same['repeat']}")
     if not all(same.values()):
         raise AssertionError(f"not reproducible: {same}")
     return records, pipe
@@ -2142,6 +2252,7 @@ SERVE_SHARED = dict(guidance_scale=7.5, blobnet_conditioning_scale=1.6,
                     blobnet_control_guidance_end=0.9)
 BATCH_SIZES = (1, 2, 4)
 TRACE_STEPS = 20
+CHECK_STEPS = 20   # 7.4's server requests and 7.6's int8 edits (7.1: STEPS)
 # the traced edit's kernels by kind: (kind, regex on the kernel's name; None:
 # the hand-written kernels), first match wins
 TRACE_KINDS = (("hand-written", None),
@@ -2198,9 +2309,9 @@ def hand_kernel_names():
 
 
 def batch_scaling(pipe, size, steps, tally):
-    """edit_batch at each B of BATCH_SIZES (distinct requests), warm; ->
-    ({B: images}, [solo images]). ``tally`` banks the counters and zeroes
-    them."""
+    """edit_batch at each B of BATCH_SIZES (distinct requests), warm, then
+    the first request's solo ``__call__`` against its row. ``tally`` banks
+    the counters and zeroes them."""
     reqs = serving_requests(size, max(BATCH_SIZES))
     shared = dict(SERVE_SHARED, height=size, width=size)
     for n in BATCH_SIZES:  # warm: allocator, library heuristics, memos
@@ -2225,16 +2336,12 @@ def batch_scaling(pipe, size, steps, tally):
             raise AssertionError(f"edit_batch B={n}: launches {ran}, "
                                  f"output {res.images.shape}")
         out[n] = res.images
-    solo = []
-    for b, req in enumerate(reqs):
-        res, secs = timed(lambda: pipe(**req, num_inference_steps=steps,
-                                       **shared))
-        solo.append(res.images)
-        log(f"  solo __call__ of request {b}: {secs:.3f} s; PSNR of its "
-            f"row in the B={max(BATCH_SIZES)} batch against it "
-            f"{psnr(out[max(BATCH_SIZES)][b:b + 1], res.images):.2f} dB "
-            f"(bf16, for information)")
-    return out, solo
+    res, secs = timed(lambda: pipe(**reqs[0], num_inference_steps=steps,
+                                   **shared))
+    log(f"  solo __call__ of request 0: {secs:.3f} s; PSNR of its row in "
+        f"the B={max(BATCH_SIZES)} batch against it "
+        f"{psnr(out[max(BATCH_SIZES)][:1], res.images):.2f} dB (bf16, for "
+        f"information)")
 
 
 def toy_batch_against_solo():
@@ -2281,7 +2388,7 @@ def _http(url, payload=None, timeout=900):
         return e.code, e.read()
 
 
-def server_phase(pipe, size, steps, batched):
+def server_phase(pipe, size, steps):
     """``apps.server.serve`` on the card (max_batch=4, preview_every=10,
     warmup at ``steps``): warmup seconds until /healthz is 200, a solo
     request from a text prompt, an ellipse and PNG images, four concurrent
@@ -2361,13 +2468,11 @@ def server_phase(pipe, size, steps, batched):
         for t in threads:
             t.join()
         for b, (c, bd, wall) in enumerate(results):
-            resp, img = images(bd) if c == 200 else (json.loads(bd), None)
+            resp, _ = images(bd) if c == 200 else (json.loads(bd), None)
             if c != 200 or resp.get("batch_size") != 4:
                 raise AssertionError(f"concurrent request {b}: {c} {resp}")
             log(f"  concurrent request {b}: batch of {resp['batch_size']}, "
-                f"server {resp['seconds']:.3f} s, client {wall:.3f} s, "
-                f"PSNR against edit_batch B=4 in this phase "
-                f"{psnr(img, batched[b:b + 1]):.2f} dB")
+                f"server {resp['seconds']:.3f} s, client {wall:.3f} s")
         if service.batches_run != 2:   # the solo request's, and this one
             raise AssertionError(f"batches run {service.batches_run}")
         jpeg_requests(base, payload, images, size)
@@ -2637,9 +2742,10 @@ def report_trace(what, fn):
         raise AssertionError("the trace shows no hand-written kernel")
 
 
-def int8_linear_edit(pipe, size, steps, exact, tally):
+def int8_linear_edit(pipe, size, steps, tally):
     """One edit in the int8-everything mode without and with the int8
-    linear path; PSNR against the exact edit and between the two."""
+    linear path; PSNR against the exact edit at as many steps and between
+    the two."""
     from blobctrl_torch.nn import layers
     from blobctrl_torch.ops import conv3x3
     from blobctrl_torch.utils import benchkit
@@ -2660,6 +2766,10 @@ def int8_linear_edit(pipe, size, steps, exact, tally):
             raise AssertionError(f"matmul_i8 at {(m, k, n)} differs")
     kw = dict(serving_requests(size, 1)[0], height=size, width=size,
               num_inference_steps=steps, **SERVE_SHARED)
+    tally()
+    exact, secs = timed(lambda: pipe(**kw).images)
+    check_tensor_cores("the exact edit", launch_counts(), EXACT)
+    log(f"  the exact edit, {steps} steps: {secs:.3f} s")
     outs = {}
     for label, linear in (("int8-everything", False),
                           ("int8-everything + int8 linears", True)):
@@ -2703,7 +2813,7 @@ def serving_phase(pipe, size: int = 512, steps: int = STEPS):
 
     ops.reset_counts()
     log("  7.1 batch scaling")
-    batched, solo = batch_scaling(pipe, size, steps, tally)
+    batch_scaling(pipe, size, steps, tally)
     tally()
     log("  7.2 batched against solo, toy 256^2 fp32 on the card")
     toy_batch_against_solo()
@@ -2711,15 +2821,16 @@ def serving_phase(pipe, size: int = 512, steps: int = STEPS):
     # only, not against the plain versions
     ops.reset_counts()
     log("  7.3 (phase 2 checked every kernel shape of this phase)")
-    log("  7.4 the HTTP server")
-    server_phase(pipe, size, steps, batched[max(BATCH_SIZES)])
+    check = min(steps, CHECK_STEPS)
+    log(f"  7.4 the HTTP server, {check} steps a request")
+    server_phase(pipe, size, check)
     check_tensor_cores("server", launch_counts(), EXACT)
     tally()
     log("  7.5 one traced edit")
     traced_edit(pipe, size)
     tally()
-    log("  7.6 the int8 linear path")
-    int8_linear_edit(pipe, size, steps, solo[0], tally)
+    log(f"  7.6 the int8 linear path, {check} steps an edit")
+    int8_linear_edit(pipe, size, check, tally)
     tally()
     return shapes, dict(totals)
 
@@ -2768,10 +2879,11 @@ def training_setup(group=None):
     from blobctrl_torch.apps import flagship
     from blobctrl_torch.models import lora
     from blobctrl_torch.train import train_step as ts
+    from blobctrl_torch.utils import threefry
     ucfg, bcfg = (flagship.sd15_unet_config(),
                   flagship.blobctrl_blobnet_config())
     frozen, blob, _ = flagship.production_params(0, "cuda", torch.bfloat16)
-    adapter = lora.init_lora(torch.Generator().manual_seed(0), frozen,
+    adapter = lora.init_lora(threefry.key(0), frozen,
                              rank=TRAIN_LORA_RANK, device="cuda")
     cfg = ts.TrainConfig()
     state = ts.init_train_state(cfg, blob, adapter)
@@ -2784,11 +2896,12 @@ def record_training_shapes(step, state, frozen):
     and gradients, nothing updated) at each of 8c's batch sizes."""
     from blobctrl_torch import ops
     from blobctrl_torch.train import train_step as ts
+    from blobctrl_torch.utils import threefry
     shapes = {name: set() for name in EXACT}
     for b in TRAIN_BATCHES:
         ops.reset_counts()
         step.loss_and_grads(state, frozen, train_batch(step, b, b),
-                            *ts.draw_t_noise(torch.Generator().manual_seed(b),
+                            *ts.draw_t_noise(threefry.key(b),
                                              b, TRAIN_LATENT, device="cuda"))
         for name in EXACT:
             shapes[name] |= set(launch_shapes()[name])
@@ -2866,6 +2979,7 @@ def toy_training_phase(card_device="cuda", batch: int = TOY_TRAIN_BATCH):
     from blobctrl_torch import ops
     from blobctrl_torch.train import toy
     from blobctrl_torch.train import train_step as ts
+    from blobctrl_torch.utils import threefry
     ckpt = os.path.join(ROOT, "assets", "toy_ckpt_256")
     (card, meta), (cpu, _) = (toy.load_toy(ckpt, device=dev,
                                            dtype=torch.float32)
@@ -2874,7 +2988,7 @@ def toy_training_phase(card_device="cuda", batch: int = TOY_TRAIN_BATCH):
     data = toy.encode_dataset(cpu.vae_params, cpu.vae_cfg, toy.build_dataset(
         batch, size=size, seed=8, ctx=meta["ctx"], dino_c=meta["dino_c"]))
     latent = (size // 8, size // 8, 4)
-    t, noise = ts.draw_t_noise(torch.Generator().manual_seed(8), batch,
+    t, noise = ts.draw_t_noise(threefry.key(8), batch,
                                latent, device="cpu")
 
     def state_and_step(pipe, dtype):
@@ -2915,7 +3029,7 @@ def toy_training_phase(card_device="cuda", batch: int = TOY_TRAIN_BATCH):
         state, step = state_and_step(pipe, torch.float32)
         trail.append([])
         for i in range(3):
-            tt, nn_ = ts.draw_t_noise(torch.Generator().manual_seed(20 + i),
+            tt, nn_ = ts.draw_t_noise(threefry.key(20 + i),
                                       batch, latent, device=pipe.device)
             state, m = step(state, None, data, tt, nn_)
             trail[-1].append(float(m["loss"]))
@@ -2987,9 +3101,10 @@ def full_width_training(step, state, frozen):
     from blobctrl_torch import ops
     from blobctrl_torch.params import export
     from blobctrl_torch.train import train_step as ts
+    from blobctrl_torch.utils import threefry
 
     def draw(b, seed):
-        return ts.draw_t_noise(torch.Generator().manual_seed(seed), b,
+        return ts.draw_t_noise(threefry.key(seed), b,
                                TRAIN_LATENT, device="cuda")
     n_blob = ts.num_params(state["params"]["blobnet"])
     n_lora = ts.num_params(state["params"]["lora"])
@@ -3666,10 +3781,19 @@ def dp_toy_step(pipe, group=None):
 
 def dp_draw(i: int, batch: int, latent, rows=None):
     """Step i's t and noise for the global batch (its ``rows``), on the
-    card."""
+    card: JAX's draws for ``PRNGKey(DP_SEED + i)``."""
     from blobctrl_torch.train import train_step as ts
-    return ts.draw_t_noise(torch.Generator().manual_seed(DP_SEED + i), batch,
-                           latent, device="cuda", rows=rows)
+    from blobctrl_torch.utils import threefry
+    return ts.draw_t_noise(threefry.key(DP_SEED + i), batch, latent,
+                           device="cuda", rows=rows)
+
+
+def worst_leaf(got, want) -> float:
+    """10a's gradient metric: over the leaves, the largest max |got -
+    want| of a leaf over that leaf's max |want|."""
+    return max(float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
+                                                 1e-30)
+               for g, w in zip(got, want))
 
 
 def _rows(tree, rows):
@@ -3980,11 +4104,21 @@ def dp_training_phase(models_root: str, work: str, train_shapes):
         while the ranks start: 10a's toy gradients (fp32, TF32 off), then
         10b's DP_STEPS steps in 8c's configuration."""
         state, step = dp_toy_step(card)
-        loss, grads = step.loss_and_grads(state, None, data,
-                                          *dp_draw(0, DP_TOY_BATCH, latent))
-        refs["a"] = (float(loss), float(ts.global_norm(grads)),
-                     [g.cpu().numpy() for g in grads])
-        del state, step, grads
+
+        def grads_of(rows=None):
+            batch = data if rows is None else _rows(data, rows)
+            loss, grads = step.loss_and_grads(
+                state, None, batch, *dp_draw(0, DP_TOY_BATCH, latent, rows))
+            return (float(loss), float(ts.global_norm(grads)),
+                    [g.cpu().numpy() for g in grads])
+        loss, norm, want = grads_of()
+        again = grads_of()[2]
+        halves = [grads_of(range(0, 2)), grads_of(range(2, 4))]
+        mean = [(a + b) / 2 for a, b in zip(halves[0][2], halves[1][2])]
+        refs["a"] = (loss, norm, want, {
+            "split": worst_leaf(mean, want), "again": worst_leaf(again, want),
+            "dropped": worst_leaf(halves[0][2], want)})
+        del state, step, want, again, halves, mean
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = TF32_DEFAULTS
         step, state, frozen = training_setup()
@@ -4013,27 +4147,35 @@ def dp_training_phase(models_root: str, work: str, train_shapes):
     log(f"  {DP_WORLD} ranks on cuda:0 ran 10a, 10b and 10c in "
         f"{time.perf_counter() - t0:.1f} s (spawn and loads included)")
     launched = collections.Counter()
-    # 10a
-    loss_a, norm_a, g_ref = ref_a
+    # 10a: the averaged gradients may differ from one process's by what
+    # summing the batch as 2 + 2 rows and running again move them on the
+    # card in this run (``noise``), twice over; a rank's rows dropped from
+    # the mean (``dropped``) must lie ten bars above that
+    loss_a, norm_a, g_ref, noise = ref_a
+    bar_a = 2.0 * (noise["split"] + noise["again"])
+    log(f"  10a's gradient bar: 2 x (2 + 2 rows against 4: "
+        f"{noise['split']:.2e}, run to run: {noise['again']:.2e}) = "
+        f"{bar_a:.2e} of a leaf's max |gradient|; one rank's rows alone: "
+        f"{noise['dropped']:.2e}")
+    if noise["dropped"] < 10.0 * bar_a:
+        raise AssertionError(f"10a: the bar {bar_a} cannot tell a dropped "
+                             f"rank ({noise['dropped']}) from noise")
     for rank, run in enumerate(r["dp_toy"] for r in ranks):
         first = run["first"]
         rel_loss = abs(first["loss"] - loss_a) / loss_a
         rel_norm = abs(first["norm"] - norm_a) / norm_a
-        worst = None
-        if first["grads"] is not None:
-            worst = max(float(np.abs(g - w).max()) / max(
-                float(np.abs(w).max()), 1e-30)
-                for g, w in zip(first["grads"], g_ref))
+        worst = (None if first["grads"] is None
+                 else worst_leaf(first["grads"], g_ref))
         counts = [{k: r["launches"][k] for k in EXACT} for r in run["steps"]]
         log(f"  10a rank {rank}: the mean over ranks of the first batch: "
             f"loss {first['loss']:.8f} against {loss_a:.8f} in one process "
             f"(rel {rel_loss:.2e}, tol 1e-06), grad norm rel {rel_norm:.2e}"
             + ("" if worst is None else f", worst leaf {worst:.2e} of its "
-               f"max |gradient| (tol 1e-05)") + "; steps: "
+               f"max |gradient| (tol {bar_a:.2e})") + "; steps: "
             + ", ".join(f"loss {r['loss']:.6f} norm {r['grad_norm']:.5f} "
                         f"{r['secs']:.3f} s" for r in run["steps"])
             + f"; launches a step {counts}")
-        if rel_loss > 1e-6 or (worst is not None and worst > 1e-5):
+        if rel_loss > 1e-6 or (worst is not None and worst > bar_a):
             raise AssertionError(f"10a rank {rank}: loss rel {rel_loss}, "
                                  f"gradients {worst}")
         if run["replicate"] != run["want_replicate"] or any(
@@ -4276,7 +4418,7 @@ def main() -> int:
     log_elapsed()
     del pipe
     torch.cuda.empty_cache()
-    _, pipe = checkpoint_phase(models_root)
+    _, pipe = checkpoint_phase(models_root, smi.splitlines()[0])
 
     # -- phase 7 ------------------------------------------------------------
     log(f"phase 7: serving on phase 6's loaded pipeline: edit_batch at B = "

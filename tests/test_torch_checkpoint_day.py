@@ -6,11 +6,10 @@ tiny CLIP and DINOv2, a LoRA, a byte-level tokenizer) and one demo root of
 two states that the port's session writes (a move with tracking points and
 its editable-blob golden, and a remove), each with a results gallery.
 
-Each side loads the root through its own ``load_pipeline`` (injected);
-the port's pipeline draws JAX's noise for each seed (``_seed_noise``
-replaced, as in ``test_torch_edit_batch``), and the JAX scorer's WebP
-cache hop is the identity (the port has no WebP codec). The two reports
-agree on the stage list, the ``ok`` flags, the UI goldens' counts, each
+Each side loads the root through its own ``load_pipeline`` (injected)
+and draws each state's noise from its seed by its own code; the JAX
+scorer's WebP cache hop is the identity (the port has no WebP codec). The
+two reports agree on the stage list, the ``ok`` flags, the UI goldens' counts, each
 mode's mean PSNR (within 0.5 dB; fp32, 2 steps) and the gates. Also: the
 download stage refuses (never fetches) when the layout is absent, the int8
 switches are off after the run, and the report serialises to JSON."""
@@ -32,7 +31,6 @@ from blobctrl_torch.nn import attention
 from blobctrl_torch.ops import conv3x3
 from blobctrl_torch.params import io as tio
 from blobctrl_torch.utils import png
-from tests.test_torch_edit_batch import jax_seed_noise
 from tests.test_torch_load_pipeline import models_root  # noqa: F401
 
 torch.set_num_threads(2)
@@ -79,14 +77,10 @@ def demo_root(tmp_path_factory):
 def reports(models_root, demo_root):  # noqa: F811
     root, _ = models_root
 
-    def tload(r):
-        p = tio.load_pipeline(r, dtype=torch.float32, device="cpu")
-        p._seed_noise = jax_seed_noise
-        return p
-
     port = tcd.run_checkpoint_day(
         models_root=root, demo_root=demo_root, steps=2, num_samples=1,
-        names=NAMES, load_pipeline=tload, device="cpu")
+        names=NAMES, load_pipeline=lambda r: tio.load_pipeline(
+            r, dtype=torch.float32, device="cpu"), device="cpu")
     port_flags = (conv3x3.conv_int8_enabled(), attention.attention_int8_mode())
     webp = jui.webp_cache_roundtrip
     jui.webp_cache_roundtrip = lambda x: np.asarray(x)

@@ -4,13 +4,13 @@ nets of ``test_torch_session`` (tiny CLIP text and DINOv2, BlobNet's taps
 nonzero, string prompts and object images): three requests with distinct
 seeds, ellipses and images, under UniPC and DPM-Solver++ 2M SDE.
 
-The two packages draw noise from different generators, so against JAX the
-port's ``_seed_noise`` is replaced by JAX's draws for each request's seed
-(``normal(PRNGKey(seed))`` for the latents, ``normal(fold_in(fold_in(
-PRNGKey(seed), 0x5de), i))`` for step i's variance noise); nothing in the
-JAX package changes. Against the port's own solo edits nothing is
-replaced. Bar: <= 1 uint8 level at >= 99.9 % of pixels, <= 2 everywhere
-(PERF.md §2), not bit-equality: a batched op may sum in another order."""
+Each package draws every request's noise from its seed by its own code:
+the port's ``_seed_noise`` gives JAX's draws (``normal(PRNGKey(seed))``
+for the latents, ``normal(fold_in(fold_in(PRNGKey(seed), 0x5de), i))``
+for step i's variance noise, ``utils.threefry``), and nothing of JAX's is
+put into the port. Bar: <= 1 uint8 level at >= 99.9 % of pixels, <= 2
+everywhere (PERF.md §2), not bit-equality: a batched op may sum in
+another order."""
 
 import jax
 import numpy as np
@@ -45,42 +45,23 @@ def requests(n=3):
     return out
 
 
-def jax_seed_noise(seed, shape):
-    """The JAX package's draws for ``seed``, in ``_seed_noise``'s form."""
-    key = jax.random.PRNGKey(seed)
-    vkey = jax.random.fold_in(key, 0x5de)
-
-    def draw(i, shape):
-        return torch.from_numpy(np.array(jax.random.normal(
-            jax.random.fold_in(vkey, i), tuple(shape), np.float32)))
-    return (torch.from_numpy(np.array(jax.random.normal(
-        key, tuple(shape), np.float32))), draw)
-
-
 @pytest.fixture(scope="module")
 def runs(pipelines):  # noqa: F811
-    """{scheduler: (JAX batch, port batch with JAX's noise, port batch,
-    [port solo])}."""
+    """{scheduler: (JAX batch, port batch, [port solo])}."""
     jpipe, tpipe = pipelines
     out = {}
     for sched in ("unipc", "dpm_sde"):
         kw = dict(SHARED, scheduler=sched)
         want = jpipe.edit_batch(requests(), **kw).images
-        real = tpipe._seed_noise
-        tpipe._seed_noise = jax_seed_noise
-        try:
-            got_jax_noise = tpipe.edit_batch(requests(), **kw)
-        finally:
-            tpipe._seed_noise = real
-        got = tpipe.edit_batch(requests(), **kw).images
+        got = tpipe.edit_batch(requests(), **kw)
         solo = [tpipe(**r, **kw).images for r in requests()]
-        out[sched] = (want, got_jax_noise, got, solo)
+        out[sched] = (want, got, solo)
     return out
 
 
 @pytest.mark.parametrize("sched", ["unipc", "dpm_sde"])
 def test_edit_batch_matches_jax(runs, sched):
-    want, got, _, _ = runs[sched]
+    want, got, _ = runs[sched]
     assert got.images.shape == want.shape == (3, SIZE, SIZE, 3)
     assert got.nsfw_content_detected is None
     _assert_u8_close(got.images, want, f"edit_batch {sched}")
@@ -88,7 +69,8 @@ def test_edit_batch_matches_jax(runs, sched):
 
 @pytest.mark.parametrize("sched", ["unipc", "dpm_sde"])
 def test_each_batched_row_is_its_solo_edit(runs, sched):
-    _, _, got, solo = runs[sched]
+    _, got, solo = runs[sched]
+    got = got.images
     for b, one in enumerate(solo):
         assert one.shape == (1, SIZE, SIZE, 3)
         _assert_u8_close(got[b:b + 1], one, f"{sched} row {b}")
@@ -142,11 +124,33 @@ def test_edit_batch_refuses_what_the_jax_package_refuses(pipelines, kind):  # no
 
 
 def test_seed_noise_is_the_single_edits_draw():
+    """``_seed_noise``: the JAX pipeline's draws for the seed, the latents
+    from ``PRNGKey(seed)`` and step i's variance noise from
+    ``fold_in(fold_in(PRNGKey(seed), 0x5de), i)``, bit-equal; a solo
+    shape's row is the first row of a draw for n images; a list of seeds
+    draws each row as its seed's solo draw."""
+    key = jax.random.PRNGKey(11)
+    vkey = jax.random.fold_in(key, 0x5de)
     lat, draw = tbp.BlobNetPipeline._seed_noise(11, (1, 8, 8, 4))
-    want = torch.randn((1, 8, 8, 4),
-                       generator=torch.Generator().manual_seed(11))
-    assert torch.equal(lat, want)
+    np.testing.assert_array_equal(lat.numpy(), np.asarray(
+        jax.random.normal(key, (1, 8, 8, 4))))
+    for i in (0, 3):
+        np.testing.assert_array_equal(draw(i, (1, 8, 8, 4)).numpy(),
+                                      np.asarray(jax.random.normal(
+                                          jax.random.fold_in(vkey, i),
+                                          (1, 8, 8, 4))))
     a = draw(0, (1, 8, 8, 4))
     _, draw2 = tbp.BlobNetPipeline._seed_noise(11, (1, 8, 8, 4))
     assert torch.equal(draw2(0, (1, 8, 8, 4)), a)
     assert not torch.equal(a, lat)
+    lat2, _ = tbp.BlobNetPipeline._seed_noise(11, (2, 8, 8, 4))
+    assert torch.equal(lat2[:1], lat)
+    # edit_batch's rows: each request's draws at the solo shape, all rows
+    # in one draw
+    lats, draws = tbp.BlobNetPipeline._seed_noise([5, 11], (1, 8, 8, 4))
+    assert tuple(lats.shape) == (2, 8, 8, 4)
+    assert torch.equal(lats[1:], lat)
+    assert torch.equal(draws(3, (2, 8, 8, 4))[1:], draw(3, (1, 8, 8, 4)))
+    lat5, draw5 = tbp.BlobNetPipeline._seed_noise(5, (1, 8, 8, 4))
+    assert torch.equal(lats[:1], lat5)
+    assert torch.equal(draws(3, (2, 8, 8, 4))[:1], draw5(3, (1, 8, 8, 4)))

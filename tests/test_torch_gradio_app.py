@@ -4,7 +4,7 @@ not installed): the same widgets and events in the same order with the
 same outputs, and every handler, driven through the same session steps
 with the ``FakeSam`` double, returns what the JAX handler returns (arity,
 order and images; the generated results to the session test's bar, the
-two pipelines running on the same weights from the same latents). The
+two pipelines running on the same weights from the same seed). The
 example gallery replays from an ``examples_root`` that the test writes.
 ``main`` loads through the port's loaders: a present SAM checkpoint is
 wrapped in the port's ``SamPredictor`` for the session, and one that

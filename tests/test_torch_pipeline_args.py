@@ -6,15 +6,14 @@ custom timesteps, ``output_type="latent"``, the step callback, and the
 refusals. Images to the bar of ``test_torch_pipeline`` (<= 1 uint8 level at
 >= 99.9 % of pixels, <= 2 everywhere); latents within 1e-3.
 
-The stochastic samplers draw their variance noise differently (JAX: a
-PRNG key folded with the step; the port: a CPU ``torch.Generator``), so
-here the port's ``_variance_noise`` is replaced by JAX's draws for the
-same seed, ``normal(fold_in(fold_in(PRNGKey(seed), 0x5de), i))``; nothing
-in the JAX package changes. The encoder cache, guidance-interval CFG, the
+Each side draws the stochastic samplers' variance noise from the seed by
+its own code (the port through ``utils.threefry``); a spy only counts the
+port's draws. Seeded edits without latents (UniPC, DPM++ SDE Karras, DDIM
+eta 0.5, one at ``num_images_per_prompt=2``) hold the port's initial
+noise to JAX's too. The encoder cache, guidance-interval CFG, the
 conditioning-latent memo and float images are in
 ``test_torch_pipeline_options``."""
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -41,16 +40,6 @@ def edit():
     return _edits(SIZE)["move"]
 
 
-def jax_variance_noise(seed):
-    """The JAX package's per-step variance noise for ``seed``."""
-    key = jax.random.fold_in(jax.random.PRNGKey(seed), 0x5de)
-
-    def draw(i, shape):
-        return torch.from_numpy(np.array(jax.random.normal(
-            jax.random.fold_in(key, i), tuple(shape), np.float32)))
-    return draw
-
-
 CASES = {
     "ddim": dict(scheduler="ddim"),
     "ddim_eta0.5": dict(scheduler="ddim", eta=0.5),
@@ -68,7 +57,7 @@ def test_sampler_edit_matches_jax(pipes, edit, name, monkeypatch):
     kw = dict(edit, **CASES[name])
     want = jpipe(**kw).images
     calls = []
-    draw = jax_variance_noise(kw["seed"])
+    draw = tpipe._variance_noise
 
     def noise(i, shape):
         calls.append(i)
@@ -80,6 +69,32 @@ def test_sampler_edit_matches_jax(pipes, edit, name, monkeypatch):
     stochastic = kw.get("eta", 0) > 0 or "sde" in kw["scheduler"]
     assert calls == (list(range(len(kw.get("timesteps") or range(6))))
                      if stochastic else [])
+
+
+SEEDED = {
+    "unipc": dict(scheduler="unipc"),
+    "dpm_sde_karras": dict(scheduler="dpm_sde_karras"),
+    "ddim_eta0.5": dict(scheduler="ddim", eta=0.5),
+    "dpm_sde_karras_n2": dict(scheduler="dpm_sde_karras",
+                              num_images_per_prompt=2, seed=1248464818),
+}
+
+
+@pytest.mark.parametrize("name", list(SEEDED))
+def test_seeded_edit_without_latents_matches_jax(pipes, edit, name):
+    """No ``latents``: each side draws them from the seed, JAX's
+    ``normal(PRNGKey(seed), (n, h, w, 4))`` both. 1-11 s each, 18 s in
+    all, the JAX compiles most of it."""
+    jpipe, tpipe = pipes
+    kw = {k: v for k, v in edit.items() if k != "latents"}
+    kw.update(SEEDED[name])
+    want = jpipe(**kw).images
+    got = tpipe(**kw).images
+    n = kw.get("num_images_per_prompt", 1)
+    assert got.shape == want.shape == (n, SIZE, SIZE, 3)
+    _assert_u8_close(got, want, name)
+    if n > 1:   # one draw at (n, h, w, 4): the images differ
+        assert not np.array_equal(got[0], got[1])
 
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,8 @@ decode, on every image of ``__call__`` and every row of ``edit_batch``
 (one flag each), never for ``output_type="latent"``; the flagged rows are
 zero under ``blackout_nsfw``; the rest, and the images the checker saw,
 meet the uint8 bar (<= 1 level at >= 99.9 % of pixels, <= 2 everywhere).
-For ``edit_batch`` the port draws JAX's noise for each seed
-(``_seed_noise`` replaced, as in ``test_torch_edit_batch``)."""
+Both sides draw ``edit_batch``'s noise from each request's seed by their
+own code."""
 
 import numpy as np
 import pytest
@@ -18,7 +18,6 @@ import torch
 
 from blobctrl_tpu.train import toy as jtoy
 from blobctrl_torch.train import toy as ttoy
-from tests.test_torch_edit_batch import jax_seed_noise
 from tests.test_torch_pipeline import _assert_u8_close, _edits
 
 torch.set_num_threads(2)
@@ -97,13 +96,8 @@ def test_edit_batch_flags_each_row(pipes):
     pattern = [False, True, False]
     jout, jrec = run(jpipe, pattern, True,
                      lambda p: p.edit_batch(batch_requests(), **kw))
-    real = tpipe._seed_noise
-    tpipe._seed_noise = jax_seed_noise
-    try:
-        tout, trec = run(tpipe, pattern, True,
-                         lambda p: p.edit_batch(batch_requests(), **kw))
-    finally:
-        tpipe._seed_noise = real
+    tout, trec = run(tpipe, pattern, True,
+                     lambda p: p.edit_batch(batch_requests(), **kw))
     assert tout.nsfw_content_detected.tolist() == pattern
     assert jout.nsfw_content_detected.tolist() == pattern
     assert trec.seen[0].shape == (3, 256, 256, 3) and len(trec.seen) == 1

@@ -5,9 +5,8 @@ taps drawn nonzero, size 64) on port 0 of 127.0.0.1 and take the same
 request suite: health, info keys, 404, 413, the validation 400s, the
 cold-shape and cold-graph 400s, a preview refused when disabled, and one
 edit and one remove edit each, whose decoded images meet the uint8 bar
-(<= 1 level at >= 99.9 % of pixels, <= 2 everywhere). The port's pipeline
-draws JAX's noise for each seed (``_seed_noise`` replaced, as in
-``test_torch_edit_batch``).
+(<= 1 level at >= 99.9 % of pixels, <= 2 everywhere). Both draw their
+noise from each request's seed, each package by its own code.
 
 Then the port alone: a ``max_batch=4`` server runs four concurrent
 compatible requests as one batch, each equal to its solo edit to the bar;
@@ -41,7 +40,6 @@ from blobctrl_torch.models import vae as tvae
 from blobctrl_torch.params.from_jax import from_jax
 from blobctrl_torch.pipeline import BlobNetPipeline as TPipeline
 from blobctrl_torch.utils import png
-from tests.test_torch_edit_batch import jax_seed_noise
 from tests.test_torch_png import bomb
 from tests.test_torch_session import _assert_u8_close, _with_taps
 
@@ -70,7 +68,6 @@ def pipes():
         blobnet_params=t["blobnet"],
         vae_cfg=tvae.VAEConfig(**dataclasses.asdict(jv)), vae_params=t["vae"],
         device="cpu")
-    tpipe._seed_noise = jax_seed_noise
     return jpipe, tpipe
 
 

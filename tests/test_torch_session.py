@@ -3,11 +3,11 @@ on the CPU in fp32 at size 64: the same non-square image, mask and edits
 drive both, through tiny random nets with tiny CLIP text and DINOv2, a
 byte-level tokenizer, string prompts and object images.
 
-The two pipelines draw their initial noise from different generators, so
-each session's pipeline is wrapped: the wrapper records the kwargs the
-session builds and runs the real pipeline on them with the same explicit
-latents. The test then holds (1) the editor state, masks and backgrounds,
-(2) the recorded kwargs, and (3) the edits, at the exact bar."""
+Each session's pipeline is wrapped: the wrapper records the kwargs the
+session builds and runs the real pipeline on them, which draws its noise
+from the session's seed (the port draws JAX's numbers for it). The test
+then holds (1) the editor state, masks and backgrounds, (2) the recorded
+kwargs, and (3) the edits, at the exact bar."""
 
 import dataclasses
 
@@ -93,18 +93,16 @@ def pipelines():
 
 class Recorded:
     """A pipeline that records each call's kwargs and runs the real one
-    on them with fixed initial latents."""
+    on them."""
 
     def __init__(self, pipe):
         self.pipe = pipe
         self.device = getattr(pipe, "device", None)
         self.calls = []
-        self.latents = np.random.RandomState(9).randn(
-            1, SIZE // 8, SIZE // 8, 4).astype(np.float32)
 
     def __call__(self, **kw):
         self.calls.append(kw)
-        return self.pipe(**kw, latents=self.latents)
+        return self.pipe(**kw)
 
 
 def drive(session_lib, pipe):

@@ -6,7 +6,8 @@ its tracking points) and saves its state; the port's state directory
 loads in the JAX package's session and the JAX one in the port's, with the
 same images, the same ``state.json``, the same editor entries and tracking
 points. ``apps/replay.replay`` of the saved state equals the session's own
-run bit for bit (same seed, the PNGs lossless); a remove-mode state
+run bit for bit (same seed, the PNGs lossless), and a state the JAX
+session wrote replays in the port as in JAX (uint8 bar); a remove-mode state
 replays as the session's remove run; ``outside_mask_psnr`` equals the JAX
 package's; a state with a recorded ``results_gallery`` scores through
 ``score_all`` and ``print_score_table``."""
@@ -24,7 +25,7 @@ from blobctrl_tpu.blob import viz as jviz
 from blobctrl_torch.apps import replay as treplay
 from blobctrl_torch.apps import session as tsession
 from blobctrl_torch.utils import png
-from tests.test_torch_session import pipelines  # noqa: F401
+from tests.test_torch_session import _assert_u8_close, pipelines  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -118,6 +119,24 @@ def test_replay_equals_the_sessions_run(pipelines, tmp_path,  # noqa: F811
     e = s.editor.initial if remove else s.editor.current
     np.testing.assert_allclose(np.hstack([final[0], final[1], final[2]]),
                                np.hstack([e[0], e[1], e[2]]), atol=1e-9)
+
+
+@pytest.mark.parametrize("remove", [False, True])
+def test_a_jax_state_dir_replays_as_jax_replays_it(
+        pipelines, tmp_path, remove):  # noqa: F811
+    """A state directory the JAX session wrote, replayed by the port with
+    no latents given: its seed draws JAX's noise, so the images meet the
+    uint8 bar against JAX's own replay. 2-7 s each."""
+    jpipe, tpipe = pipelines
+    s = _session(jsession, jpipe)
+    if remove:
+        s.set_remove_mode(True)
+    d = s.save_state(str(tmp_path / "state"), PROMPT, remove=remove, **RUN)
+    want, jstate, _ = jreplay.replay(jpipe, d)
+    got, state, _ = treplay.replay(tpipe, d)
+    assert state == jstate and state["seed"] == RUN["seed"]
+    assert got.shape == want.shape == (1, SIZE, SIZE, 3)
+    _assert_u8_close(got, want, f"replay remove={remove}")
 
 
 def test_outside_mask_psnr_matches_jax():

@@ -23,6 +23,7 @@ from blobctrl_torch.params import io as tio
 from blobctrl_torch.params.from_jax import from_jax
 from blobctrl_torch.train import checkpoint as tckpt
 from blobctrl_torch.train import train_step as tts
+from blobctrl_torch.utils import threefry
 
 torch.set_num_threads(2)
 
@@ -67,7 +68,7 @@ def _run(cfg, state, up, steps):
     step = tts.make_train_step(cfg, *tflag.tiny_configs())
     for i in steps:
         batch = _batch(10 + i)
-        t, noise = tts.draw_t_noise(torch.Generator().manual_seed(i), 2,
+        t, noise = tts.draw_t_noise(threefry.key(i), 2,
                                     (8, 8, 4))
         state, _ = step(state, up, batch, t, noise)
     return state

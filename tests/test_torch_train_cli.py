@@ -3,7 +3,9 @@ on a models root that ``params/export.write_models_root`` writes from
 tiny random trees: ``load_dataset`` against the JAX CLI's (PIL) on PNG and
 JPEG images and RGB masks of another size; 2 steps with a checkpoint, a
 resume to 4 (starting at step 2) and the export, which reloads through
-the port's loaders bit-equal to the final state; data-parallel training
+the port's loaders bit-equal to the final state; the adapter and each
+step's t and noise, JAX's draws for PRNGKey(0) and PRNGKey(step);
+data-parallel training
 on 2 gloo ranks: ``--data_parallel 2``, where --batch_size is the global
 batch (its checkpoints, resume, export and collective count, its rows
 those JAX's loader gives each device, its run that of one rank at the
@@ -152,6 +154,48 @@ def test_train_checkpoint_resume_export(models_root, data_root, tmp_path,
     assert moved == len(lora)  # every B left zero
 
 
+def test_the_cli_draws_the_jax_clis_adapter_and_step_noise(
+        models_root, data_root, tmp_path, monkeypatch):
+    """The adapter is JAX's ``init_lora(PRNGKey(0))`` over the JAX
+    loader's UNet (every A within 4 ulp, the targets in its order), and
+    step s draws t and noise from ``PRNGKey(s)`` as the JAX step does,
+    bit-equal. About 9 s."""
+    import jax
+    import jax.numpy as jnp
+    from blobctrl_tpu.models import lora as jlora
+    from blobctrl_tpu.params import io as jio
+    from blobctrl_torch.models import lora as tlora
+    from tests.test_torch_threefry import ulps
+    adapters, draws = [], []
+    real_init, real_draw = tlora.init_lora, tts.draw_t_noise
+
+    def init_spy(*a, **k):
+        adapters.append(real_init(*a, **k))
+        return adapters[-1]
+
+    def draw_spy(key, batch, shape, *a, **k):
+        draws.append((batch, tuple(shape), real_draw(key, batch, shape,
+                                                     *a, **k)))
+        return draws[-1][2]
+    monkeypatch.setattr(tlora, "init_lora", init_spy)
+    monkeypatch.setattr(tts, "draw_t_noise", draw_spy)
+    tcli.main(_argv(models_root, data_root, tmp_path, "--steps", "2"))
+    jpipe = jio.load_pipeline(models_root, dtype=jnp.bfloat16)
+    want = jlora.init_lora(jax.random.PRNGKey(0), jpipe.unet_params, rank=4)
+    (got,) = adapters
+    assert list(got) == list(want)
+    for k, ab in want.items():
+        assert ulps(got[k]["A"].numpy(), np.asarray(ab["A"])).max() <= 4, k
+    assert len(draws) == 2
+    for step, (batch, shape, (t, noise)) in enumerate(draws):
+        assert batch == 2 and shape == (SIZE // 8, SIZE // 8, 4)
+        rng_t, rng_n = jax.random.split(jax.random.PRNGKey(step))
+        np.testing.assert_array_equal(t.numpy(), np.asarray(
+            jax.random.randint(rng_t, (2,), 0, 1000)))
+        np.testing.assert_array_equal(noise.numpy(), np.asarray(
+            jax.random.normal(rng_n, (2,) + shape, jnp.float32)))
+
+
 def test_data_parallel_checkpoint_resume_export(models_root, data_root,
                                                 tmp_path, caplog,
                                                 monkeypatch):
@@ -235,7 +279,7 @@ def _train_events(events):
 
 def _steps_agree(got, want):
     """Two fp32 runs' step records (``torch_ranks.fp32_train_steps``),
-    held to chip_smoke.py 10a's bars: each step's loss within 1e-6
+    held to fixed bars: each step's loss within 1e-6
     relative, and the averaged gradients of the first step (from the same
     state) within 1e-5 of each leaf's max |gradient|. Later steps start
     from states that Adam's rounding-level steps have parted, which
@@ -289,9 +333,9 @@ def spawned(models_root, data_root, tmp_path_factory):
 def test_spawned_ranks_train_the_one_rank_batch(spawned):
     """--batch_size 2 over 2 spawned ranks trains what one rank trains at
     --batch_size 2, up to the order of the fp32 gradient sum: each step's
-    loss and averaged gradients within 10a's bars, the final checkpoint
-    within the multi-step bar. Each rank trains 1 row a step, and
-    img_per_sec is 2 images over the step's seconds (each logged
+    loss and averaged gradients within ``_steps_agree``'s bars, the final
+    checkpoint within the multi-step bar. Each rank trains 1 row a step,
+    and img_per_sec is 2 images over the step's seconds (each logged
     rounded, to 2 and 3 decimals)."""
     want, ranks, ckpt_one, ckpt_two = spawned
     (seen0, got, ev0), (seen1, got1, ev1) = ranks
@@ -336,8 +380,9 @@ def test_coordinator_form_equals_the_spawned_form(models_root, data_root,
     directories) against one process fed their global batches of 2: each
     process's strided loader row, in rank order, with the same draws. The
     spawned form reads other rows, so the reference is this one; both in
-    fp32, each step within 10a's bars and the final checkpoint within the
-    multi-step bar. Rank 1's directories are never made."""
+    fp32, each step within ``_steps_agree``'s bars and the final
+    checkpoint within the multi-step bar. Rank 1's directories are never
+    made."""
     argv = _argv(models_root, data_root, tmp_path / "rank{rank}", "--steps",
                  "2", "--export_dir", str(tmp_path / "rank{rank}" / "exp"))
     argv[argv.index("--batch_size") + 1] = "1"

@@ -32,6 +32,7 @@ from blobctrl_tpu.train import train_step as jts
 from blobctrl_torch.apps import flagship as tflag
 from blobctrl_torch.params.from_jax import from_jax
 from blobctrl_torch.train import train_step as tts
+from blobctrl_torch.utils import threefry
 from tests import torch_ranks
 from tests.test_torch_train_step import (LR, jax_draws, jax_trees,
                                          make_batch, np_tree, paired, rel)
@@ -160,8 +161,13 @@ def test_collective_log_equals_the_derived_count(setup, monkeypatch):
 
 def test_each_rank_draws_its_rows_of_the_global_batch(setup):
     _, _, _, _, ranks = setup
-    t, noise = tts.draw_t_noise(torch.Generator().manual_seed(5), GLOBAL_B,
-                                (4, 4, 4))
+    t, noise = tts.draw_t_noise(threefry.key(5), GLOBAL_B, (4, 4, 4))
+    # the whole draw is the JAX step's for PRNGKey(5)
+    rng_t, rng_n = jax.random.split(jax.random.PRNGKey(5))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(
+        jax.random.randint(rng_t, (GLOBAL_B,), 0, 1000)))
+    np.testing.assert_array_equal(noise.numpy(), np.asarray(
+        jax.random.normal(rng_n, (GLOBAL_B, 4, 4, 4))))
     for r in range(len(RUNS)):
         np.testing.assert_array_equal(
             np.concatenate([rk[r]["draw"][0] for rk in ranks]), t.numpy())

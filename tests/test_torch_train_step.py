@@ -32,6 +32,8 @@ from blobctrl_torch.models import vae as tvae
 from blobctrl_torch.params.from_jax import from_jax
 from blobctrl_torch.schedulers import ddim as tddim
 from blobctrl_torch.train import train_step as tts
+from blobctrl_torch.utils import threefry
+from tests.test_torch_threefry import ulps
 
 torch.set_num_threads(2)
 LR = 1e-3
@@ -304,11 +306,45 @@ def test_sample_latents_matches_jax():
     want = np.asarray(jvae.sample_latents(jnp.asarray(moments)))
     m = torch.from_numpy(moments)
     np.testing.assert_array_equal(tvae.sample_latents(m).numpy(), want)
-    got = tvae.sample_latents(m, torch.Generator().manual_seed(3))
-    eps = torch.randn((2, 4, 4, 4), generator=torch.Generator().manual_seed(3))
+    # with a key: JAX's eps for it (bit-equal), the rest fp32 arithmetic
+    got = tvae.sample_latents(m, threefry.key(3))
+    want = np.asarray(jvae.sample_latents(jnp.asarray(moments),
+                                          jax.random.PRNGKey(3)))
+    eps = np.asarray(jax.random.normal(jax.random.PRNGKey(3), (2, 4, 4, 4)))
     logvar = np.clip(moments[..., 4:], -30.0, 20.0)
-    expect = moments[..., :4] + np.exp(0.5 * logvar) * eps.numpy()
+    expect = moments[..., :4] + np.exp(0.5 * logvar) * eps
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 1248464818])
+def test_draw_t_noise_is_the_jax_steps_draw(seed):
+    """``draw_t_noise(key(s))``: the t and noise JAX's step draws from
+    ``PRNGKey(s)`` (``jax_draws``), bit-equal, whole and by ranks' rows."""
+    batch = make_batch(0, b=4)
+    want_t, want_n = jax_draws(jax.random.PRNGKey(seed), batch)
+    t, noise = tts.draw_t_noise(threefry.key(seed), 4, (8, 8, 4))
+    assert t.dtype == torch.int64 and tuple(noise.shape) == (4, 8, 8, 4)
+    assert torch.equal(t, want_t) and torch.equal(noise, want_n)
+    for rows in (range(0, 2), range(2, 4), range(1, 2)):
+        rt, rn = tts.draw_t_noise(threefry.key(seed), 4, (8, 8, 4),
+                                  rows=rows)
+        assert torch.equal(rt, want_t[rows.start:rows.stop])
+        assert torch.equal(rn, want_n[rows.start:rows.stop])
+
+
+def test_init_lora_from_key_0_is_the_train_clis():
+    """The train CLI's adapter: ``init_lora(key(0))`` against JAX's
+    ``init_lora(PRNGKey(0))``, every A within 4 ulp, B zero."""
+    ucfg, _ = jflag.tiny_configs()
+    up = junet.init_unet(jax.random.PRNGKey(3), ucfg)
+    want = jlora.init_lora(jax.random.PRNGKey(0), up, rank=4)
+    got = tlora.init_lora(threefry.key(0), from_jax(up, "cpu"), rank=4)
+    assert list(got) == list(want)
+    worst = max(int(ulps(got[k]["A"].numpy(), np.asarray(ab["A"])).max())
+                for k, ab in want.items())
+    assert worst <= 4, worst
+    assert all(not got[k]["B"].any() for k in got)
 
 
 def test_init_lora_matches_jax_layout_and_merge_grads():
@@ -316,7 +352,7 @@ def test_init_lora_matches_jax_layout_and_merge_grads():
     up = junet.init_unet(jax.random.PRNGKey(70), ucfg)
     want = jlora.init_lora(jax.random.PRNGKey(71), up, rank=4)
     tup = from_jax(up, "cpu")
-    got = tlora.init_lora(torch.Generator().manual_seed(0), tup, rank=4)
+    got = tlora.init_lora(threefry.key(71), tup, rank=4)
     assert list(got) == list(want)  # the same targets, in the same order
     a_all = []
     for k, ab in want.items():
@@ -326,9 +362,10 @@ def test_init_lora_matches_jax_layout_and_merge_grads():
         assert not got[k]["B"].any() and tuple(got[k]["B"].shape) == \
             ab["B"].shape
         a_all.append(got[k]["A"].numpy().ravel() * np.sqrt(d_in))
+        assert ulps(got[k]["A"].numpy(), np.asarray(ab["A"])).max() <= 4, k
     a_all = np.concatenate(a_all)
     assert abs(a_all.mean()) < 0.1 and abs(a_all.std() - 1) < 0.1
-    again = tlora.init_lora(torch.Generator().manual_seed(0), tup, rank=4)
+    again = tlora.init_lora(threefry.key(71), tup, rank=4)
     assert all(torch.equal(again[k]["A"], got[k]["A"]) for k in got)
     # merge_lora is differentiable in A and B, as JAX's
     rng = np.random.RandomState(72)

@@ -171,9 +171,11 @@ def edit_rank(shape, toy, method, kwargs, recipe, modes=(),
     pipe.shard_to_mesh(mesh, model_parallel=recipe in ("model", "hybrid"),
                        hybrid_cfg_data=recipe == "hybrid")
     if latents_by_seed is not None:
-        def seed_noise(seed, shape):
-            lat = torch.as_tensor(np.asarray(latents_by_seed[seed],
-                                             np.float32)).reshape(shape)
+        def seed_noise(seed, shape, device=None):
+            seeds = seed if isinstance(seed, (list, tuple)) else [seed]
+            lat = torch.cat([torch.as_tensor(np.asarray(
+                latents_by_seed[s], np.float32)).reshape(shape)
+                for s in seeds])
             return lat, lambda i, s: torch.zeros(tuple(s))
         pipe._seed_noise = seed_noise
     seen = spy_launch_shapes()
@@ -235,6 +237,7 @@ def train_dp_rank(trees, batches, draws, runs, ckpt_dir):
     from blobctrl_torch.parallel import collectives, multihost
     from blobctrl_torch.train import checkpoint
     from blobctrl_torch.train import train_step as ts
+    from blobctrl_torch.utils import threefry
     rank = multihost.process_index()
     b = len(batches[0]["x0_latents"])
     rows = multihost.local_rows(b)
@@ -279,7 +282,7 @@ def train_dp_rank(trees, batches, draws, runs, ckpt_dir):
             checkpoint.save(ckpt_dir, state)
         multihost.barrier("checkpoint")
         rec["ckpt"] = collectives.sizes()
-        t, noise = ts.draw_t_noise(torch.Generator().manual_seed(5), b,
+        t, noise = ts.draw_t_noise(threefry.key(5), b,
                                    (4, 4, 4), rows=rows)
         rec["draw"] = (t.numpy(), noise.numpy())
         out.append(rec)
