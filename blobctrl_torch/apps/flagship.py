@@ -67,9 +67,13 @@ def tiny_configs(dino_c: int = 16, ctx: int = 16):
 
 def production_params(seed: int = 0, device="cuda", dtype=torch.bfloat16):
     """(unet, blobnet, vae) params at production geometry, drawn on the
-    device with the JAX init bounds (uniform +-1/sqrt(fan_in) kernels, unit
-    norm scales, zero biases). The BlobNet taps are drawn too, so every
-    kernel and injection sees nontrivial data."""
+    device in fp32 and cast to ``dtype``: the JAX package's
+    ``init_unet(PRNGKey(seed), sd15_unet_config())``,
+    ``init_blobnet(PRNGKey(seed + 1), blobctrl_blobnet_config())`` and
+    ``init_vae(PRNGKey(seed + 2), sd15_vae_config())``, leaf for leaf,
+    but for the BlobNet's 1x1 taps, drawn from a key outside JAX's tree
+    (``blobnet.init_blobnet``'s ``zero_taps=False``) so that every kernel
+    and injection sees nontrivial data."""
     return (unet_lib.init_unet(sd15_unet_config(), seed, device, dtype),
             blobnet_lib.init_blobnet(blobctrl_blobnet_config(), seed + 1,
                                      device, dtype, zero_taps=False),
@@ -79,6 +83,9 @@ def production_params(seed: int = 0, device="cuda", dtype=torch.bfloat16):
 def production_encoder_params(seed: int = 0, device="cuda",
                               dtype=torch.bfloat16):
     """(clip, dino) params of CLIP ViT-L/14 text and DINOv2-large, drawn on
-    the device with the JAX init scales."""
+    the device in fp32 and cast to ``dtype``: the JAX package's
+    ``clip_text.init(PRNGKey(seed), clip_vit_l_config())`` and
+    ``dinov2.init(PRNGKey(seed + 1), dinov2_large_config())``, leaf for
+    leaf."""
     return (clip_lib.init(clip_vit_l_config(), seed, device, dtype),
             dino_lib.init(dinov2_large_config(), seed + 1, device, dtype))

@@ -17,6 +17,7 @@ from blobctrl_torch.nn import layers
 from blobctrl_torch.nn import resnet as rn
 from blobctrl_torch.nn import unet_blocks as ub
 from blobctrl_torch.parallel import kernel_sharding as ks
+from blobctrl_torch.utils import threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,27 +66,39 @@ def tap_channels(cfg: BlobNetConfig) -> Tuple[List[int], List[int]]:
     return down, up
 
 
-def init_blobnet(cfg: BlobNetConfig, seed: int = 0, device="cuda",
+# folded into the BlobNet key for the drawn taps, a key outside JAX's tree
+TAP_FOLD = 0x74617073  # "taps"
+
+
+def init_blobnet(cfg: BlobNetConfig, key=0, device="cuda",
                  dtype=torch.float32, zero_taps: bool = True):
-    """Random params with the JAX ``init_blobnet`` structure, drawn on
-    ``device``. zero_taps=False draws the 1x1 taps like any other conv, so
-    that the injections carry nontrivial data (the trained taps are not
-    zero either)."""
-    init = layers.ParamInit(seed, resolve_device(device), dtype)
+    """The JAX ``init_blobnet(key, cfg)``'s tree, leaf for leaf, drawn on
+    ``device`` and cast to ``dtype``: ``init_unet(key)``'s less the head,
+    with zero 1x1 taps; ``key`` a threefry key or an int, ``PRNGKey(int)``.
+    zero_taps=False (no JAX counterpart) draws the taps instead, so that
+    the injections carry nontrivial data (trained taps are not zero
+    either): tap i, in the order down, mid, up, is ``init_conv`` of
+    ``split(fold_in(key, TAP_FOLD), taps)[i]``, and every other leaf stays
+    JAX's."""
+    init = layers.ParamInit(key, resolve_device(device), dtype)
     params = unet_lib._init_unet(init, cfg.as_unet_config())
     del params["conv_norm_out"], params["conv_out"]  # BlobNet has no head
-
-    def tap(c):
-        return layers.init_conv(init, 1, 1, c, c, zero=zero_taps)
-
     down, up = tap_channels(cfg)
-    params["zero_down"] = [tap(c) for c in down]
-    params["zero_mid"] = tap(cfg.block_out_channels[-1])
-    params["zero_up"] = [tap(c) for c in up]
+    chans = down + [cfg.block_out_channels[-1]] + up
+    if zero_taps:
+        keys = [init] * len(chans)  # nothing is drawn from them
+    else:
+        keys = layers.ParamInit(threefry.fold_in(init.key, TAP_FOLD),
+                                init.device, dtype).split(len(chans))
+    taps = [layers.init_conv(k, 1, 1, c, c, zero=zero_taps)
+            for k, c in zip(keys, chans)]
+    params["zero_down"] = taps[:len(down)]
+    params["zero_mid"] = taps[len(down)]
+    params["zero_up"] = taps[len(down) + 1:]
     return params
 
 
-def from_unet(unet_params, cfg: BlobNetConfig, seed: int = 0, device=None,
+def from_unet(unet_params, cfg: BlobNetConfig, key=0, device=None,
               dtype=torch.float32):
     """Training-time init (the JAX package's ``from_unet``, the reference's
     ``BlobNetModel.from_unet``): a BlobNet tree with the UNet's weights.
@@ -94,10 +107,12 @@ def from_unet(unet_params, cfg: BlobNetConfig, seed: int = 0, device=None,
     time embedding and every down, mid and up block copy over, the UNet's
     cross-attention and head having no BlobNet counterpart; the 1x1 taps
     keep their zero init. A BlobNet weight without a UNet source raises.
-    On ``device`` (the UNet's by default), in ``dtype``."""
+    The tree is built by ``init_blobnet(cfg, key)``, as JAX's
+    ``from_unet(unet_params, cfg, key)`` builds it, every drawn leaf then
+    replaced. On ``device`` (the UNet's by default), in ``dtype``."""
     if device is None:
         device = unet_params["conv_in"]["kernel"].device
-    init = init_blobnet(cfg, seed, device, dtype)
+    init = init_blobnet(cfg, key, device, dtype)
 
     def copy(dst, src, path):
         name = "/".join(map(str, path))

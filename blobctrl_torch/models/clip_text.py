@@ -91,25 +91,28 @@ def encode_with_clip_skip(params, cfg: CLIPTextConfig,
                              cfg.layer_norm_eps)
 
 
-def init(cfg: CLIPTextConfig, seed: int = 0, device="cuda",
-         dtype=torch.float32):
-    """Random params with the JAX ``init`` structure and scales (normal
-    0.02 embeddings, uniform +-1/sqrt(fan_in) kernels), drawn on
-    ``device``."""
-    init_ = layers.ParamInit(seed, resolve_device(device), dtype)
+def init(cfg: CLIPTextConfig, key=0, device="cuda", dtype=torch.float32):
+    """The JAX ``init(key, cfg)``'s tree, leaf for leaf, drawn on
+    ``device`` and cast to ``dtype``; ``key`` a threefry key or an int,
+    ``PRNGKey(int)``. ``split(key, 4 + 8 * layers)`` taken in order: the
+    token and position embeddings (normal * 0.02), then each layer's q, k,
+    v, out, fc1 and fc2 (uniform +-1/sqrt(fan_in))."""
+    init_ = layers.ParamInit(key, resolve_device(device), dtype)
+    keys = iter(init_.split(4 + 8 * cfg.num_layers))
     c, m = cfg.hidden_size, cfg.intermediate_size
-    p = {"token_embedding": init_.normal((cfg.vocab_size, c), 0.02),
-         "position_embedding": init_.normal((cfg.max_positions, c), 0.02),
+    p = {"token_embedding": next(keys).normal((cfg.vocab_size, c), 0.02),
+         "position_embedding": next(keys).normal((cfg.max_positions, c),
+                                                 0.02),
          "layers": [],
          "final_layer_norm": layers.init_norm(init_, c)}
     for _ in range(cfg.num_layers):
         p["layers"].append({
             "layer_norm1": layers.init_norm(init_, c),
-            "self_attn": {n: layers.init_linear(init_, c, c)
+            "self_attn": {n: layers.init_linear(next(keys), c, c)
                           for n in ("q_proj", "k_proj", "v_proj",
                                     "out_proj")},
             "layer_norm2": layers.init_norm(init_, c),
-            "mlp": {"fc1": layers.init_linear(init_, c, m),
-                    "fc2": layers.init_linear(init_, m, c)},
+            "mlp": {"fc1": layers.init_linear(next(keys), c, m),
+                    "fc2": layers.init_linear(next(keys), m, c)},
         })
     return p

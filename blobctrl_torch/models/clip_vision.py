@@ -93,28 +93,35 @@ def preprocess(images01: np.ndarray, size: int = 224) -> np.ndarray:
     return (np.stack(out) - CLIP_MEAN) / CLIP_STD
 
 
-def init(cfg: CLIPVisionConfig, seed: int = 0, device="cuda",
-         dtype=torch.float32):
+def init(cfg: CLIPVisionConfig, key=0, device="cuda", dtype=torch.float32):
     """Random params with the converter's tree structure, drawn on
     ``device``: uniform +-1/sqrt(fan_in) kernels, normal 0.02 class token,
-    positions and biases, norm scales 1 + normal 0.02."""
-    init_ = layers.ParamInit(seed, resolve_device(device), dtype)
+    positions and biases, norm scales 1 + normal 0.02. The JAX package has
+    no init for it (it converts the published weights). The key tree: a
+    split chain of ``key`` (``ParamInit.chain``), one child for each
+    kernel (``init_linear`` / ``init_conv`` of it) and each other drawn
+    leaf, in the order the tree below is written; ``key`` a threefry key
+    or an int, ``PRNGKey(int)``."""
+    keys = layers.ParamInit(key, resolve_device(device), dtype).chain()
     c, m, p = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
 
+    def normal(shape):
+        return next(keys).normal(shape, 0.02)
+
     def lin(d_in, d_out):
-        return {"kernel": layers.init_linear(init_, d_in, d_out,
+        return {"kernel": layers.init_linear(next(keys), d_in, d_out,
                                              use_bias=False)["kernel"],
-                "bias": init_.normal((d_out,), 0.02)}
+                "bias": normal((d_out,))}
 
     def norm():
-        return {"scale": 1.0 + init_.normal((c,), 0.02),
-                "bias": init_.normal((c,), 0.02)}
+        return {"scale": 1.0 + normal((c,)), "bias": normal((c,))}
 
     n_pos = (cfg.image_size // p) ** 2 + 1
     return {
-        "class_embedding": init_.normal((c,), 0.02),
-        "patch_embed": layers.init_conv(init_, p, p, 3, c, use_bias=False),
-        "position_embedding": init_.normal((n_pos, c), 0.02),
+        "class_embedding": normal((c,)),
+        "patch_embed": layers.init_conv(next(keys), p, p, 3, c,
+                                        use_bias=False),
+        "position_embedding": normal((n_pos, c)),
         "pre_layrnorm": norm(),
         "layers": [{"layer_norm1": norm(),
                     "self_attn": {n: lin(c, c) for n in (

@@ -149,29 +149,32 @@ def preprocess(images_uint8: np.ndarray, size: int = 224,
     return normalize_pixels(u8).numpy()
 
 
-def init(cfg: DINOv2Config, seed: int = 0, device="cuda",
-         dtype=torch.float32):
-    """Random params with the JAX ``init`` structure and scales (normal
-    0.02 CLS and position table, uniform +-1/sqrt(fan_in) kernels,
-    LayerScale 1e-5), drawn on ``device``."""
-    init_ = layers.ParamInit(seed, resolve_device(device), dtype)
+def init(cfg: DINOv2Config, key=0, device="cuda", dtype=torch.float32):
+    """The JAX ``init(key, cfg)``'s tree, leaf for leaf, drawn on
+    ``device`` and cast to ``dtype``; ``key`` a threefry key or an int,
+    ``PRNGKey(int)``. ``split(key, 4 + 8 * layers)`` taken in order: the
+    patch embedding (uniform +-1/sqrt(fan_in)), the CLS token and the
+    position table (normal * 0.02), then each layer's q, k, v, out, fc1
+    and fc2; LayerScale 1e-5."""
+    init_ = layers.ParamInit(key, resolve_device(device), dtype)
+    keys = iter(init_.split(4 + 8 * cfg.num_layers))
     c, m = cfg.hidden_size, cfg.intermediate_size
     n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
-    p = {"patch_embed": layers.init_conv(init_, cfg.patch_size,
+    p = {"patch_embed": layers.init_conv(next(keys), cfg.patch_size,
                                          cfg.patch_size, 3, c),
-         "cls_token": init_.normal((1, c), 0.02),
-         "position_embeddings": init_.normal((n_pos, c), 0.02),
+         "cls_token": next(keys).normal((1, c), 0.02),
+         "position_embeddings": next(keys).normal((n_pos, c), 0.02),
          "layers": [],
          "layernorm": layers.init_norm(init_, c)}
     for _ in range(cfg.num_layers):
         p["layers"].append({
             "norm1": layers.init_norm(init_, c),
-            "attn": {n: layers.init_linear(init_, c, c)
+            "attn": {n: layers.init_linear(next(keys), c, c)
                      for n in ("q", "k", "v", "out")},
             "ls1": init_.ones((c,)) * 1e-5,
             "norm2": layers.init_norm(init_, c),
-            "mlp": {"fc1": layers.init_linear(init_, c, m),
-                    "fc2": layers.init_linear(init_, m, c)},
+            "mlp": {"fc1": layers.init_linear(next(keys), c, m),
+                    "fc2": layers.init_linear(next(keys), m, c)},
             "ls2": init_.ones((c,)) * 1e-5,
         })
     return p

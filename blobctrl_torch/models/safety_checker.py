@@ -102,19 +102,29 @@ def convert_clip_vision(state_dict, leaf: Optional[Leaf] = None
 
 
 def init(cfg: clip_vision.CLIPVisionConfig, projection_dim: int = 768,
-         n_concepts: int = 17, n_special: int = 3, seed: int = 0,
+         n_concepts: int = 17, n_special: int = 3, key=0,
          device="cuda", dtype=torch.float32) -> Dict[str, Any]:
     """Random checker params on ``device``: the CLIP vision tower
     (``clip_vision.init``), a uniform projection, unit-normal concept and
-    special-care embeddings, every threshold 0."""
-    init_ = layers.ParamInit(seed + 1, resolve_device(device), dtype)
+    special-care embeddings, every threshold 0. The JAX package has no
+    init for it (it converts the published weights). The key tree: the
+    tower draws from the first of ``split(key)``; a split chain of the
+    second (``ParamInit.chain``) gives the projection's key, then the
+    concept and special-care embeddings'; ``key`` a threefry key or an
+    int, ``PRNGKey(int)``."""
+    k_vision, k_head = layers.ParamInit(key, resolve_device(device),
+                                        dtype).split()
+    keys = k_head.chain()
     c = cfg.hidden_size
     return {
-        "vision": clip_vision.init(cfg, seed, device, dtype),
-        "visual_projection": layers.init_linear(init_, c, projection_dim,
+        "vision": clip_vision.init(cfg, k_vision.key, device, dtype),
+        "visual_projection": layers.init_linear(next(keys), c,
+                                                projection_dim,
                                                 use_bias=False),
-        "concept_embeds": init_.normal((n_concepts, projection_dim), 1.0),
-        "concept_embeds_weights": init_.zeros((n_concepts,)),
-        "special_care_embeds": init_.normal((n_special, projection_dim), 1.0),
-        "special_care_embeds_weights": init_.zeros((n_special,)),
+        "concept_embeds": next(keys).normal((n_concepts, projection_dim),
+                                            1.0),
+        "concept_embeds_weights": k_head.zeros((n_concepts,)),
+        "special_care_embeds": next(keys).normal((n_special,
+                                                  projection_dim), 1.0),
+        "special_care_embeds_weights": k_head.zeros((n_special,)),
     }

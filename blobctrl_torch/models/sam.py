@@ -449,44 +449,52 @@ class SamPredictor:
 # random params at any geometry (the checkpoint's layout)
 # ---------------------------------------------------------------------------
 
-def init(cfg: SAMConfig, seed: int = 0, device="cuda", dtype=torch.float32):
+def init(cfg: SAMConfig, key=0, device="cuda", dtype=torch.float32):
     """Random params with ``convert_sam``'s tree structure, drawn on
     ``device``: uniform +-1/sqrt(fan_in) kernels, and biases, norm offsets,
     tables and tokens drawn too (normal, 0.02 about their usual value), so
     that no two leaves of one shape are equal. The decoder's cross
-    attentions project to half width, as SAM's do."""
-    init_ = layers.ParamInit(seed, resolve_device(device), dtype)
+    attentions project to half width, as SAM's do. The JAX package has no
+    SAM init (it converts the published weights). The key tree: a split
+    chain of ``key`` (``ParamInit.chain``), one child for each kernel
+    (``init_linear`` / ``init_conv`` of it) and each other drawn leaf, in
+    the order the tree below is written; ``key`` a threefry key or an int,
+    ``PRNGKey(int)``."""
+    keys = layers.ParamInit(key, resolve_device(device), dtype).chain()
     c, m = cfg.hidden_size, cfg.mlp_dim
     pc = cfg.prompt_dim
     g = cfg.embed_grid
     d = c // cfg.num_heads
 
+    def normal(shape, std):
+        return next(keys).normal(shape, std)
+
     def lin(d_in, d_out, bias=True):
-        p = layers.init_linear(init_, d_in, d_out, use_bias=False)
+        p = layers.init_linear(next(keys), d_in, d_out, use_bias=False)
         if bias:
-            p["bias"] = init_.normal((d_out,), 0.02)
+            p["bias"] = normal((d_out,), 0.02)
         return p
 
     def conv(k, c_in, c_out, bias=True):
-        p = layers.init_conv(init_, k, k, c_in, c_out, use_bias=False)
+        p = layers.init_conv(next(keys), k, k, c_in, c_out, use_bias=False)
         if bias:
-            p["bias"] = init_.normal((c_out,), 0.02)
+            p["bias"] = normal((c_out,), 0.02)
         return p
 
     def norm(n):
-        return {"scale": 1.0 + init_.normal((n,), 0.02),
-                "bias": init_.normal((n,), 0.02)}
+        return {"scale": 1.0 + normal((n,), 0.02),
+                "bias": normal((n,), 0.02)}
 
     vision = {"patch_embed": conv(cfg.patch_size, 3, c),
-              "pos_embed": init_.normal((g, g, c), 0.02), "layers": []}
+              "pos_embed": normal((g, g, c), 0.02), "layers": []}
     for i in range(cfg.num_layers):
         span = 2 * (g if i in cfg.global_attn_indexes
                     else cfg.window_size) - 1
         vision["layers"].append({
             "layer_norm1": norm(c),
             "attn": {"qkv": lin(c, 3 * c), "proj": lin(c, c),
-                     "rel_pos_h": init_.normal((span, d), 0.02),
-                     "rel_pos_w": init_.normal((span, d), 0.02)},
+                     "rel_pos_h": normal((span, d), 0.02),
+                     "rel_pos_w": normal((span, d), 0.02)},
             "layer_norm2": norm(c),
             "mlp": {"lin1": lin(c, m), "lin2": lin(m, c)}})
     oc = cfg.output_channels
@@ -495,10 +503,10 @@ def init(cfg: SAMConfig, seed: int = 0, device="cuda", dtype=torch.float32):
                       "conv2": conv(3, oc, oc, bias=False),
                       "layer_norm2": norm(oc)}
 
-    prompt = {"shared_embedding": init_.normal((2, pc // 2), 1.0),
-              "point_embed": init_.normal((4, pc), 1.0),
-              "not_a_point_embed": init_.normal((pc,), 1.0),
-              "no_mask_embed": init_.normal((pc,), 1.0)}
+    prompt = {"shared_embedding": normal((2, pc // 2), 1.0),
+              "point_embed": normal((4, pc), 1.0),
+              "not_a_point_embed": normal((pc,), 1.0),
+              "no_mask_embed": normal((pc,), 1.0)}
 
     def attn(inner):
         return {"q_proj": lin(pc, inner), "k_proj": lin(pc, inner),
@@ -515,19 +523,19 @@ def init(cfg: SAMConfig, seed: int = 0, device="cuda", dtype=torch.float32):
                 "layer_norm4": norm(pc)} for _ in range(2)]
     c4, c8 = pc // 4, pc // 8
     decoder = {
-        "iou_token": init_.normal((1, pc), 1.0),
-        "mask_tokens": init_.normal((n_masks, pc), 1.0),
+        "iou_token": normal((1, pc), 1.0),
+        "mask_tokens": normal((n_masks, pc), 1.0),
         "transformer": {"layers": tlayers,
                         "final_attn_token_to_image": attn(pc // 2),
                         "layer_norm_final_attn": norm(pc)},
         # transposed convs, (kh, kw, c_out, c_in)
-        "upscale_conv1": {"kernel": init_.uniform((2, 2, c4, pc),
-                                                  1.0 / math.sqrt(c4 * 4)),
-                          "bias": init_.normal((c4,), 0.02)},
+        "upscale_conv1": {"kernel": next(keys).uniform(
+            (2, 2, c4, pc), 1.0 / math.sqrt(c4 * 4)),
+                          "bias": normal((c4,), 0.02)},
         "upscale_layer_norm": norm(c4),
-        "upscale_conv2": {"kernel": init_.uniform((2, 2, c8, c4),
-                                                  1.0 / math.sqrt(c8 * 4)),
-                          "bias": init_.normal((c8,), 0.02)},
+        "upscale_conv2": {"kernel": next(keys).uniform(
+            (2, 2, c8, c4), 1.0 / math.sqrt(c8 * 4)),
+                          "bias": normal((c8,), 0.02)},
         "output_hypernetworks_mlps": [[lin(pc, pc), lin(pc, pc), lin(pc, c8)]
                                       for _ in range(n_masks)],
         "iou_prediction_head": [lin(pc, pc), lin(pc, pc), lin(pc, n_masks)],

@@ -41,47 +41,50 @@ class UNetConfig:
         return self.block_out_channels[0] * 4
 
 
-def init_unet(cfg: UNetConfig, seed: int = 0, device="cuda",
-              dtype=torch.float32):
-    """Random params with the JAX ``init_unet`` structure, drawn on
-    ``device`` from a seeded generator."""
-    init = layers.ParamInit(seed, resolve_device(device), dtype)
-    return _init_unet(init, cfg)
+def init_unet(cfg: UNetConfig, key=0, device="cuda", dtype=torch.float32):
+    """The JAX ``init_unet(key, cfg)``'s tree, leaf for leaf, drawn on
+    ``device`` (``nn.layers.ParamInit``) and cast to ``dtype``; ``key`` a
+    threefry key or an int, ``PRNGKey(int)``."""
+    return _init_unet(layers.ParamInit(key, resolve_device(device), dtype),
+                      cfg)
 
 
 def _init_unet(init: layers.ParamInit, cfg: UNetConfig):
+    """``4 + 2 * n`` children for n levels: conv_in, the time embedding,
+    the n down blocks, the mid block, the n up blocks, conv_out."""
     boc = cfg.block_out_channels
     n = len(boc)
     ted = cfg.time_embed_dim
+    ki = iter(init.split(4 + 2 * n))
     params = {
-        "conv_in": layers.init_conv(init, 3, 3, cfg.in_channels, boc[0]),
-        "time_embedding": embeddings.init_timestep_embedding(init, boc[0],
-                                                             ted),
+        "conv_in": layers.init_conv(next(ki), 3, 3, cfg.in_channels, boc[0]),
+        "time_embedding": embeddings.init_timestep_embedding(next(ki),
+                                                             boc[0], ted),
         "down_blocks": [], "up_blocks": [],
     }
     out_ch = boc[0]
     for i in range(n):
         in_ch, out_ch = out_ch, boc[i]
         params["down_blocks"].append(ub.init_down_block(
-            init, in_ch, out_ch, ted, cfg.layers_per_block,
+            next(ki), in_ch, out_ch, ted, cfg.layers_per_block,
             cfg.num_heads if cfg.down_block_has_attn[i] else None,
             cfg.cross_attention_dim, add_downsample=i < n - 1,
             transformer_layers=cfg.transformer_layers_per_block))
     params["mid_block"] = ub.init_mid_block(
-        init, boc[-1], ted, cfg.cross_attention_dim,
+        next(ki), boc[-1], ted, cfg.cross_attention_dim,
         cfg.transformer_layers_per_block)
     rev = list(reversed(boc))
     prev_out = rev[0]
     for i in range(n):
         out_ch, in_ch = rev[i], rev[min(i + 1, n - 1)]
         params["up_blocks"].append(ub.init_up_block(
-            init, in_ch, out_ch, prev_out, ted, cfg.layers_per_block + 1,
+            next(ki), in_ch, out_ch, prev_out, ted, cfg.layers_per_block + 1,
             cfg.num_heads if cfg.up_block_has_attn[i] else None,
             cfg.cross_attention_dim, add_upsample=i < n - 1,
             transformer_layers=cfg.transformer_layers_per_block))
         prev_out = out_ch
     params["conv_norm_out"] = layers.init_norm(init, boc[0])
-    params["conv_out"] = layers.init_conv(init, 3, 3, boc[0],
+    params["conv_out"] = layers.init_conv(next(ki), 3, 3, boc[0],
                                           cfg.out_channels)
     return params
 

@@ -120,25 +120,31 @@ def decode_from_scaled_latents(params, cfg: VAEConfig,
     return decode(params, cfg, latents / cfg.scaling_factor)
 
 
-def init_vae(cfg: VAEConfig, seed: int = 0, device="cuda",
-             dtype=torch.float32):
-    """Random params with the JAX ``init_vae`` structure, drawn on
-    ``device``."""
-    init = layers.ParamInit(seed, resolve_device(device), dtype)
+def init_vae(cfg: VAEConfig, key=0, device="cuda", dtype=torch.float32):
+    """The JAX ``init_vae(key, cfg)``'s tree, leaf for leaf, drawn on
+    ``device`` and cast to ``dtype``; ``key`` a threefry key or an int,
+    ``PRNGKey(int)``. ``split(key, 64)`` is taken in order, one child per
+    resnet, projection and conv: the encoder's conv_in, each down block's
+    resnets then its downsampler, the mid resnets, to_q, to_k, to_v and
+    to_out, conv_out; the decoder's conv_in, mid block, each up block's
+    resnets then its upsampler, conv_out; quant_conv, post_quant_conv (44
+    at SD-1.5's geometry)."""
+    init = layers.ParamInit(key, resolve_device(device), dtype)
+    keys = iter(init.split(64))
     boc = cfg.block_out_channels
     n = len(boc)
 
     def resnets(c_in, c_out, count):
-        return [rn.init_resnet_block(init, c_in if i == 0 else c_out, c_out,
-                                     None) for i in range(count)]
+        return [rn.init_resnet_block(next(keys), c_in if i == 0 else c_out,
+                                     c_out, None) for i in range(count)]
 
     def attn(c):
         return {"norm": layers.init_norm(init, c),
-                **{name: layers.init_linear(init, c, c)
+                **{name: layers.init_linear(next(keys), c, c)
                    for name in ("to_q", "to_k", "to_v", "to_out")}}
 
     def conv3(c_in, c_out):
-        return layers.init_conv(init, 3, 3, c_in, c_out)
+        return layers.init_conv(next(keys), 3, 3, c_in, c_out)
 
     enc = {"conv_in": conv3(cfg.in_channels, boc[0]), "down_blocks": []}
     c = boc[0]
@@ -168,6 +174,6 @@ def init_vae(cfg: VAEConfig, seed: int = 0, device="cuda",
     dec["conv_out"] = conv3(c, cfg.out_channels)
     lc2 = 2 * cfg.latent_channels
     return {"encoder": enc, "decoder": dec,
-            "quant_conv": layers.init_conv(init, 1, 1, lc2, lc2),
+            "quant_conv": layers.init_conv(next(keys), 1, 1, lc2, lc2),
             "post_quant_conv": layers.init_conv(
-                init, 1, 1, cfg.latent_channels, cfg.latent_channels)}
+                next(keys), 1, 1, cfg.latent_channels, cfg.latent_channels)}

@@ -136,12 +136,13 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def init_attention(init: layers.ParamInit, query_dim: int,
                    cross_dim: Optional[int] = None):
+    kq, kk, kv, ko = init.split(4)
     kv_dim = cross_dim if cross_dim is not None else query_dim
     return {
-        "to_q": layers.init_linear(init, query_dim, query_dim, use_bias=False),
-        "to_k": layers.init_linear(init, kv_dim, query_dim, use_bias=False),
-        "to_v": layers.init_linear(init, kv_dim, query_dim, use_bias=False),
-        "to_out": layers.init_linear(init, query_dim, query_dim),
+        "to_q": layers.init_linear(kq, query_dim, query_dim, use_bias=False),
+        "to_k": layers.init_linear(kk, kv_dim, query_dim, use_bias=False),
+        "to_v": layers.init_linear(kv, kv_dim, query_dim, use_bias=False),
+        "to_out": layers.init_linear(ko, query_dim, query_dim),
     }
 
 
@@ -199,9 +200,10 @@ def _attend(params, q, k, v, heads: int, width: int) -> torch.Tensor:
 
 
 def init_feed_forward(init: layers.ParamInit, dim: int):
+    k1, k2 = init.split()
     inner = dim * 4
-    return {"proj_in": layers.init_linear(init, dim, inner * 2),
-            "proj_out": layers.init_linear(init, inner, dim)}
+    return {"proj_in": layers.init_linear(k1, dim, inner * 2),
+            "proj_out": layers.init_linear(k2, inner, dim)}
 
 
 def feed_forward(params, x: torch.Tensor, norm=None) -> torch.Tensor:
@@ -224,14 +226,16 @@ def feed_forward(params, x: torch.Tensor, norm=None) -> torch.Tensor:
 def init_transformer_block(init: layers.ParamInit, dim: int,
                            cross_dim: Optional[int]):
     """cross_dim=None builds no cross-attention at all (the BlobNet
-    configuration)."""
+    configuration); its key, the second of three, is split all the
+    same."""
+    k1, k2, k3 = init.split(3)
     p = {"norm1": layers.init_norm(init, dim),
-         "attn1": init_attention(init, dim),
+         "attn1": init_attention(k1, dim),
          "norm3": layers.init_norm(init, dim),
-         "ff": init_feed_forward(init, dim)}
+         "ff": init_feed_forward(k3, dim)}
     if cross_dim is not None:
         p["norm2"] = layers.init_norm(init, dim)
-        p["attn2"] = init_attention(init, dim, cross_dim=cross_dim)
+        p["attn2"] = init_attention(k2, dim, cross_dim=cross_dim)
     return p
 
 

@@ -29,8 +29,9 @@ def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 def init_timestep_embedding(init: layers.ParamInit, in_dim: int,
                             time_embed_dim: int):
-    return {"linear_1": layers.init_linear(init, in_dim, time_embed_dim),
-            "linear_2": layers.init_linear(init, time_embed_dim,
+    k1, k2 = init.split()
+    return {"linear_1": layers.init_linear(k1, in_dim, time_embed_dim),
+            "linear_2": layers.init_linear(k2, time_embed_dim,
                                            time_embed_dim)}
 
 

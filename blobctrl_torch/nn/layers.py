@@ -1,7 +1,8 @@
 """Functional NN primitives over NHWC tensors and params dicts.
 
 Counterpart of ``blobctrl_tpu/nn/layers.py``. Every layer is a pair:
-  * ``init_*(init, ...) -> params``, drawing from a seeded ``ParamInit``;
+  * ``init_*(init, ...) -> params``, drawing from a ``ParamInit``, the key
+    the JAX ``init_*`` takes, split down the tree as JAX splits it;
   * ``apply(params, x, ...) -> y``, a plain function over tensors.
 
 Conv kernels are HWIO and linear kernels (in, out), as in the JAX package.
@@ -11,11 +12,14 @@ GroupNorm and LayerNorm statistics are fp32 whatever the compute dtype.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from blobctrl_torch.utils import threefry
 
 
 # ---------------------------------------------------------------------------
@@ -23,25 +27,63 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 class ParamInit:
-    """Seeded parameter drawing on one device: uniform +-1/sqrt(fan_in)
-    kernels (the JAX package's ``init_linear`` / ``init_conv`` bounds), zero
-    biases, unit norm scales. The generator lives on ``device``, so weights
-    are drawn where they are used."""
+    """One key of a parameter tree, with the device its leaves are drawn on
+    and the dtype they are cast to.
 
-    def __init__(self, seed: int, device, dtype=torch.float32):
+    The JAX package's ``init_*`` functions take a key and split it down
+    the tree (``jax.random.split``): each composite hands child i to its
+    part i, and ``init_linear`` / ``init_conv`` draw their kernel from the
+    first of two children. A leaf's key so depends on its place in the
+    tree, never on how many leaves were drawn before it. A ``ParamInit`` is
+    such a key: ``split(n)`` gives its n children, ``uniform`` and
+    ``normal`` draw one leaf from it with ``utils.threefry`` (the bits
+    ``jax.random`` draws for the key) on ``device``, in float32 as JAX
+    draws, then cast to ``dtype`` as the loaders cast JAX's trees.
+    ``key``: a threefry key, or an int read as ``PRNGKey(int)``."""
+
+    def __init__(self, key, device, dtype=torch.float32):
+        self.key = threefry.as_key(key)
         self.device = torch.device(device)
         self.dtype = dtype
-        self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _child(self, key) -> "ParamInit":
+        return ParamInit(key, self.device, self.dtype)
+
+    def split(self, num: int = 2):
+        """``jax.random.split(key, num)``: the ``num`` children."""
+        return [self._child(k) for k in threefry.split(self.key, num)]
+
+    def chain(self):
+        """Children without end, ``key, sub = split(key)`` and ``sub`` each
+        time: a split chain for trees drawn leaf after leaf in their
+        order."""
+        key = self.key
+        while True:
+            key, sub = threefry.split(key)
+            yield self._child(sub)
+
+    def _draw(self, shape, fn, scale=None) -> torch.Tensor:
+        """``fn(key, shape)`` (times ``scale``, in float32) cast to
+        ``dtype``, drawn DRAW_BLOCK elements at a time over the flat
+        index (a threefry element depends on its flat index only), so a
+        large leaf's int64 temporaries stay small."""
+        n = math.prod(shape)
+        out = torch.empty(n, device=self.device, dtype=self.dtype)
+        for a in range(0, n, DRAW_BLOCK):
+            block = fn(self.key, (n,), rows=range(a, min(n, a + DRAW_BLOCK)),
+                       device=self.device)
+            out[a:a + len(block)] = block if scale is None else block * scale
+        return out.reshape(shape)
 
     def uniform(self, shape, bound: float) -> torch.Tensor:
-        t = torch.empty(shape, device=self.device, dtype=torch.float32)
-        t.uniform_(-bound, bound, generator=self.gen)
-        return t.to(self.dtype)
+        """``jax.random.uniform(key, shape, float32, -bound, bound)``."""
+        return self._draw(shape, functools.partial(
+            threefry.uniform, minval=-bound, maxval=bound))
 
     def normal(self, shape, std: float) -> torch.Tensor:
-        t = torch.empty(shape, device=self.device, dtype=torch.float32)
-        t.normal_(0.0, std, generator=self.gen)
-        return t.to(self.dtype)
+        """``jax.random.normal(key, shape) * std``, the product in
+        float32."""
+        return self._draw(shape, threefry.normal, std)
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(shape, device=self.device, dtype=self.dtype)
@@ -50,8 +92,15 @@ class ParamInit:
         return torch.ones(shape, device=self.device, dtype=self.dtype)
 
 
+# elements a leaf is drawn by at a time: 128 MiB an int64 temporary
+DRAW_BLOCK = 1 << 24
+
+
 def init_linear(init: ParamInit, d_in: int, d_out: int, use_bias: bool = True):
-    p = {"kernel": init.uniform((d_in, d_out), 1.0 / math.sqrt(d_in))}
+    """JAX ``init_linear``: the kernel from the first of ``split(key)``,
+    uniform +-1/sqrt(d_in); a zero bias."""
+    k1, _ = init.split()
+    p = {"kernel": k1.uniform((d_in, d_out), 1.0 / math.sqrt(d_in))}
     if use_bias:
         p["bias"] = init.zeros((d_out,))
     return p
@@ -59,11 +108,15 @@ def init_linear(init: ParamInit, d_in: int, d_out: int, use_bias: bool = True):
 
 def init_conv(init: ParamInit, kh: int, kw: int, c_in: int, c_out: int,
               use_bias: bool = True, zero: bool = False):
+    """JAX ``init_conv``: the HWIO kernel from the first of ``split(key)``,
+    uniform +-1/sqrt(fan_in), or zeros (the key split all the same); a
+    zero bias."""
+    k1, _ = init.split()
     if zero:
         kernel = init.zeros((kh, kw, c_in, c_out))
     else:
-        kernel = init.uniform((kh, kw, c_in, c_out),
-                              1.0 / math.sqrt(c_in * kh * kw))
+        kernel = k1.uniform((kh, kw, c_in, c_out),
+                            1.0 / math.sqrt(c_in * kh * kw))
     p = {"kernel": kernel}
     if use_bias:
         p["bias"] = init.zeros((c_out,))

@@ -57,14 +57,17 @@ def conv3x3_routed(conv_params, x: torch.Tensor,
 
 def init_resnet_block(init: layers.ParamInit, c_in: int, c_out: int,
                       temb_dim: Optional[int]):
+    """Four children, conv1, conv2, time_emb_proj and conv_shortcut, split
+    whether or not the last two exist."""
+    k1, k2, k3, k4 = init.split(4)
     p = {"norm1": layers.init_norm(init, c_in),
-         "conv1": layers.init_conv(init, 3, 3, c_in, c_out),
+         "conv1": layers.init_conv(k1, 3, 3, c_in, c_out),
          "norm2": layers.init_norm(init, c_out),
-         "conv2": layers.init_conv(init, 3, 3, c_out, c_out)}
+         "conv2": layers.init_conv(k2, 3, 3, c_out, c_out)}
     if temb_dim is not None:
-        p["time_emb_proj"] = layers.init_linear(init, temb_dim, c_out)
+        p["time_emb_proj"] = layers.init_linear(k3, temb_dim, c_out)
     if c_in != c_out:
-        p["conv_shortcut"] = layers.init_conv(init, 1, 1, c_in, c_out)
+        p["conv_shortcut"] = layers.init_conv(k4, 1, 1, c_in, c_out)
     return p
 
 

@@ -30,12 +30,15 @@ def gn_proj_fuse_enabled() -> bool:
 
 def init_transformer_2d(init: layers.ParamInit, channels: int,
                         num_layers: int, cross_dim: Optional[int]):
+    """``num_layers + 2`` children: proj_in, each block, proj_out."""
+    keys = init.split(num_layers + 2)
     return {
         "norm": layers.init_norm(init, channels),
-        "proj_in": layers.init_conv(init, 1, 1, channels, channels),
-        "blocks": [attention.init_transformer_block(init, channels, cross_dim)
-                   for _ in range(num_layers)],
-        "proj_out": layers.init_conv(init, 1, 1, channels, channels),
+        "proj_in": layers.init_conv(keys[0], 1, 1, channels, channels),
+        "blocks": [attention.init_transformer_block(keys[i + 1], channels,
+                                                    cross_dim)
+                   for i in range(num_layers)],
+        "proj_out": layers.init_conv(keys[-1], 1, 1, channels, channels),
     }
 
 

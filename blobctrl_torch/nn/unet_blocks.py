@@ -60,28 +60,32 @@ def init_down_block(init: layers.ParamInit, c_in: int, c_out: int,
                     temb_dim: int, num_layers: int, heads: Optional[int],
                     cross_dim: Optional[int], add_downsample: bool,
                     transformer_layers: int = 1):
-    """heads=None -> plain DownBlock2D (no attention)."""
+    """heads=None -> plain DownBlock2D (no attention). ``2 * num_layers +
+    1`` children: resnet i the 2i-th, attention i the (2i+1)-th, the
+    downsampler the last."""
+    keys = init.split(2 * num_layers + 1)
     p = {"resnets": []}
     if heads is not None:
         p["attentions"] = []
     for i in range(num_layers):
         p["resnets"].append(rn.init_resnet_block(
-            init, c_in if i == 0 else c_out, c_out, temb_dim))
+            keys[2 * i], c_in if i == 0 else c_out, c_out, temb_dim))
         if heads is not None:
             p["attentions"].append(t2d.init_transformer_2d(
-                init, c_out, transformer_layers, cross_dim))
+                keys[2 * i + 1], c_out, transformer_layers, cross_dim))
     if add_downsample:
-        p["downsample"] = rn.init_downsample(init, c_out)
+        p["downsample"] = rn.init_downsample(keys[-1], c_out)
     return p
 
 
 def init_mid_block(init: layers.ParamInit, channels: int, temb_dim: int,
                    cross_dim: Optional[int],
                    transformer_layers: int = 1):
+    k1, k2, k3 = init.split(3)
     return {
-        "resnets": [rn.init_resnet_block(init, channels, channels, temb_dim),
-                    rn.init_resnet_block(init, channels, channels, temb_dim)],
-        "attentions": [t2d.init_transformer_2d(init, channels,
+        "resnets": [rn.init_resnet_block(k1, channels, channels, temb_dim),
+                    rn.init_resnet_block(k2, channels, channels, temb_dim)],
+        "attentions": [t2d.init_transformer_2d(k3, channels,
                                                transformer_layers, cross_dim)],
     }
 
@@ -90,19 +94,22 @@ def init_up_block(init: layers.ParamInit, c_in: int, c_out: int,
                   prev_out: int, temb_dim: int, num_layers: int,
                   heads: Optional[int], cross_dim: Optional[int],
                   add_upsample: bool, transformer_layers: int = 1):
+    """Children as ``init_down_block``'s, the upsampler the last."""
+    keys = init.split(2 * num_layers + 1)
     p = {"resnets": []}
     if heads is not None:
         p["attentions"] = []
     for i in range(num_layers):
         res_skip = c_in if i == num_layers - 1 else c_out
         res_in = prev_out if i == 0 else c_out
-        p["resnets"].append(rn.init_resnet_block(init, res_in + res_skip,
-                                                 c_out, temb_dim))
+        p["resnets"].append(rn.init_resnet_block(keys[2 * i],
+                                                 res_in + res_skip, c_out,
+                                                 temb_dim))
         if heads is not None:
             p["attentions"].append(t2d.init_transformer_2d(
-                init, c_out, transformer_layers, cross_dim))
+                keys[2 * i + 1], c_out, transformer_layers, cross_dim))
     if add_upsample:
-        p["upsample"] = rn.init_upsample(init, c_out)
+        p["upsample"] = rn.init_upsample(keys[-1], c_out)
     return p
 
 

@@ -283,12 +283,13 @@ def train_toy_vae(images_u8: np.ndarray, vae_cfg, steps: int = 1500,
                   batch: int = 64, lr: float = 1e-3, kl_weight: float = 1e-4,
                   seed: int = 0, log_every: int = 250, device="cuda"):
     """MSE reconstruction + a tiny KL, Adam, the encoder and decoder
-    recomputed in the backward. Step i samples its latents with the JAX
-    package's key for it, from ``PRNGKey(seed)`` (``_step_keys``); the
-    initial weights are not JAX's draws. -> (params, cfg with the measured
-    scaling factor 1 / std(latents), final mse)."""
+    recomputed in the backward. The JAX package's trainer for a seed: it
+    starts from ``init_vae(PRNGKey(seed))``, and step i samples its
+    latents with the JAX package's key for it, from ``PRNGKey(seed)``
+    (``_step_keys``). -> (params, cfg with the measured scaling factor 1 /
+    std(latents), final mse)."""
     dev = resolve_device(device)
-    params = vae_lib.init_vae(vae_cfg, seed, dev)
+    params = vae_lib.init_vae(vae_cfg, threefry.key(seed), dev)
     leaves = ts.tree_leaves(params)
     opt = ts.init_opt_state(params)
     x_all = torch.from_numpy(np.asarray(images_u8)).to(dev)
@@ -336,22 +337,23 @@ def train_toy_diffusion(batch_data: Dict[str, np.ndarray], unet_cfg,
                         lr: float = 3e-4, seed: int = 0,
                         log_every: int = 500, device="cuda"):
     """From-scratch training of BlobNet + the full UNet
-    (``TrainConfig.train_unet_full``, weight decay 1e-3, no remat). Step
-    i draws t and noise from the JAX package's key for it, the third of
-    ``split(PRNGKey(seed), 3)`` split by ``_step_keys``; the initial
-    weights are not JAX's draws. -> (unet_params, blobnet_params, final
-    loss)."""
+    (``TrainConfig.train_unet_full``, weight decay 1e-3, no remat). The
+    JAX package's trainer for a seed: with ``k_u, k_b, key =
+    split(PRNGKey(seed), 3)`` it starts from ``init_unet(k_u)`` and
+    ``init_blobnet(k_b)``, and step i draws t and noise from ``key`` split
+    by ``_step_keys``. -> (unet_params, blobnet_params, final loss)."""
     dev = resolve_device(device)
     cfg = ts.TrainConfig(learning_rate=lr, weight_decay=1e-3,
                          train_unet_full=True, remat=False)
+    k_u, k_b, key = threefry.split(threefry.key(seed), 3)
     state = ts.init_train_state(
-        cfg, blobnet_lib.init_blobnet(blobnet_cfg, seed + 1, dev),
-        unet_lib.init_unet(unet_cfg, seed, dev))
+        cfg, blobnet_lib.init_blobnet(blobnet_cfg, k_b, dev),
+        unet_lib.init_unet(unet_cfg, k_u, dev))
     step_fn = ts.make_train_step(cfg, unet_cfg, blobnet_cfg)
     data = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
             for k, v in batch_data.items()}
     rng = np.random.RandomState(seed + 1)
-    keys = _step_keys(threefry.split(threefry.key(seed), 3)[2], steps)
+    keys = _step_keys(key, steps)
     loss = None
     for step, (idx, key) in enumerate(zip(_index_chunks(
             rng, len(data["x0_latents"]), steps, batch), keys), 1):

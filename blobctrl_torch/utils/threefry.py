@@ -37,6 +37,7 @@ same bits on every device. R keys (R, 2) draw R rows at once, as
 from __future__ import annotations
 
 import math
+import numbers
 from typing import Optional, Sequence
 
 import torch
@@ -85,6 +86,18 @@ def key(seed: int) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)``'s data with x64 off: [0, seed mod
     2**32], int64 on the CPU."""
     return torch.tensor([0, int(seed) % 2 ** 32], dtype=torch.int64)
+
+
+def as_key(k) -> torch.Tensor:
+    """One key from ``k``: an int is ``key(k)``, as ``PRNGKey(k)``; a key's
+    two words (a tensor, or a numpy or JAX uint32 array) as its (2,) int64
+    tensor."""
+    if isinstance(k, numbers.Integral):
+        return key(int(k))
+    words = [int(w) for w in k]
+    if len(words) != 2:
+        raise ValueError(f"a key has two words, not {len(words)}")
+    return torch.tensor([w % 2 ** 32 for w in words], dtype=torch.int64)
 
 
 def fold_in(k, data: int) -> torch.Tensor:

@@ -327,6 +327,7 @@ import functools
 import gc
 import json
 import logging
+import math
 import os
 import shutil
 import statistics
@@ -1587,7 +1588,7 @@ def sam_checkpoint(models_root: str, device="cuda", cfg=None):
     the CPU at a small size."""
     from blobctrl_torch.models import sam
     from blobctrl_torch.params import export, io
-    drawn = sam.init(cfg or sam.SAMConfig.vit_h(), seed=SAM_SEED,
+    drawn = sam.init(cfg or sam.SAMConfig.vit_h(), key=SAM_SEED,
                      device=device)
     os.makedirs(os.path.join(models_root, "sam"), exist_ok=True)
     path = os.path.join(models_root, "sam", "sam_vit_h_4b8939.pth")
@@ -1767,7 +1768,7 @@ def safety_phase(pipe, device="cuda", steps: int = SAFETY_STEPS,
     from blobctrl_torch.models import clip_vision, safety_checker as sc
     from blobctrl_torch.params import export, io
     cfg = cfg or clip_vision.CLIPVisionConfig()
-    drawn = sc.init(cfg, seed=13, device=device)
+    drawn = sc.init(cfg, key=13, device=device)
     params = sc.convert_safety_checker(export.safety_checker_state_dict(
         drawn), leaf=io._device_leaf(device, torch.float32))
     got, want = export.flatten(params), export.flatten(drawn)
@@ -1892,11 +1893,15 @@ def reference_configs():
 
 
 def draw_reference_trees(cfgs, seed: int, device):
-    """The five trees drawn on ``device`` in fp16, the checkpoint's dtype
-    (the JAX init bounds), and a rank-16 LoRA over the UNet's attention
-    projections: A ~ N(0, 1/in), B ~ N(0, 0.02^2), stored in fp16."""
+    """The five trees drawn on ``device`` in fp16, the checkpoint's dtype:
+    the JAX package's init trees for ``PRNGKey(seed)`` to ``PRNGKey(seed +
+    4)`` (the BlobNet's taps drawn too), and a rank-16 LoRA over the UNet's
+    attention projections, A ~ N(0, 1/in), B ~ N(0, 0.02^2), stored in
+    fp16, A and B of each target from ``key, a, b = split(key, 3)`` along
+    a chain from ``PRNGKey(seed + 5)``."""
     from blobctrl_torch.models import blobnet, clip_text, dinov2, unet, vae
     from blobctrl_torch.params import export
+    from blobctrl_torch.utils import threefry
     f16 = torch.float16
     trees = dict(
         unet=unet.init_unet(cfgs["unet"], seed, device, f16),
@@ -1905,15 +1910,16 @@ def draw_reference_trees(cfgs, seed: int, device):
         vae=vae.init_vae(cfgs["vae"], seed + 2, device, f16),
         clip=clip_text.init(cfgs["clip"], seed + 3, device, f16),
         dino=dinov2.init(cfgs["dino"], seed + 4, device, f16))
-    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    key = threefry.key(seed + 5)
     lora = {}
     for path, k in export.flatten(trees["unet"]).items():
         parts = path.split(".")
         if parts[-1] == "kernel" and parts[-2] in ("to_q", "to_k", "to_v",
                                                     "to_out"):
             d_in, d_out = k.shape
-            a = torch.randn(d_in, LORA_RANK, generator=gen, device=device)
-            b = torch.randn(LORA_RANK, d_out, generator=gen, device=device)
+            key, ka, kb = threefry.split(key, 3)
+            a = threefry.normal(ka, (d_in, LORA_RANK), device=device)
+            b = threefry.normal(kb, (LORA_RANK, d_out), device=device)
             lora["/".join(parts[:-1])] = {"A": (a / d_in ** 0.5).to(f16),
                                           "B": (b * 0.02).to(f16)}
     return trees, lora
@@ -2120,6 +2126,117 @@ def seeded_draws(pipe, card: str, device="cuda"):
     return secs
 
 
+# jax.random 0.9.0's parameter init, taken from the JAX package on the CPU
+# by scripts/torch_init_constants.py, which checks each key path against the
+# JAX package's whole init at a narrow geometry with the same split counts.
+# For a few leaves of the trees that ``apps/flagship.production_params(0)``
+# draws and of CLIP ViT-L/14 text for key 3 (``benchkit.add_encoders(pipe,
+# seed=3)``): the tree and its seed, the leaf's path, its key's path below
+# PRNGKey(seed) (child i of split(key, n) for each (n, i); a conv or linear
+# kernel is drawn from the first of split(that key)), its draw and shape,
+# and the float32 bits of its first 8 elements
+JAX_INIT = {
+    'unet conv_in': dict(
+        tree='unet', seed=0,
+        path=('conv_in', 'kernel'),
+        splits=((12, 0),),
+        draw='conv', shape=(3, 3, 5, 320),
+        bits=(0xBD84AB95, 0x3DAFE933, 0xBCFA23EB, 0x3E0154CC, 0xBD73FBFA,
+              0xBE0C497B, 0xBDBBB21A, 0x3CCB13D6)),
+    'unet mid attn1 to_q': dict(
+        tree='unet', seed=0,
+        path=('mid_block', 'attentions', 0, 'blocks', 0, 'attn1', 'to_q',
+              'kernel'),
+        splits=((12, 6), (3, 2), (3, 1), (3, 0), (4, 0)),
+        draw='linear', shape=(1280, 1280),
+        bits=(0xBC996410, 0xBC125FEA, 0x3A98AC75, 0xBBB4B096, 0xBBE94317,
+              0x3BDD878C, 0xBBD63C35, 0xBCADE624)),
+    'blobnet conv_in': dict(
+        tree='blobnet', seed=1,
+        path=('conv_in', 'kernel'),
+        splits=((12, 0),),
+        draw='conv', shape=(3, 3, 1029, 320),
+        bits=(0xB81E12A9, 0xBB9B4D34, 0x3C171E95, 0x3AD8FCA2, 0x3C284F10,
+              0x3BA61762, 0xBBE7B7E0, 0x3B83EB81)),
+    'vae decoder conv_out': dict(
+        tree='vae', seed=2,
+        path=('decoder', 'conv_out', 'kernel'),
+        splits=((64, 41),),
+        draw='conv', shape=(3, 3, 128, 3),
+        bits=(0xBCD06ADC, 0xBCA54D87, 0x3CDA66BE, 0xBC5BDA50, 0x3A86FD40,
+              0x3AA6C31A, 0xBB9D6179, 0x3AF5B528)),
+    'clip token_embedding': dict(
+        tree='clip', seed=3,
+        path=('token_embedding',),
+        splits=((100, 0),),
+        draw='normal', shape=(49408, 768),
+        bits=(0xBD42D566, 0xBD0BC4E9, 0xBC210552, 0xBC9DCC6D, 0x3B795093,
+              0x3CB68064, 0x3C769BFC, 0xBD2E23B9)),
+}
+
+
+def init_draws(card: str, device="cuda"):
+    """Phase 6's init check: ``flagship.production_params(0)`` drawn on
+    ``device`` in fp32, before any cast (seconds until drawn, the peak
+    memory the draw adds and the tree's bytes printed), and CLIP ViT-L/14
+    text for key 3; each leaf of ``JAX_INIT`` against JAX's first 8
+    elements (uniform 0 ulp, normal within 4), and its first row drawn on
+    the CPU from the leaf's key (``utils.threefry``, ``rows=``) bit-equal
+    to the card's. ``card``: the card's name and power limit."""
+    from blobctrl_torch.apps import flagship
+    from blobctrl_torch.models import clip_text
+    from blobctrl_torch.params import export
+    from blobctrl_torch.utils import threefry
+    trees = {}
+
+    def draw(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return out, secs, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    (trees["unet"], trees["blobnet"], trees["vae"]), secs, peak = draw(
+        lambda: flagship.production_params(0, device, torch.float32))
+    held = sum(t.numel() * t.element_size() for tree in trees.values()
+               for t in export.flatten(tree).values())
+    trees["clip"], clip_secs, clip_peak = draw(lambda: clip_text.init(
+        flagship.clip_vit_l_config(), 3, device))
+    log(f"  production_params(0) drawn on {card} in fp32: {secs:.3f} s, "
+        f"{held / 2 ** 30:.2f} GiB held, peak {peak:.2f} GiB above what was "
+        f"allocated before; CLIP ViT-L/14 text for key 3: {clip_secs:.3f} "
+        f"s, peak {clip_peak:.2f} GiB")
+    worst, same = {}, {}
+    for name, leaf in JAX_INIT.items():
+        got = trees[leaf["tree"]]
+        for p in leaf["path"]:
+            got = got[p]
+        worst[name] = _ulps(got, leaf["bits"])
+        key = threefry.key(leaf["seed"])
+        for n, i in leaf["splits"]:
+            key = threefry.split(key, n)[i]
+        shape = leaf["shape"]
+        if leaf["draw"] == "normal":
+            row = threefry.normal(key, shape, rows=range(1)) * 0.02
+        else:
+            bound = 1.0 / math.sqrt(math.prod(shape[:-1]))
+            row = threefry.uniform(threefry.split(key)[0], shape, -bound,
+                                   bound, rows=range(1))
+        same[name] = torch.equal(got[:1].cpu(), row)
+    log(f"  the first 8 elements against JAX's (ulp; uniform 0, normal 4): "
+        f"{worst}; the first row drawn on the CPU from the leaf's key, "
+        f"bit-equal to the card's: {same}")
+    tol = {name: 4 if leaf["draw"] == "normal" else 0
+           for name, leaf in JAX_INIT.items()}
+    if any(worst[n] > tol[n] for n in worst) or not all(same.values()):
+        raise AssertionError(f"init draws: {worst} ulp, {same}")
+    del trees, got
+    torch.cuda.empty_cache()
+    return secs, peak
+
+
 def checkpoint_phase(root: str, card: str, device="cuda", size: int = 512):
     """Phase 6 (``device`` and ``size`` let it be rehearsed on the CPU at a
     small size); -> (per-request records, the loaded pipeline). The models
@@ -2158,6 +2275,8 @@ def checkpoint_phase(root: str, card: str, device="cuda", size: int = 512):
         f"LoRA targets bit-equal to the fp32 merge then the cast; conv_in "
         f"widened 4 -> 5")
     seeded_draws(pipe, card, device)
+    if device != "cpu":
+        init_draws(card, device)
     del trees
     if device != "cpu":
         torch.cuda.empty_cache()
@@ -4297,8 +4416,12 @@ def main() -> int:
     # -- phase 2 ------------------------------------------------------------
     log("phase 2: kernels against their plain versions at the 512^2 shapes")
     log_elapsed()
+    t0 = time.perf_counter()
     pipe = benchkit.make_flagship_pipe(seed=0, device="cuda",
                                        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  the production pipeline's weights drawn on the card (bf16, "
+        f"JAX's init trees): {time.perf_counter() - t0:.3f} s")
     # one step, inside the control window, so BlobNet runs too
     one_step = dict(benchkit.standard_edit_kwargs(512, 1),
                     blobnet_control_guidance_end=1.0)

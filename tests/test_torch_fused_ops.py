@@ -334,8 +334,8 @@ def _unet_blobnet_call():
     double-width 32 x 64 latent: routed convs at every level, 2048-token
     self-attention at level 0, cross-attention in the UNet."""
     ucfg, bcfg, _ = ttoy.toy_configs(size=256)
-    up = tunet.init_unet(ucfg, seed=0, device="cpu")
-    bp = tblob.init_blobnet(bcfg, seed=1, device="cpu")
+    up = tunet.init_unet(ucfg, key=0, device="cpu")
+    bp = tblob.init_blobnet(bcfg, key=1, device="cpu")
     rng = np.random.RandomState(6)
     x = t(rng.randn(1, 32, 64, 5).astype(np.float32))
     blob_in = t(rng.randn(1, 32, 64, 21).astype(np.float32))

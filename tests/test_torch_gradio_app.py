@@ -202,7 +202,7 @@ def test_main_loads_through_the_port(monkeypatch, tmp_path):
                                     window_size=2, global_attn_indexes=(1,),
                                     output_channels=16, prompt_dim=16,
                                     decoder_heads=2, decoder_mlp_dim=32),
-                     seed=1, device="cpu")
+                     key=1, device="cpu")
     export.save_sam(str(path), tree)
     tgradio.main(["--models_root", str(tmp_path), "--device", "cpu"])
     (session, _), = launched

@@ -173,12 +173,12 @@ def test_int8_qkv_with_ln_matmul_fusion_keeps_the_layernorm(linear_int8):
     LN -> projection fusion on the port applies the LayerNorm first: the
     output equals the unfused int8 output. (The JAX package feeds the
     un-normalized x to its int8 product there, a reference-side hazard.)"""
-    init = tlayers.ParamInit(3, "cpu")
+    k_attn, k_scale, k_bias, k_x = tlayers.ParamInit(3, "cpu").split(4)
     params = tconv.quantize_conv_tree(
-        {"attn": tattn.init_attention(init, 64)})["attn"]
-    norm = {"scale": 1.0 + 0.1 * init.normal((64,), 1.0),
-            "bias": init.normal((64,), 0.5)}
-    x = 3.0 + 2.0 * init.normal((2, 24, 64), 1.0)
+        {"attn": tattn.init_attention(k_attn, 64)})["attn"]
+    norm = {"scale": 1.0 + 0.1 * k_scale.normal((64,), 1.0),
+            "bias": k_bias.normal((64,), 0.5)}
+    x = 3.0 + 2.0 * k_x.normal((2, 24, 64), 1.0)
     outs = {}
     try:
         for mode in ("off", "on"):

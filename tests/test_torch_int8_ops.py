@@ -299,7 +299,7 @@ def _unet_call():
     """A 2-level UNet at 32/64 channels on a double-width 32 x 64 latent:
     routed convs (C >= 32) and 2048-token self-attention at level 0."""
     cfg = ttoy.toy_configs()[0]
-    params = tunet.init_unet(cfg, seed=0, device="cpu")
+    params = tunet.init_unet(cfg, key=0, device="cpu")
     rng = np.random.RandomState(6)
     x = t(rng.randn(1, 32, 64, 5).astype(np.float32))
     ctx = t(rng.randn(1, 7, 16).astype(np.float32))

@@ -486,7 +486,7 @@ def test_load_sam_loads(tmp_path):
                          mlp_dim=64, image_size=64, window_size=3,
                          global_attn_indexes=(1,), output_channels=16,
                          prompt_dim=16, decoder_heads=2, decoder_mlp_dim=32)
-    tree = tsam.init(cfg, seed=4, device="cpu")
+    tree = tsam.init(cfg, key=4, device="cpu")
     path = str(tmp_path / "sam_vit_h_4b8939.pth")
     export.save_sam(path, tree)
     got = export.flatten(tio.load_sam(path, device="cpu"))

@@ -363,7 +363,7 @@ def test_sam_state_dict_is_the_original_format(tiny, tmp_path):
 
 def test_init_has_the_converted_structure(tiny):
     """``init`` draws a tree of the converter's structure and shapes."""
-    drawn = export.flatten(tsam.init(tiny["tcfg"], seed=3, device="cpu"))
+    drawn = export.flatten(tsam.init(tiny["tcfg"], key=3, device="cpu"))
     conv = export.flatten(tiny["tparams"])
     assert {k: tuple(v.shape) for k, v in drawn.items()} == {
         k: tuple(v.shape) for k, v in conv.items()}

@@ -234,8 +234,8 @@ def _tiny_loss(remat, seed=8):
     """sum(UNet(x, BlobNet residuals)) of the tiny nets, with the BlobNet
     taps drawn, and the params it differentiates."""
     ucfg, bcfg = tflag.tiny_configs()
-    up = tunet.init_unet(ucfg, seed=1, device="cpu")
-    bp = tblob.init_blobnet(bcfg, seed=2, device="cpu", zero_taps=False)
+    up = tunet.init_unet(ucfg, key=1, device="cpu")
+    bp = tblob.init_blobnet(bcfg, key=2, device="cpu", zero_taps=False)
     rng = np.random.RandomState(seed)
     blob_in = torch.from_numpy(rng.randn(1, 8, 16, 21).astype(np.float32))
     unet_in = torch.from_numpy(rng.randn(1, 8, 16, 5).astype(np.float32))

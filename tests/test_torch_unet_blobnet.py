@@ -114,8 +114,8 @@ def test_square_input_injection_matches_jax():
 
 def test_residual_count_and_zero_taps():
     ucfg, bcfg = tflag.tiny_configs()
-    up = tunet.init_unet(ucfg, seed=1, device="cpu")
-    bp = tblob.init_blobnet(bcfg, seed=2, device="cpu")  # zero taps
+    up = tunet.init_unet(ucfg, key=1, device="cpu")
+    bp = tblob.init_blobnet(bcfg, key=2, device="cpu")  # zero taps
     blob_in, unet_in, ctx = (torch.from_numpy(a) for a in _inputs())
     d, m, u = tblob.blobnet_apply(bp, bcfg, blob_in, T)
     assert (len(d), 1, len(u)) == tblob.num_residuals(bcfg)
