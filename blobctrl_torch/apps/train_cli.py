@@ -39,6 +39,13 @@ averaged over the ranks before the clip. Rank 0 narrates
 (``img_per_sec`` over the global batch), writes the checkpoints (then
 every rank meets at a barrier), reads them on --resume (then broadcasts
 the state) and exports.
+
+Checkpoints are the JAX package's (``train/checkpoint.py``: orbax's
+layout), so ``--resume`` continues a run the JAX CLI saved, at any step,
+and the JAX CLI resumes the port's. A resumed state that does not fit
+the flags (--full_finetune, --ema_decay, --lora_rank, --lr_schedule and
+--lr_warmup_steps) or the models root's BlobNet is refused by name
+before any step.
 """
 
 from __future__ import annotations
@@ -215,6 +222,83 @@ def check_data(examples: int, batch: int, world: int, per_process: bool):
                          f"is {batch}; the loader would yield zero batches")
 
 
+def _same_geometry(tree, like, path: str):
+    """ValueError naming the first path where ``tree`` differs from
+    ``like`` (a fresh tree, whose leaves are tensors or shapes) in its
+    keys or shapes."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
+            have = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path} holds {have}, the run builds "
+                             f"{sorted(like)}")
+        for k, v in like.items():
+            _same_geometry(tree[k], v, f"{path}.{k}")
+        return
+    if isinstance(like, list):
+        if not isinstance(tree, list) or len(tree) != len(like):
+            raise ValueError(f"{path} is not the run's list of {len(like)}")
+        for i, (t, v) in enumerate(zip(tree, like)):
+            _same_geometry(t, v, f"{path}.{i}")
+        return
+    shape = tuple(like.shape) if torch.is_tensor(like) else tuple(like)
+    if not torch.is_tensor(tree) or tuple(tree.shape) != shape:
+        got = tuple(tree.shape) if torch.is_tensor(tree) else type(tree)
+        raise ValueError(f"{path} has shape {got}, the run builds {shape}")
+
+
+def check_resumed(state, schedule, args, cfg, pipe):
+    """Check a resumed train state, and ``schedule`` (whether its saved
+    optimizer state holds a learning-rate schedule's count,
+    ``checkpoint.saved_schedule``; None: not recorded), against the run's
+    flags, TrainConfig and models root: ValueError naming the flag
+    (--full_finetune, --ema_decay, --lora_rank, --lr_schedule and
+    --lr_warmup_steps) or the BlobNet leaf that does not fit, before any
+    step."""
+    from blobctrl_torch.models import lora as lora_lib
+    from blobctrl_torch.train import checkpoint as ckpt_lib
+    params = state["params"]
+    kind = "unet" if "unet" in params else "lora"
+    if args.full_finetune != (kind == "unet"):
+        trains = "the full UNet" if kind == "unet" else "a LoRA adapter"
+        raise ValueError(f"the checkpoint trains {trains}; --full_finetune "
+                         f"is {'on' if args.full_finetune else 'off'}")
+    if (args.ema_decay > 0) != ("ema" in state):
+        raise ValueError(
+            f"the checkpoint {'holds' if 'ema' in state else 'has no'} an "
+            f"EMA shadow; --ema_decay is {args.ema_decay}")
+    if schedule is not None and schedule != ckpt_lib.has_schedule(cfg):
+        raise ValueError(
+            f"the checkpoint's optimizer state "
+            f"{'holds' if schedule else 'has no'} a learning-rate "
+            f"schedule's count; --lr_schedule {args.lr_schedule} "
+            f"--lr_warmup_steps {args.lr_warmup_steps} make "
+            f"{'a constant rate' if schedule else 'a schedule'}")
+    if kind == "lora":
+        like = {}
+        for p, leaf in lora_lib._attention_paths(pipe.unet_params):
+            d_in, d_out = leaf["kernel"].shape
+            like["/".join(map(str, p))] = {
+                "A": (d_in, args.lora_rank), "B": (args.lora_rank, d_out)}
+        ranks = {tuple(ab["A"].shape)[-1] for ab in params["lora"].values()}
+        if ranks != {args.lora_rank}:
+            raise ValueError(f"the checkpoint's adapter has rank "
+                             f"{sorted(ranks)}; --lora_rank is "
+                             f"{args.lora_rank}")
+    else:
+        like = pipe.unet_params
+    like = {"blobnet": pipe.blobnet_params, kind: like}
+    trees = [("params", params), ("opt_state.mu", state["opt_state"]["mu"]),
+             ("opt_state.nu", state["opt_state"]["nu"])]
+    if "ema" in state:
+        trees.append(("ema", state["ema"]))
+    try:
+        for path, tree in trees:
+            _same_geometry(tree, like, path)
+    except ValueError as e:
+        raise ValueError(f"the checkpoint does not fit the models root's "
+                         f"BlobNet and UNet ({e})") from None
+
+
 def run_rank(args, rank: int, world: int, address, backend, device,
              per_process: bool = False):
     """Rank ``rank`` of ``world`` data-parallel ranks, the whole run when
@@ -278,9 +362,18 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
     # only rank 0's disk is sure to hold what rank 0 wrote: it reads the
     # checkpoint, the other ranks make a fresh state to receive it, and
     # every rank starts from rank 0's
-    if lead and args.resume and ckpt_lib.latest_step(args.ckpt_dir) \
-            is not None:
-        state = ckpt_lib.restore(args.ckpt_dir, device=dev)
+    problem = None
+    at = ckpt_lib.latest_step(args.ckpt_dir) if lead and args.resume \
+        else None
+    if at is not None:
+        state = ckpt_lib.restore(args.ckpt_dir, at, device=dev)
+        try:
+            check_resumed(state, ckpt_lib.saved_schedule(args.ckpt_dir, at),
+                          args, cfg, pipe)
+        except ValueError as e:
+            problem = f"--resume {args.ckpt_dir}: {e}"
+            if world == 1:
+                raise SystemExit(problem) from None
         log_event("resumed", step=state["step"])
     else:
         # fp32 masters: bf16 ones would round away ~1e-5 AdamW updates
@@ -289,7 +382,14 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
                                       rank=args.lora_rank, device=dev))
         state = ts.init_train_state(cfg, pipe.blobnet_params, adapter)
         del adapter
-    state = ts.replicate_state(state)
+    try:
+        # rank 0's verdict travels with the layouts: every rank refuses a
+        # state that misfits the flags here
+        state = ts.replicate_state(state, refused=problem is not None)
+    except ValueError as e:
+        if problem:
+            raise SystemExit(problem) from e
+        raise
     step_fn = ts.make_train_step(cfg, pipe.unet_cfg, pipe.blobnet_cfg,
                                  group=multihost.world_group()
                                  if world > 1 else None)
@@ -317,7 +417,7 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
                           img_per_sec=round(global_batch / dt, 2))
             if step % args.ckpt_every == 0 or step == args.steps:
                 if lead:
-                    ckpt_lib.save(args.ckpt_dir, state)
+                    ckpt_lib.save(args.ckpt_dir, state, cfg)
                     log_event("checkpoint", step=step)
                 multihost.barrier(f"checkpoint {step}")
 

@@ -92,6 +92,17 @@ class ParamInit:
         return torch.ones(shape, device=self.device, dtype=self.dtype)
 
 
+def sorted_tree(tree):
+    """``tree`` with every dict's keys sorted, as JAX orders a tree it
+    rebuilds (``cast``'s ``tree_map``, and so the JAX package's loaded
+    pipeline): the order its leaves are flattened, drawn and reduced in."""
+    if isinstance(tree, dict):
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [sorted_tree(v) for v in tree]
+    return tree
+
+
 # elements a leaf is drawn by at a time: 128 MiB an int64 temporary
 DRAW_BLOCK = 1 << 24
 

@@ -9,6 +9,13 @@ process each, so the build takes as long as the slowest file. A library is
 named by a digest of its source, the headers and the flags, so an edit
 rebuilds and
 an unchanged one loads as is.
+
+Host code lives beside the kernels: each ``csrc/<name>.cpp`` of
+``HOST_SIGNATURES`` (the zstd decoder of the checkpoint reader) is a
+plain C library built the same way by the host C++ compiler, on the
+card's machine as on a CPU one, so the CPU tests build and run it too.
+``build_all`` compiles it with the kernels, in parallel; ``host_entry``
+builds it alone. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -64,12 +71,26 @@ SIGNATURES = {
                     _P)),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
+_SZ = ctypes.c_size_t
+# host C entry points: name -> (library, i.e. csrc/<library>.cpp,
+# function, restype, argtypes)
+HOST_SIGNATURES = {
+    "zstd_decompress": ("zstd_decode", "zstd_decompress", ctypes.c_long,
+                        (_P, _SZ, _P, _SZ)),
+    "zstd_content_size": ("zstd_decode", "zstd_content_size",
+                          ctypes.c_longlong, (_P, _SZ)),
+    "crc32c": ("zstd_decode", "crc32c", ctypes.c_uint,
+               (_P, _SZ, ctypes.c_uint)),
+}
+HOST_LIBRARIES = sorted({lib for lib, _, _, _ in HOST_SIGNATURES.values()})
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared")
 # What an entry point with a trailing int* writes back when its tensor-core
 # kernel ran (0: a SIMT kernel).
 DESIGN_TENSOR_CORES = 1
 
 _lock = threading.Lock()
 _entry = {}
+_host_entry = {}
 
 
 def _nvcc() -> str:
@@ -79,45 +100,98 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> str:
+def _host_cmd(name: str, out: str):
+    """The command that builds csrc/<name>.cpp into ``out`` with the host
+    C++ compiler ($CXX, else g++)."""
+    cxx = shutil.which(os.environ.get("CXX") or "g++")
+    if cxx is None:
+        raise RuntimeError(f"no C++ compiler ($CXX or g++) found: {name}.cpp "
+                           f"cannot be built")
+    return [cxx, *HOST_FLAGS, "-fPIC", "-o", out,
+            os.path.join(CSRC, f"{name}.cpp")]
+
+
+def _target(name: str, host: bool = False) -> str:
     """The library's path, named by a digest of its source, the shared
-    headers (``csrc/*.cuh``) and the flags."""
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
-            glob.glob(os.path.join(CSRC, "*.cuh"))):
+    headers (``csrc/*.cuh``, kernels only) and the flags (for host code,
+    the compiler's too)."""
+    if host:
+        digest = hashlib.sha1(" ".join(_host_cmd(name, "")).encode())
+        paths = [os.path.join(CSRC, f"{name}.cpp")]
+    else:
+        digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        paths = [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in paths:
         with open(path, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
+def _compile(jobs):
+    """Run the builds [(name, target, cmd taking the temporary output)]
+    all at once; each library is renamed into place when its build ends.
+    Raises on any failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name, so, cmd in jobs:
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        procs.append((name, subprocess.Popen(
+            cmd(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, so))
+    failed = []
+    for name, proc, tmp, so in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+
+
+def _load_host(libs):
+    for name, (lib, fn_name, restype, argtypes) in HOST_SIGNATURES.items():
+        fn = getattr(libs[lib], fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _host_entry[name] = fn
+
+
+def _host_jobs():
+    return [(f"{lib}.cpp", _target(lib, True),
+             lambda tmp, lib=lib: _host_cmd(lib, tmp))
+            for lib in HOST_LIBRARIES
+            if not os.path.exists(_target(lib, True))]
+
+
+def host_entry(name: str):
+    """The host C entry point ``name`` of ``HOST_SIGNATURES``, built on
+    first use by the host C++ compiler."""
+    if name not in _host_entry:
+        with _lock:
+            if name not in _host_entry:
+                _compile(_host_jobs())
+                _load_host({lib: ctypes.CDLL(_target(lib, True))
+                            for lib in HOST_LIBRARIES})
+    return _host_entry[name]
+
+
 def build_all():
-    """Compile every kernel library that is missing (all nvcc processes
-    started together), then load them all. Raises on any failure."""
+    """Compile every kernel library and host library that is missing (all
+    compiler processes started together), then load them all. Raises on
+    any failure."""
     with _lock:
-        if len(_entry) == len(SIGNATURES):
+        if len(_entry) == len(SIGNATURES) and \
+                len(_host_entry) == len(HOST_SIGNATURES):
             return
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        procs = {}
-        for name in LIBRARIES:
-            so = _target(name)
-            if not os.path.exists(so):
-                tmp = f"{so}.{os.getpid()}.tmp"
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                       os.path.join(CSRC, f"{name}.cu")]
-                procs[name] = (subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True), tmp, so)
-        failed = []
-        for name, (proc, tmp, so) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
-                              f"{out}")
-            else:
-                os.replace(tmp, so)
-        if failed:
-            raise RuntimeError("CUDA kernel build failed:\n"
-                               + "\n".join(failed))
+        jobs = [(f"{name}.cu", _target(name),
+                 lambda tmp, name=name: [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                         os.path.join(CSRC, f"{name}.cu")])
+                for name in LIBRARIES if not os.path.exists(_target(name))]
+        _compile(jobs + _host_jobs())
+        _load_host({lib: ctypes.CDLL(_target(lib, True))
+                    for lib in HOST_LIBRARIES})
         libs = {name: ctypes.CDLL(_target(name)) for name in LIBRARIES}
         for name, (lib, fn_name, argtypes) in SIGNATURES.items():
             fn = getattr(libs[lib], fn_name)

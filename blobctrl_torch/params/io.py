@@ -32,6 +32,7 @@ import torch
 from blobctrl_torch import resolve_device
 from blobctrl_torch.apps import flagship
 from blobctrl_torch.models import lora as lora_lib
+from blobctrl_torch.nn.layers import sorted_tree
 from blobctrl_torch.params import config_io, convert, convert_sam
 from blobctrl_torch.pipeline import BlobNetPipeline
 from blobctrl_torch.tokenizer import clip_bpe
@@ -261,16 +262,21 @@ def load_pipeline(models_root: str, dtype=torch.bfloat16,
         os.path.join(sd_root, "unet"), convert.convert_unet, dev, dtype,
         merge=_lora_merge(lora_tree, lora_scale, alpha)), 5)
     tok_dir = os.path.join(sd_root, "tokenizer")
+    # every tree key-sorted, as the JAX package's loader gives it (its
+    # cast is a tree_map): the order a LoRA's init draws its targets in
+    # and training flattens its state in
     pipe = BlobNetPipeline(
-        unet_cfg=unet_cfg, unet_params=unet,
+        unet_cfg=unet_cfg, unet_params=sorted_tree(unet),
         blobnet_cfg=blobnet_cfg,
-        blobnet_params=load_blobnet(blob_dir, dev, dtype),
+        blobnet_params=sorted_tree(load_blobnet(blob_dir, dev, dtype)),
         vae_cfg=vae_cfg,
-        vae_params=load_vae(os.path.join(sd_root, "vae"), dev, dtype),
+        vae_params=sorted_tree(load_vae(os.path.join(sd_root, "vae"), dev,
+                                        dtype)),
         clip_cfg=clip_cfg,
-        clip_params=load_clip_text(os.path.join(sd_root, "text_encoder"),
-                                   dev, dtype),
-        dino_cfg=dino_cfg, dino_params=load_dinov2(dino_dir, dev, dtype),
+        clip_params=sorted_tree(load_clip_text(
+            os.path.join(sd_root, "text_encoder"), dev, dtype)),
+        dino_cfg=dino_cfg,
+        dino_params=sorted_tree(load_dinov2(dino_dir, dev, dtype)),
         tokenizer=(clip_bpe.CLIPTokenizer.from_dir(tok_dir)
                    if os.path.isdir(tok_dir) else None),
         dino_image_size=dino_image_size, dtype=dtype, device=dev)

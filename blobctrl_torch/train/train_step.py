@@ -42,6 +42,7 @@ import torch
 from blobctrl_torch.models import blobnet as blobnet_lib
 from blobctrl_torch.models import lora as lora_lib
 from blobctrl_torch.models import unet as unet_lib
+from blobctrl_torch.nn.layers import sorted_tree
 from blobctrl_torch.parallel import collectives
 from blobctrl_torch.schedulers import ddim as ddim_lib
 from blobctrl_torch.utils import threefry
@@ -208,12 +209,15 @@ def apply_optimizer(cfg: TrainConfig, trainable, opt_state,
 def init_train_state(cfg: TrainConfig, blobnet_params, adapter_params):
     """adapter_params: the LoRA tree, or the full UNet tree under
     ``train_unet_full``. Each leaf is copied into an fp32 master of its
-    own, so the state never shares storage with the trees given."""
+    own, so the state never shares storage with the trees given. Its
+    trees are key-sorted (JAX's order), as ``checkpoint.restore`` gives
+    a saved one, so that states of one run reduce, clip and replicate
+    their leaves alike."""
     key = "unet" if cfg.train_unet_full else "lora"
     master = (lambda t: t.detach().to(torch.float32,  # noqa: E731
                                       copy=True))
-    trainable = {"blobnet": tree_map(master, blobnet_params),
-                 key: tree_map(master, adapter_params)}
+    trainable = sorted_tree({"blobnet": tree_map(master, blobnet_params),
+                             key: tree_map(master, adapter_params)})
     state = {"params": trainable, "opt_state": init_opt_state(trainable),
              "step": 0}
     if cfg.ema_decay > 0:
@@ -419,11 +423,13 @@ def _layout(tree, path: str = ""):
     return [f"{path}:{type(tree).__name__}"]
 
 
-def replicate_state(state):
+def replicate_state(state, refused: bool = False):
     """Rank 0's train state on every rank, in place. First every rank's
-    layout (its leaves' paths, shapes and dtypes) is gathered, and every
-    rank refuses alike a state whose layout differs from rank 0's (a
-    checkpoint resumed under flags that build another tree). Then its
+    layout (its leaves' paths, shapes and dtypes) is gathered with rank
+    0's ``refused``, and every rank refuses alike a state whose layout
+    differs from rank 0's (a checkpoint resumed under flags that build
+    another tree) or that rank 0 refused (one that misfits the flags in
+    what the layout does not show, as its learning-rate schedule). Then its
     tensors (fp32, as ``init_train_state`` and ``checkpoint.restore`` make
     them) are laid end to end in buckets of ``GRAD_BUCKET_BYTES``, each
     broadcast (``multihost.replicate``) and copied back, then its two
@@ -434,16 +440,21 @@ def replicate_state(state):
         return state
     tensors = [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
     lines = _layout(state)
-    mine = torch.tensor([len(lines), zlib.crc32("\n".join(lines).encode())],
-                        dtype=torch.int64, device=tensors[0].device)
+    mine = torch.tensor([len(lines), zlib.crc32("\n".join(lines).encode()),
+                         int(refused)], dtype=torch.int64,
+                        device=tensors[0].device)
     every = collectives.all_gather(mine, multihost.world_group(), dim=0)
-    every = every.view(-1, 2).tolist()
-    if any(x != every[0] for x in every):
+    every = every.view(-1, 3).tolist()
+    if every[0][2]:
+        raise ValueError("replicate_state: rank 0 refused the checkpoint it "
+                         "resumed, as it says: it misfits the run's flags")
+    if any(x[:2] != every[0][:2] for x in every):
         raise ValueError(
             f"replicate_state: the train state's layout differs across "
-            f"ranks ([leaves, digest] a rank: {every}); a checkpoint "
-            f"resumed on rank 0 must be made under the flags that build "
-            f"the state (--lora_rank, --ema_decay, --full_finetune)")
+            f"ranks ([leaves, digest, refused] a rank: {every}); a "
+            f"checkpoint resumed on rank 0 must be made under the flags "
+            f"that build the state (--lora_rank, --ema_decay, "
+            f"--full_finetune)")
     if any(t.dtype != torch.float32 or not t.is_contiguous()
            for t in tensors):
         raise ValueError("replicate_state: the state's tensors must be "
@@ -466,9 +477,9 @@ def training_counts(trainable, world: int, steps: int = 1,
     over the trainable leaves laid end to end, then the loss
     (``mean_over_ranks``); ``replicated``, the train state replicated from
     rank 0 at the start (``replicate_state``: one all-gather of the
-    layouts, its fp32 tensors in buckets, one broadcast each, then the
-    step and update count as one int64 pair); one barrier a checkpoint.
-    Nothing in one process."""
+    layouts and rank 0's verdict, its fp32 tensors in buckets, one
+    broadcast each, then the step and update count as one int64 pair);
+    one barrier a checkpoint. Nothing in one process."""
     if world <= 1:
         return {}
     cap = GRAD_BUCKET_BYTES // 4
@@ -483,7 +494,7 @@ def training_counts(trainable, world: int, steps: int = 1,
                              "bytes": steps * 4 * n}
     if replicated is not None:
         n = elems(replicated)
-        out["all_gather"] = {"count": 1, "bytes": 16}
+        out["all_gather"] = {"count": 1, "bytes": 24}
         out["broadcast"] = {"count": -(-n // cap) + 1, "bytes": 4 * n + 16}
     if checkpoints:
         out["barrier"] = {"count": checkpoints, "bytes": 0}

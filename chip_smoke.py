@@ -121,7 +121,7 @@ script exits non-zero:
      switched on before the predictor, which must switch it off):
      embedding and mask logits within 1e-4 of max |CPU|. Then the safety
      checker (CLIP ViT-L/14 vision, random, through diffusers' state-dict
-     layout and back): 20-step edits without a checker, with one that
+     layout and back): SAFETY_STEPS-step edits without a checker, with one that
      never flags (bit-equal images) and one that always flags under
      ``blackout_nsfw`` (all zeros), the same through ``edit_batch`` at B =
      2 with row 1 flagged; K1 and K6 in each, on the tensor cores; the
@@ -141,7 +141,7 @@ script exits non-zero:
      and the object image under the standard edit's kwargs: DPM++ 2M
      Karras, a repeat of it (the conditioning memo hits: no VAE encode,
      the same image), DPM++ 2M SDE Karras twice with one seed (bit-equal),
-     DDIM with eta 0.5, UniPC on 20 trailing timesteps, LoRA scale 0.5 and
+     DDIM with eta 0.5, UniPC on STEPS trailing timesteps, LoRA scale 0.5 and
      back to 1.0 (the UNet's targets back within one bf16 rounding), the
      encoder cache, guidance-interval CFG, and a callback every 10 steps
      with the latents as output. Counters zeroed before
@@ -168,7 +168,7 @@ script exits non-zero:
      s of CPU; the edit's step times alone and during the decode, and
      the workers' start-up in the warmup, printed), a remove request, a
      preview request with ``/v1/progress`` seen mid-edit and a 400 for a
-     cold shape; one traced 20-step edit
+     cold shape; one traced TRACE_STEPS-step edit
      (``utils/observability.profile_op_breakdown``: the top kernels, the
      hand-written kernels' share of device time, the device's busy share
      of the untraced edit's wall time, the device time by kind); the
@@ -199,8 +199,8 @@ script exits non-zero:
      b. the trained 256^2 toy, ``train_unet_full``, fp32, remat, one
         backward on the card and one on the CPU on the same batch, t and
         noise: loss within 1e-5 relative, gradient norm within 1e-4
-        relative, each leaf within 1e-3 of its max |CPU gradient|; three
-        AdamW steps a side (losses printed); one bf16 step on the card,
+        relative, each leaf within 1e-3 of its max |CPU gradient|;
+        TOY_TRAIN_STEPS AdamW steps a side (losses printed); one bf16 step on the card,
         K1 and K6 on the tensor cores;
      c. full width (``scripts/bench_train_512.py``'s configuration): the
         SD-1.5 UNet frozen in bf16, a rank-16 LoRA and the full BlobNet
@@ -212,18 +212,34 @@ script exits non-zero:
         K1 and K6 in every step, all on the tensor cores, no plain flash
         or conv in the forward pass, and remat's count: K1 twice a lone
         forward's, K6 more than once and at most twice; the trainable count, step seconds (median
-        of steps 2-4), images per second and peak memory printed; then one
+        of steps 2 to TRAIN_STEPS), images per second and peak memory printed; then one
         more step at B = 1 traced (``torch.profiler``: device time by
         kind, the device's busy share, the top kernels);
      d. ``apps/train_cli`` on phase 6's models root: CLI_SCENES seeded
-        512^2 scenes, 4 steps at B = 2 with checkpoints at 2 and 4 and the
-        export, then ``--resume`` to 6, which must start at step 4; the
+        512^2 scenes, CLI_STEPS[0] steps at B = 2 with a checkpoint at the
+        last and the export, then ``--resume`` to CLI_STEPS[1], which must
+        start there; the
         export put into a copy of the root and loaded with
         ``load_pipeline(dtype=bf16)``: the BlobNet leaves and the LoRA
         bit-equal to the trained state as the loader casts them, each
         UNet LoRA target the fp32 merge then the cast; one
         CLI_EDIT_STEPS-step edit from the copy, K1 and K6 on the tensor
-        cores; each stage's seconds printed.
+        cores; each stage's seconds printed. The checkpoints are in the
+        JAX package's layout (orbax's OCDBT and zarr v2): each write's
+        and the resume's read seconds and bytes, and the read's peak rise
+        of host resident memory, printed;
+     e. the committed JAX-written checkpoint (``tests/data/orbax``):
+        every leaf read on the card bit-equal to the CPU read and to the
+        digests JAX recorded; the training CLI resumes it for 2 steps on
+        the card and on the CPU (fp32, TF32 off) on the roots
+        ``utils/benchkit.write_tiny_training_roots`` rebuilds: losses
+        within 1e-5 relative of each other and of JAX's, each step's
+        gradients within 1e-3 of each leaf's max (8b's bars), the final
+        states within the step bound; the compiled zstd decoder bit-equal
+        to ``utils/zstd.py`` on every frame of the fixture, its MB/s on
+        the committed weights frame decoded to DECODE_BYTES on one host
+        thread and on DECODE_THREADS, and the read of 8c's 10.18 GB state,
+        written by JAX, projected from them.
   9. Parallel (``blobctrl_torch/parallel``), after phase 8: ranks spawned
      on this one card (``cuda:0``), over gloo by explicit argument (NCCL
      refuses two ranks on one device), a group of 2 and then one of 4;
@@ -357,7 +373,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # phase 3's bf16 pass: PSNR(card bf16, CPU fp32) >= PSNR(CPU bf16, CPU fp32)
 # less this margin
 BF16_MARGIN_DB = 3.0
-STEPS = 50  # UniPC steps of each full-width request
+STEPS = 10  # UniPC steps of each full-width request
 LORA_RANK, LORA_ALPHA = 16, 8.0  # phase 6's PEFT adapter
 
 
@@ -887,7 +903,7 @@ def jpeg_phase():
     """Every committed JPEG fixture decoded by ``utils/jpeg.decode_jpeg``
     bit-equal to PIL's decode of it (the committed PNG beside it, read by
     the port's PNG decoder: this host has no PIL); the decode seconds of
-    the 512^2 and the 4032x3024 4:2:0 files (best of 3)."""
+    the 512^2 and the 4032x3024 4:2:0 files (best of 2)."""
     from blobctrl_torch.utils import image, jpeg, png
     log(f"  host CPU: {host_cpu()}")
     names = sorted(n[:-4] for n in os.listdir(JPEG_FIXTURES)
@@ -908,12 +924,12 @@ def jpeg_phase():
         with open(path, "rb") as f:
             data = f.read()
         best = float("inf")
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             img = jpeg.decode_jpeg(data)
             best = min(best, time.perf_counter() - t0)
         log(f"  decode {os.path.basename(path)} ({len(data)} bytes, "
-            f"{img.shape[1]}x{img.shape[0]}): {best:.3f} s (best of 3)")
+            f"{img.shape[1]}x{img.shape[0]}): {best:.3f} s (best of 2)")
         if not np.isfinite(img.astype(np.float32)).all() or img.ndim != 3:
             raise AssertionError(f"{path}: bad decode {img.shape}")
     if len(names) < 7:
@@ -1047,7 +1063,7 @@ def mode_context(mode):
 
 
 GATE_STEPS = 20   # the gate's edits, as tests/test_toy_quality_gate_256.py
-TOY_CPU_STEPS = 10  # the edits held against the CPU, the phase's cost
+TOY_CPU_STEPS = 3  # the edits held against the CPU, the phase's cost
 # the gate's lossy modes: (name, extra kwargs, the switches around the edit)
 GATE_MODES = (("encoder cache", dict(encoder_cache_interval=3,
                                      encoder_cache_warmup=5), "exact"),
@@ -1178,7 +1194,8 @@ def toy_phase():
                                                 seed=5)),
                         ("dpm_sde_karras", dict(scheduler="dpm_sde_karras",
                                                 seed=6)),
-                        ("encoder cache 3", dict(encoder_cache_interval=3))):
+                        ("encoder cache 3", dict(encoder_cache_interval=3,
+                                                 encoder_cache_warmup=2))):
         kw = dict(edits["move"], **extra)
         ops.reset_counts()
         got = card(**kw).images
@@ -1545,7 +1562,7 @@ def view_parts(sess, reps: int = 20):
 SAM_SEED = 11
 SAM_CLICKS = ((240, 250, 1), (280, 270, 1))
 SAM_CUT_LAYERS = 8       # the card-against-CPU check's depth (global at 7)
-SAFETY_STEPS = 20
+SAFETY_STEPS = 6
 
 
 def _tree_to(tree, device):
@@ -1983,26 +2000,24 @@ def checkpoint_requests(size: int):
     drew before its draws ran on the card."""
     from blobctrl_torch.schedulers import common
     base = text_edit_kwargs(size, STEPS)
-    first = dict(base, scheduler="dpm_karras", num_inference_steps=25)
-    sde = dict(base, scheduler="dpm_sde_karras", num_inference_steps=25,
-               seed=11)
-    trailing = [int(t) for t in common.make_timesteps(20,
+    first = dict(base, scheduler="dpm_karras")
+    sde = dict(base, scheduler="dpm_sde_karras", seed=11)
+    trailing = [int(t) for t in common.make_timesteps(STEPS,
                                                       spacing="trailing")]
     # the repeat comes before the LoRA rescale, which moves the UNet's
     # weights by a bf16 rounding
-    return [("dpm_karras, 25 steps", first),
+    return [(f"dpm_karras, {STEPS} steps", first),
             ("dpm_karras repeat (conditioning memo)", dict(first)),
-            ("dpm_sde_karras, 25 steps, seed 11", sde),
+            (f"dpm_sde_karras, {STEPS} steps, seed 11", sde),
             (HOST_DRAWS, dict(sde)),
-            ("ddim, eta 0.5, 50 steps", dict(base, scheduler="ddim", eta=0.5,
-                                             seed=12)),
-            ("unipc, 20 trailing timesteps", dict(base, timesteps=trailing)),
-            ("unipc 20 steps, LoRA scale 0.5", dict(
-                base, num_inference_steps=20,
-                cross_attention_kwargs={"scale": 0.5})),
-            ("unipc 20 steps, LoRA scale back to 1.0", dict(
-                base, num_inference_steps=20,
-                cross_attention_kwargs={"scale": 1.0})),
+            (f"ddim, eta 0.5, {STEPS} steps", dict(
+                base, scheduler="ddim", eta=0.5, seed=12)),
+            (f"unipc, {STEPS} trailing timesteps", dict(
+                base, timesteps=trailing)),
+            ("unipc, LoRA scale 0.5", dict(
+                base, cross_attention_kwargs={"scale": 0.5})),
+            ("unipc, LoRA scale back to 1.0", dict(
+                base, cross_attention_kwargs={"scale": 1.0})),
             ("unipc, encoder cache interval 3", dict(
                 base, encoder_cache_interval=3)),
             ("unipc, guidance interval (0.0, 0.6)", dict(
@@ -2334,7 +2349,9 @@ def checkpoint_phase(root: str, card: str, device="cuda", size: int = 512):
                                      f"{rec['tc']}")
             if rec["encodes"] != (1 if not records[:-1] else 0):
                 raise AssertionError(f"{label}: {rec['encodes']} VAE encodes")
-            if fired and ([i for i, _, _ in fired] != [0, 10, 20, 30, 40, 49]
+            last = kw["num_inference_steps"] - 1
+            if fired and ([i for i, _, _ in fired] != [
+                    i for i in range(last + 1) if i % 10 == 0 or i == last]
                           or fired[0][2] != want_shape):
                 raise AssertionError(f"{label}: callbacks {fired}")
             if label.endswith("LoRA scale 0.5"):
@@ -2370,8 +2387,8 @@ SERVE_PROMPTS = ("a red ball on a table", "a blue cup on a desk",
 SERVE_SHARED = dict(guidance_scale=7.5, blobnet_conditioning_scale=1.6,
                     blobnet_control_guidance_end=0.9)
 BATCH_SIZES = (1, 2, 4)
-TRACE_STEPS = 20
-CHECK_STEPS = 20   # 7.4's server requests and 7.6's int8 edits (7.1: STEPS)
+TRACE_STEPS = 10
+CHECK_STEPS = 6    # 7.4's server requests and 7.6's int8 edits (7.1: STEPS)
 # the traced edit's kernels by kind: (kind, regex on the kernel's name; None:
 # the hand-written kernels), first match wins
 TRACE_KINDS = (("hand-written", None),
@@ -2747,7 +2764,7 @@ def decode_repair(pipe, base, service, size, steps):
 # after phase 7: the checkpoint-day dry run on phase 6's models root
 # ---------------------------------------------------------------------------
 
-CKPT_DAY_STEPS = 10
+CKPT_DAY_STEPS = 6
 DEMO_STATES = ["move_tracked", "remove_tracked"]  # written by phase 5
 
 
@@ -2964,12 +2981,14 @@ TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32)
 TRAIN_SIZE = 512         # 8a's and 8c's image side
 TRAIN_LATENT = (TRAIN_SIZE // 8, TRAIN_SIZE // 8, 4)
-TRAIN_STEPS = 4          # 8c's steps at each batch size
+TRAIN_STEPS = 3          # 8c's steps at each batch size
 TRAIN_BATCHES = (1, 2)   # 8c's batch sizes (8a records the shapes of both)
 TRAIN_LORA_RANK = 16
 TOY_TRAIN_BATCH = 4      # 8b's toy batch
+TOY_TRAIN_STEPS = 2      # 8b's AdamW steps a side
 CLI_SCENES = 4           # 8d's data set
-CLI_EDIT_STEPS = 20
+CLI_EDIT_STEPS = 10
+CLI_STEPS = (2, 3)       # 8d: steps with a checkpoint, then --resume to
 
 
 def train_batch(step, b: int, seed: int = 0):
@@ -3147,13 +3166,13 @@ def toy_training_phase(card_device="cuda", batch: int = TOY_TRAIN_BATCH):
     for pipe in (card, cpu):
         state, step = state_and_step(pipe, torch.float32)
         trail.append([])
-        for i in range(3):
+        for i in range(TOY_TRAIN_STEPS):
             tt, nn_ = ts.draw_t_noise(threefry.key(20 + i),
                                       batch, latent, device=pipe.device)
             state, m = step(state, None, data, tt, nn_)
             trail[-1].append(float(m["loss"]))
         del state
-    log(f"  toy 256^2 fp32, three AdamW steps: losses card "
+    log(f"  toy 256^2 fp32, {TOY_TRAIN_STEPS} AdamW steps: losses card "
         f"{[f'{x:.6f}' for x in trail[0]]}, cpu "
         f"{[f'{x:.6f}' for x in trail[1]]}")
     if not np.isfinite(trail).all():
@@ -3381,11 +3400,70 @@ def reload_export(models_root: str, export_dir: str, params, copy: str,
     return pipe
 
 
+def rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+@contextlib.contextmanager
+def peak_rss(out: list):
+    """Samples this process's resident memory every 5 ms while the block
+    runs; appends the peak rise above its start (bytes) to ``out``."""
+    start, peak, done = rss_bytes(), [0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], rss_bytes())
+            done.wait(0.005)
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        done.set()
+        t.join()
+        out.append(max(peak[0], rss_bytes()) - start)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, n))
+               for d, _, names in os.walk(path) for n in names)
+
+
+@contextlib.contextmanager
+def timed_checkpoints(out: list):
+    """``train.checkpoint.save`` / ``restore`` timed while the block runs
+    (device synchronized around each): appends (kind, seconds, bytes on
+    disk, the read's peak host memory rise or None) to ``out``."""
+    from blobctrl_torch.train import checkpoint as ckpt_lib
+    real = ckpt_lib.save, ckpt_lib.restore
+
+    def save(*a, **k):
+        path, secs = timed(lambda: real[0](*a, **k))
+        out.append(("write", secs, _dir_bytes(path), None))
+        return path
+
+    def restore(ckpt_dir, step=None, device="cuda"):
+        peak = []
+        with peak_rss(peak):
+            state, secs = timed(lambda: real[1](ckpt_dir, step, device))
+        s = ckpt_lib.latest_step(ckpt_dir) if step is None else step
+        out.append(("read", secs, _dir_bytes(os.path.join(
+            ckpt_dir, f"step_{s:08d}")), peak[0]))
+        return state
+    ckpt_lib.save, ckpt_lib.restore = save, restore
+    try:
+        yield
+    finally:
+        ckpt_lib.save, ckpt_lib.restore = real
+
+
 def cli_training_phase(models_root: str, work: str, device="cuda",
                        size: int = 512, edit_steps: int = CLI_EDIT_STEPS):
     """8d: ``python -m blobctrl_torch.apps.train_cli`` (its ``main``) on the
-    models root at ``size``: 2 per batch, 4 steps with a checkpoint every
-    2 and the export, then ``--resume`` to 6 (it must start at step 4);
+    models root at ``size``: 2 per batch, CLI_STEPS[0] steps with a
+    checkpoint at the last and the export, then ``--resume`` to
+    CLI_STEPS[1] (it must start at CLI_STEPS[0]);
     the export put into a copy of the root (links to the rest) and loaded
     with ``load_pipeline(dtype=bf16)``: every BlobNet leaf and the LoRA
     bit-equal to the trained state as the loader casts them, each UNet
@@ -3400,39 +3478,54 @@ def cli_training_phase(models_root: str, work: str, device="cuda",
     write_scenes(data_root, size)
     events = EventLog()
     logging.getLogger("blobctrl_torch").addHandler(events)
+    first_n, last_n = CLI_STEPS
     argv = ["--models_root", models_root, "--data_root", data_root,
-            "--size", str(size), "--batch_size", "2", "--ckpt_every", "2",
+            "--size", str(size), "--batch_size", "2", "--ckpt_every",
+            str(first_n),
             "--log_every", "1", "--ckpt_dir", ckpt_dir, "--export_dir",
             export_dir, "--device", str(device)]
+    io_log = []
     try:
-        state, secs = timed(lambda: train_cli.main(argv + ["--steps", "4"]))
+        with timed_checkpoints(io_log):
+            state, secs = timed(lambda: train_cli.main(
+                argv + ["--steps", str(first_n)]))
         first = list(events.events)
         del state
-        # keep the checkpoint the resume reads; drop the earlier one
         steps = sorted(os.listdir(ckpt_dir))
-        if steps != ["step_00000002", "step_00000004"]:
+        if steps != [f"step_{first_n:08d}"]:
             raise AssertionError(f"checkpoints {steps}")
-        shutil.rmtree(os.path.join(ckpt_dir, steps[0]))
+        with open(os.path.join(ckpt_dir, steps[0], "_METADATA")) as f:
+            if not json.load(f).get("use_ocdbt"):
+                raise AssertionError("8d: the checkpoint is not in the JAX "
+                                     "package's layout")
         events.events.clear()
-        state, secs2 = timed(lambda: train_cli.main(
-            argv + ["--steps", "6", "--resume"]))
+        with timed_checkpoints(io_log):
+            state, secs2 = timed(lambda: train_cli.main(
+                argv + ["--steps", str(last_n), "--resume"]))
         second = list(events.events)
     finally:
         logging.getLogger("blobctrl_torch").removeHandler(events)
+    for kind, secs_io, nbytes, peak in io_log:
+        log(f"  checkpoint {kind} (the JAX package's layout: OCDBT, zarr): "
+            f"{secs_io:.2f} s, {nbytes / 1e9:.3f} GB"
+            + ("" if peak is None else
+               f", peak host memory rise {peak / 2 ** 30:.2f} GiB"))
     trained = [e for e in first if e.get("event") == "train"]
     resumed = [e for e in second if e.get("event") == "resumed"]
     later = [e for e in second if e.get("event") == "train"]
-    log(f"  train_cli, 4 steps at B = 2 from {CLI_SCENES} scenes: "
-        f"{secs:.2f} s (load, data, steps, checkpoints at 2 and 4, export); "
+    log(f"  train_cli, {first_n} steps at B = 2 from {CLI_SCENES} scenes: "
+        f"{secs:.2f} s (load, data, steps, a checkpoint at {first_n}, "
+        f"export); "
         + ", ".join(f"step {e['step']} loss {e['loss']} "
                     f"{e['sec_per_step']} s" for e in trained))
-    log(f"  --resume --steps 6: {secs2:.2f} s; resumed at "
+    log(f"  --resume --steps {last_n}: {secs2:.2f} s; resumed at "
         f"{[e['step'] for e in resumed]}; " + ", ".join(
             f"step {e['step']} loss {e['loss']} {e['sec_per_step']} s"
             for e in later))
-    if [e["step"] for e in trained] != [1, 2, 3, 4] or [
-            e["step"] for e in resumed] != [4] or [
-            e["step"] for e in later] != [5, 6] or state["step"] != 6 \
+    if [e["step"] for e in trained] != list(range(1, first_n + 1)) or [
+            e["step"] for e in resumed] != [first_n] or [
+            e["step"] for e in later] != list(
+                range(first_n + 1, last_n + 1)) or state["step"] != last_n \
             or not all(np.isfinite(e["loss"]) for e in trained + later):
         raise AssertionError(f"train_cli: {first} / {second}")
     shutil.rmtree(ckpt_dir)
@@ -3449,6 +3542,221 @@ def cli_training_phase(models_root: str, work: str, device="cuda",
         f"memory {mem:.2f} GiB")
     if min(launches[k] for k in EXACT) == 0:
         raise AssertionError(f"edit from the export: launches {launches}")
+
+
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "orbax")
+DECODE_BYTES = 256 * 2 ** 20   # 8e: the weights frame decoded to this much
+DECODE_THREADS = 8             # as train/checkpoint.READ_THREADS
+JAX_STATE_BYTES = 10.18e9      # 8c's state (params, mu, nu) in JAX's layout
+
+
+@contextlib.contextmanager
+def fp32_cli(rec: dict):
+    """The training CLI in fp32 (pipeline and compute), TF32 off; each
+    step's loss and applied gradients recorded in ``rec``."""
+    import functools
+    from blobctrl_torch.params import io
+    from blobctrl_torch.train import train_step as ts
+    real = (ts.TrainConfig, ts.make_train_step, ts.apply_optimizer,
+            io.load_pipeline, torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    rec.update(loss=[], grads=[])
+
+    def make(*a, **k):
+        step = real[1](*a, **k)
+
+        def run(*args):
+            state, m = step(*args)
+            rec["loss"].append(float(m["loss"]))
+            return state, m
+        return run
+
+    def apply(cfg, trainable, opt_state, grads):
+        rec["grads"].append([g.detach().cpu().numpy().copy() for g in grads])
+        return real[2](cfg, trainable, opt_state, grads)
+    ts.TrainConfig = functools.partial(real[0], compute_dtype=torch.float32)
+    ts.make_train_step, ts.apply_optimizer = make, apply
+    io.load_pipeline = lambda *a, **k: real[3](*a, **dict(
+        k, dtype=torch.float32))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield rec
+    finally:
+        (ts.TrainConfig, ts.make_train_step, ts.apply_optimizer,
+         io.load_pipeline, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = real
+
+
+def leaf_record(tree) -> dict:
+    """{dotted name: [dtype, shape, sha256[:16] of its bytes, float64 sum,
+    first 2 elements]} of a tree's tensors, as
+    ``scripts/torch_orbax_fixtures.py`` records JAX's."""
+    import hashlib
+    from blobctrl_torch.train import checkpoint as ckpt_lib
+    out = {}
+    for keys, t in ckpt_lib._tree_leaves(tree, ()):
+        if t is None:
+            continue
+        t = t.cpu()
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+               ).numpy()
+        vals = t.float().numpy() if t.dtype == torch.bfloat16 else raw
+        out[".".join(k for k, _ in keys)] = [
+            str(t.dtype).removeprefix("torch."), list(raw.shape),
+            hashlib.sha256(raw.tobytes()).hexdigest()[:16],
+            float(vals.astype(np.float64).sum()),
+            vals.reshape(-1)[:2].tolist()]
+    return out
+
+
+def fixture_frames(step_dir: str):
+    """Every zstd frame of an orbax step directory: its chunks' values and
+    the bodies of its manifests and root b-tree nodes (each file range is
+    a 14-byte header, the body, a 4-byte CRC)."""
+    from blobctrl_torch.params import ocdbt
+    magic = (0xFD2FB528).to_bytes(4, "little")
+    frames = []
+    for root in (step_dir, os.path.join(step_dir, "ocdbt.process_0")):
+        with ocdbt.Store(root) as store:
+            with open(os.path.join(root, "manifest.ocdbt"), "rb") as f:
+                ranges = [f.read()]
+            ranges += [store.read(v["root"].path, v["root"].offset,
+                                  v["root"].length)
+                       for v in store.versions if v["num_keys"]]
+            frames += [r[14:-4] for r in ranges if r[13] == 1]
+            if root == step_dir:
+                frames += [v for v in map(store.get, store.keys())
+                           if v[:4] == magic]
+    return frames
+
+
+def decoder_rates(frame: bytes, size: int):
+    """MB/s of the compiled decoder on ``frame`` (``size`` bytes out):
+    one thread decoding it again and again to DECODE_BYTES, then
+    DECODE_THREADS threads at once, each to DECODE_BYTES / threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    from blobctrl_torch.params import ocdbt
+    reps = -(-DECODE_BYTES // size)
+
+    def run(n):
+        buf = np.empty(size, np.uint8)
+        for _ in range(n):
+            ocdbt.zstd_decompress(frame, out=buf)
+    t0 = time.perf_counter()
+    run(reps)
+    one = reps * size / (time.perf_counter() - t0) / 1e6
+    each = -(-reps // DECODE_THREADS)
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(run, [each] * DECODE_THREADS))
+        many = each * DECODE_THREADS * size / (time.perf_counter() - t0) / 1e6
+    return reps * size, one, many
+
+
+def orbax_fixture_phase(work: str, device="cuda"):
+    """8e: the committed JAX-written checkpoint (``tests/data/orbax``,
+    ``scripts/torch_orbax_fixtures.py``). Part one: its tree read on the
+    card and on the CPU, every leaf bit-equal between them and to the
+    digests, sums and first elements JAX recorded; the training CLI
+    resumes it on the card and on the CPU (fp32, TF32 off) for 2 steps
+    on the roots ``benchkit.write_tiny_training_roots`` rebuilds: losses
+    within 1e-5 relative and each step's gradients within 1e-3 of each
+    leaf's max |CPU gradient| (8b's bars), the final states within the
+    step bound, and both runs' losses within 1e-5 of JAX's. Part two: the
+    compiled decoder bit-equal to the plain one on every frame of the
+    fixture, and its MB/s on the committed weights frame, with the read
+    time of 8c's state in JAX's layout projected from it."""
+    from blobctrl_torch.apps import train_cli
+    from blobctrl_torch.params import ocdbt
+    from blobctrl_torch.train import checkpoint as ckpt_lib
+    from blobctrl_torch.train import train_step as ts
+    from blobctrl_torch.utils import benchkit, zstd
+    t_phase = time.perf_counter()
+    step_dir = os.path.join(ORBAX_FIXTURE, "step_00000002")
+    with open(os.path.join(ORBAX_FIXTURE, "jax_run.json")) as f:
+        record = json.load(f)
+    (card, secs), cpu = timed(lambda: ckpt_lib.read_tree(
+        step_dir, device=device)), ckpt_lib.read_tree(step_dir, "cpu")
+    got, host = leaf_record(card), leaf_record(cpu)
+    bad = sorted(k for k in record["leaves"]
+                 if got.get(k) != record["leaves"][k] or host.get(k) !=
+                 record["leaves"][k])
+    log(f"  the fixture's {len(got)} leaves read on {device} in {secs:.2f} "
+        f"s: {len(bad)} differ from the CPU read or from JAX's record")
+    if bad or set(got) != set(record["leaves"]):
+        raise AssertionError(f"8e: leaves {bad[:5]}")
+    models, data = (os.path.join(work, "orbax_models"),
+                    os.path.join(work, "orbax_data"))
+    benchkit.write_tiny_training_roots(models, data)
+    runs = {}
+    for dev in (device, "cpu"):
+        ckpts = os.path.join(work, f"orbax_ckpts_{torch.device(dev).type}")
+        shutil.copytree(ORBAX_FIXTURE, ckpts, ignore=shutil.ignore_patterns(
+            "*.json", "*.zst"))
+        argv = [a.replace("MODELS", models).replace("DATA", data)
+                .replace("CKPTS", ckpts) for a in record["argv"]]
+        rec = {}
+        with fp32_cli(rec):
+            state, secs = timed(lambda: train_cli.main(
+                argv + ["--device", str(dev)]))
+        runs[dev] = (rec, ts.tree_map(lambda t: t.cpu() if torch.is_tensor(
+            t) else t, state), secs)
+        shutil.rmtree(ckpts)
+    (card_rec, card_state, card_s), (cpu_rec, cpu_state, cpu_s) = \
+        runs[device], runs["cpu"]
+    want = [record["losses"]["3"], record["losses"]["4"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_rec["loss"],
+                                               cpu_rec["loss"])]
+    rel_jax = [abs(a - b) / abs(b) for r in (card_rec, cpu_rec)
+               for a, b in zip(r["loss"], want)]
+    grad = max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+               for gs, ws in zip(card_rec["grads"], cpu_rec["grads"])
+               for g, w in zip(gs, ws))
+    lr, wd = 1e-3, ts.TrainConfig().weight_decay
+    far = total = 0
+    worst = 0.0
+    for g, w in zip(ts.tree_leaves(card_state["params"]),
+                    ts.tree_leaves(cpu_state["params"])):
+        err = (g - w).abs()
+        worst = max(worst, float(err.max() / (4 * (1 + wd * w.abs().max())
+                                              * lr)))
+        far += int((err > 1e-3 * lr).sum())
+        total += err.numel()
+    log(f"  the CLI resumed the fixture to step 4: {device} {card_s:.2f} s,"
+        f" cpu {cpu_s:.2f} s; losses {card_rec['loss']} / {cpu_rec['loss']}"
+        f" (rel {max(rel):.2e}, tol 1e-05), JAX's {want} (rel "
+        f"{max(rel_jax):.2e}, tol 1e-05); gradients {grad:.2e} of each "
+        f"leaf's max (tol 1e-03); final state {worst:.3f} of the step "
+        f"bound, {far} of {total} elements past 1e-3 lr")
+    if len(card_rec["loss"]) != 2 or max(rel) > 1e-5 or max(rel_jax) > 1e-5 \
+            or grad > 1e-3 or worst > 1 or far > 1e-3 * total \
+            or card_state["step"] != 4:
+        raise AssertionError("8e: the resumed fixture on the card")
+    # part two: the decoder
+    frames = fixture_frames(step_dir)
+    with open(os.path.join(ORBAX_FIXTURE, "weights_l1.zst"), "rb") as f:
+        weights = f.read()
+    frames.append(weights)
+    t0 = time.perf_counter()
+    differ = sum(zstd.decompress(f) != ocdbt.zstd_decompress(f).tobytes()
+                 for f in frames)
+    log(f"  compiled against plain zstd decoder on the fixture's "
+        f"{len(frames)} frames: {differ} differ "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if differ:
+        raise AssertionError("8e: the compiled zstd decoder differs")
+    size = 4 * record["weights"]["elements"]
+    total_b, one, many = decoder_rates(weights, size)
+    log(f"  compiled decoder on the {len(weights)}-byte level-1 weights "
+        f"frame ({size} bytes out), {total_b / 1e6:.0f} MB decoded: "
+        f"{one:.1f} MB/s on one host thread, {many:.1f} MB/s on "
+        f"{DECODE_THREADS}; projected read of 8c's {JAX_STATE_BYTES / 1e9:.2f}"
+        f" GB state written by JAX (level 1): "
+        f"{JAX_STATE_BYTES / (many * 1e6):.1f} s decoding on "
+        f"{DECODE_THREADS} threads ({JAX_STATE_BYTES / (one * 1e6):.1f} s "
+        f"on one)")
+    log(f"  8e took {time.perf_counter() - t_phase:.1f} s")
 
 
 def training_phase(models_root: str, work: str):
@@ -3483,8 +3791,10 @@ def training_phase(models_root: str, work: str):
     log("  8d: the training CLI on phase 6's models root")
     t0 = time.perf_counter()
     cli_training_phase(models_root, work)
-    log(f"  8d took {time.perf_counter() - t0:.1f} s; phase 8 "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"  8d took {time.perf_counter() - t0:.1f} s")
+    log("  8e: the committed checkpoint of the JAX package's training CLI")
+    orbax_fixture_phase(work)
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
     return errs, totals
 
 
@@ -3492,8 +3802,8 @@ def training_phase(models_root: str, work: str):
 # phase 9: the edit sharded over ranks that share the one card
 # ---------------------------------------------------------------------------
 
-PARALLEL_TOY_STEPS = 20   # 9a's toy edits
-PARALLEL_FULL_STEPS = 4   # 9b's full-width edits
+PARALLEL_TOY_STEPS = 10   # 9a's toy edits
+PARALLEL_FULL_STEPS = 2   # 9b's full-width edits
 PARALLEL_BATCH = 4        # 9a's edit_batch rows
 PARALLEL_TIMEOUT_S = 600.0  # the ranks' collective timeout and our wait
 PARALLEL_BAR_DB = 40.0
@@ -3859,7 +4169,7 @@ DP_TOY_BATCH = 4          # 10a's global batch (2 rows a rank)
 DP_STEPS = 2              # 10a's and 10b's steps
 DP_FULL_BATCH = 2         # 10b's global batch (1 row a rank)
 DP_CLI_BATCH = 2          # 10c's --batch_size, the global batch
-DP_CLI_STEPS = (2, 3)     # 10c: steps with a checkpoint, then --resume to
+DP_CLI_STEPS = (1, 2)     # 10c: steps with a checkpoint, then --resume to
 DP_CLI_CKPT_EVERY = 1     # 10c: a checkpoint before the last step too
 DP_SEED = 8
 DP_FULL_GRAD_BYTES = 3_392_833_024   # 4 bytes of each of 8c's trainables

@@ -160,14 +160,16 @@ def test_pipeline_rejects_what_is_not_ported():
 
 
 FORBIDDEN = ("cv2", "PIL", "regex", "ftfy", "jax", "flax", "safetensors",
-             "transformers", "optax", "orbax")
+             "transformers", "optax", "orbax", "zstandard", "tensorstore",
+             "numcodecs")
 
 
 @pytest.mark.parametrize("path", [str(p.relative_to(ROOT)) for p in SOURCES]
                          + ["chip_smoke.py"])
 def test_sources_import_no_host_image_or_text_library(path):
     """The card's machine has no cv2, PIL, regex, ftfy, safetensors,
-    transformers, optax or orbax: no source of the port (training's modules
+    transformers, optax, orbax, zstandard, tensorstore or numcodecs: no
+    source of the port (training's modules and the checkpoint reader
     among them) imports them, at the top or inside a function."""
     text = (ROOT / path).read_text()
     pat = r"^\s*(import|from)\s+(" + "|".join(FORBIDDEN) + r")\b"

@@ -5,6 +5,9 @@ JPEG images and RGB masks of another size; 2 steps with a checkpoint, a
 resume to 4 (starting at step 2) and the export, which reloads through
 the port's loaders bit-equal to the final state; the adapter and each
 step's t and noise, JAX's draws for PRNGKey(0) and PRNGKey(step);
+checkpoints in JAX's format both ways: a JAX run continued by the port and
+a port run continued by JAX, each against JAX's run resumed to 4, and a
+resumed state refused before any step where it misfits the flags;
 data-parallel training
 on 2 gloo ranks: ``--data_parallel 2``, where --batch_size is the global
 batch (its checkpoints, resume, export and collective count, its rows
@@ -18,6 +21,7 @@ import itertools
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -38,6 +42,7 @@ from blobctrl_torch.train import data as tdata
 from blobctrl_torch.train import train_step as tts
 from blobctrl_torch.utils import benchkit, png
 from tests import torch_ranks
+from tests.jax_train_cli import cli_argv, run_jax_cli
 from tests.test_torch_loaders import lora_tree, tiny_trees
 
 torch.set_num_threads(2)
@@ -307,6 +312,135 @@ def _states_agree(got, want, steps):
         far += int((err > 1e-3 * lr).sum())
         total += err.numel()
     assert far <= 1e-3 * total, (far, total)
+
+
+@pytest.fixture(scope="module")
+def tiny_roots(tmp_path_factory):
+    """``benchkit.write_tiny_training_roots``: the models root and data of
+    the committed fixture, whose nets JAX compiles faster than the toy
+    geometry's. -> (models root, data root)."""
+    work = tmp_path_factory.mktemp("tiny_roots")
+    roots = str(work / "models"), str(work / "data")
+    benchkit.write_tiny_training_roots(*roots)
+    return roots
+
+
+@pytest.fixture(scope="module")
+def jax_run(tiny_roots, tmp_path_factory):
+    """JAX's training CLI, fp32 (``tests/jax_train_cli.py``): 2 steps with
+    a checkpoint, then that directory resumed to 4 in a copy. -> (the
+    step-2 directory's parent, JAX's losses at steps 3 and 4, its state at
+    step 4 as the port reads it). About 50 s of JAX compiles."""
+    models_root, data_root = tiny_roots
+    work = tmp_path_factory.mktemp("jax_run")
+    first = str(work / "two")
+    run_jax_cli(cli_argv(models_root, data_root, first, 2))
+    ref = str(work / "ref")
+    shutil.copytree(first, ref)
+    losses = run_jax_cli(cli_argv(models_root, data_root, ref, 4,
+                                  "--resume"))
+    assert tckpt.latest_step(ref) == 4 and len(losses) == 2
+    return first, losses, tckpt.restore(ref, device="cpu")
+
+
+def _losses_agree(got, want):
+    """test_torch_train_step.py's bar on a step's loss: 1e-5 relative."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-5 * abs(w), (got, want)
+
+
+def test_the_port_continues_a_jax_run(tiny_roots, jax_run, tmp_path,
+                                      caplog):
+    """JAX's CLI trains 2 steps and saves (orbax); the port's
+    ``train_cli --resume --steps 4`` continues it from step 2: its losses
+    at steps 3 and 4 and its final state JAX's run resumed to 4, at
+    test_torch_train_step.py's multi-step bars; its step-4 checkpoint is
+    JAX's format."""
+    (models_root, data_root), (first, want_losses, want_state) = \
+        tiny_roots, jax_run
+    ckpts = str(tmp_path / "ckpts")
+    shutil.copytree(first, ckpts)
+    caplog.set_level(logging.INFO, logger="blobctrl_torch")
+    with torch_ranks.fp32_train_steps() as rec:
+        state = tcli.main(cli_argv(models_root, data_root, ckpts, 4,
+                                   "--resume", "--device", "cpu"))
+    assert _events(caplog, "resumed") == [{"event": "resumed", "step": 2}]
+    assert [e["step"] for e in _events(caplog, "train")] == [3, 4]
+    _losses_agree(rec["loss"], want_losses)
+    _states_agree(state, want_state, 4)
+    assert os.path.exists(os.path.join(ckpts, "step_00000004",
+                                       tckpt.METADATA))
+
+
+def test_jax_continues_a_port_run(tiny_roots, jax_run, tmp_path):
+    """The port's CLI trains 2 steps and saves; JAX's CLI resumes it to 4:
+    its losses at steps 3 and 4 and its final state those of JAX's own run
+    resumed to 4, at the same bars. (Before the port's loader gave its
+    trees key-sorted, as JAX's does, a models root whose files are not in
+    key order, as this one, gave another adapter than JAX's: the step-4
+    state missed the bar by 0.83 in a LoRA A.)"""
+    (models_root, data_root), (_, want_losses, want_state) = \
+        tiny_roots, jax_run
+    ckpts = str(tmp_path / "ckpts")
+    with torch_ranks.fp32_train_steps():
+        tcli.main(cli_argv(models_root, data_root, ckpts, 2, "--device",
+                           "cpu"))
+    losses = run_jax_cli(cli_argv(models_root, data_root, ckpts, 4,
+                                  "--resume"))
+    _losses_agree(losses, want_losses)
+    _states_agree(tckpt.restore(ckpts, device="cpu"), want_state, 4)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--full_finetune"], "--full_finetune"),
+    (["--ema_decay", "0.9"], "--ema_decay"),
+    (["--lora_rank", "8"], "--lora_rank"),
+    (["--lr_warmup_steps", "2"], "--lr_warmup_steps"),
+    (["--lr_schedule", "cosine"], "--lr_schedule"),
+    ([], "params.blobnet.conv_in.kernel"),
+])
+def test_a_resumed_state_that_misfits_the_flags_is_refused(
+        tiny_roots, jax_run, tmp_path, caplog, flags, match):
+    """JAX's step-2 checkpoint (a constant rate) resumed under another
+    --full_finetune, --ema_decay, --lora_rank or a learning-rate schedule
+    (which JAX's restore refuses, and whose next save JAX could not
+    read), or with a BlobNet leaf of another shape than the models
+    root's: refused by name before any step."""
+    ckpts = str(tmp_path / "ckpts")
+    shutil.copytree(jax_run[0], ckpts)
+    if not flags:   # a BlobNet whose conv_in is not the models root's
+        state = tckpt.restore(ckpts, device="cpu")
+        for tree in (state["params"], state["opt_state"]["mu"],
+                     state["opt_state"]["nu"]):
+            conv = tree["blobnet"]["conv_in"]
+            conv["kernel"] = conv["kernel"][:, :, :-1].contiguous()
+        tckpt.save(ckpts, state, tts.TrainConfig())
+    caplog.set_level(logging.INFO, logger="blobctrl_torch")
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(cli_argv(*tiny_roots, ckpts, 4, "--resume",
+                           "--device", "cpu", *flags))
+    assert not _events(caplog, "train")
+
+
+def test_a_misfit_rank_0_refuses_is_refused_on_every_rank(
+        tiny_roots, jax_run, tmp_path, monkeypatch):
+    """The spawned form's rank 0 resumes JAX's step-2 checkpoint (a
+    constant rate) under --lr_warmup_steps: a misfit that leaves the
+    state's layout as the other rank's fresh one, so rank 0's verdict
+    travels with the layouts and both ranks stop before any step."""
+    ckpts = str(tmp_path / "ckpts")
+    shutil.copytree(jax_run[0], ckpts)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the spawned rank's
+    with pytest.raises(SystemExit) as e:
+        tcli.main(cli_argv(*tiny_roots, ckpts, 4, "--resume", "--device",
+                           "cpu", "--lr_warmup_steps", "2",
+                           "--data_parallel", "2"))
+    msg = str(e.value)
+    assert msg.startswith("data-parallel training failed: rank 0: --resume")
+    assert "--lr_warmup_steps 2 make a schedule" in msg, msg
+    assert msg.endswith("ranks 1-1: exit codes [1]"), msg
+    assert tckpt.latest_step(ckpts) == 2
 
 
 DP_STEPS = 3   # two epochs of the 4 scenes at a global batch of 2

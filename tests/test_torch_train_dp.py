@@ -217,3 +217,14 @@ def test_a_state_of_another_layout_is_refused_on_every_rank():
     (e0, c0), (e1, c1) = res
     assert e0 is not None and e0 == e1 and "layout differs" in e0
     assert c0 == c1 == {"pipeline": {"all_gather": 1}}
+
+
+def test_a_state_rank_0_refused_is_refused_on_every_rank():
+    """Both ranks' states have one layout, but rank 0 refused its (a
+    resumed checkpoint whose learning-rate schedule misfits the flags):
+    both ranks raise after the one gather, before any broadcast."""
+    res = torch_ranks.run_ranks(torch_ranks.mismatched_state_rank, 2,
+                                True, timeout=60)
+    (e0, c0), (e1, c1) = res
+    assert e0 is not None and e0 == e1 and "rank 0 refused" in e0
+    assert c0 == c1 == {"pipeline": {"all_gather": 1}}

@@ -279,7 +279,7 @@ def train_dp_rank(trees, batches, draws, runs, ckpt_dir):
                 else t, state))
         collectives.reset()
         if rank == 0:
-            checkpoint.save(ckpt_dir, state)
+            checkpoint.save(ckpt_dir, state, cfg)
         multihost.barrier("checkpoint")
         rec["ckpt"] = collectives.sizes()
         t, noise = ts.draw_t_noise(threefry.key(5), b,
@@ -289,21 +289,24 @@ def train_dp_rank(trees, batches, draws, runs, ckpt_dir):
     return out
 
 
-def mismatched_state_rank():
+def mismatched_state_rank(refused=False):
     """``replicate_state`` on a train state whose layout differs by rank:
     rank 0's carries an EMA shadow, the others' do not (a checkpoint made
-    with EMA resumed without it). -> (the error every rank raised, the
+    with EMA resumed without it); with ``refused``, states of one layout
+    that rank 0 refuses (a checkpoint that misfits the flags in what the
+    layout does not show). -> (the error every rank raised, the
     collective counts)."""
     import torch
     from blobctrl_torch.parallel import collectives, multihost
     from blobctrl_torch.train import train_step as ts
     rank = multihost.process_index()
-    cfg = ts.TrainConfig(ema_decay=0.9 if rank == 0 else 0.0)
+    cfg = ts.TrainConfig(ema_decay=0.9 if rank == 0 and not refused
+                         else 0.0)
     state = ts.init_train_state(cfg, {"w": torch.ones(3, 2)},
                                 {"a": torch.zeros(4)})
     collectives.reset()
     try:
-        ts.replicate_state(state)
+        ts.replicate_state(state, refused=refused and rank == 0)
     except ValueError as e:
         return str(e), collectives.counts()
     return None, collectives.counts()
