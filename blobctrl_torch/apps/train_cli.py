@@ -22,16 +22,20 @@ loader (seed 0) over the whole data set and trains rows
 ``multihost.local_rows(B, N, r)`` of each batch, the rows JAX's
 ``P("data")`` puts on device r. Every rank encodes every example at
 start-up (start-up seconds, not step seconds), held compact.
-On several hosts run the SAME command on every host with
-``--coordinator host:port --num_processes N --process_id i`` (nccl on the
-card, gloo on the CPU; bare ``--device cuda`` puts rank i on ``cuda:i``,
-so a host whose ranks do not start at 0 names its card, ``cuda:K``). As
-in JAX's multi-process form, --batch_size is then per process and each
-process reads its stride of the data set (``images[i::N]``): the global
-batch is --batch_size x N. A port process is one card where a JAX
-process is one host, so the port's global batch counts cards where
-JAX's counts hosts. The spawned form takes bare ``cuda``;
-``--device cuda:K`` alone trains one rank on that card.
+On several hosts run the same command on every host with
+``--coordinator host:port --num_processes H --process_id h``, as in JAX's
+multi-process form: a process is one host, which runs N =
+--data_parallel / H ranks (0: every visible card of the host; 1 on the
+CPU), local rank r on ``cuda:r`` over NCCL (gloo with ``--device cpu``).
+The process is local rank 0, global rank h*N, and spawns the others; all
+H*N ranks meet at the coordinator. --batch_size B is then per host: every
+rank of host h runs the loader (seed 0) over the host's stride of the
+data set (``images[h::H]``) and trains rows ``local_rows(B, N, r)`` of
+its batch, which are rows ``multihost.host_rows(B, N, r, h)`` =
+h*B + local_rows(B, N, r) of the global batch of H*B, where JAX's
+``host_local_batch`` puts them. ``--device cuda:K`` is one rank a host,
+on card K (as several processes on one host each name their card), in
+either form.
 In both forms t and noise are JAX's draws for the global batch, from
 ``PRNGKey(step)`` (``train_step.draw_t_noise``; the LoRA from
 ``PRNGKey(0)``), each rank drawing only its rows, and the gradients are
@@ -93,12 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="data-parallel ranks (0 = every visible card; 1 on "
-                        "the CPU); rank 0 spawns the others")
+                   help="data-parallel ranks over every host (0 = every "
+                        "visible card of every host; 1 a host on the CPU); "
+                        "each host's process spawns its other ranks")
     p.add_argument("--coordinator", default=None,
                    help="host:port of rank 0 for explicit multi-host "
-                        "bring-up (with --num_processes and --process_id); "
-                        "omit for one host")
+                        "bring-up (run the same command on every host, "
+                        "with --num_processes hosts and this host's "
+                        "--process_id); omit for one host")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--export_dir", default=None,
@@ -136,87 +142,110 @@ def load_dataset(data_root: str, size: int):
 
 def ranks(args):
     """-> (world, backend, spawn): the data-parallel ranks the flags ask
-    for, the backend of their group (None for one rank) and whether this
-    process spawns ranks 1.. itself. A card named by index (``cuda:K``)
-    without --coordinator is one rank on that card. Inconsistent flags,
-    and more spawned ranks than visible cards, raise SystemExit before
+    for over every host, the backend of their group (None for one rank)
+    and whether this process spawns its host's other ranks itself. With
+    --coordinator a process is one host of --num_processes, as in JAX,
+    and runs --data_parallel / --num_processes ranks (0: every visible
+    card; 1 on the CPU); without it, the one host. A card named by index
+    (``cuda:K``) is one rank a host, on that card. Inconsistent flags,
+    and more ranks a host than visible cards, raise SystemExit before
     anything loads."""
     explicit = (args.coordinator, args.num_processes, args.process_id)
     cuda = torch.device(args.device).type == "cuda"
     backend = "nccl" if cuda else "gloo"
+    dp = args.data_parallel
+    if dp < 0:
+        raise SystemExit(f"--data_parallel {dp} < 0")
+    hosts = 1
     if any(x is not None for x in explicit):
         if any(x is None for x in explicit):
             raise SystemExit("--coordinator, --num_processes and "
                              "--process_id go together")
-        n, i = args.num_processes, args.process_id
-        if n < 1 or not 0 <= i < n:
+        hosts, i = args.num_processes, args.process_id
+        if hosts < 1 or not 0 <= i < hosts:
             raise SystemExit(f"--process_id {i} is not a rank of "
-                             f"--num_processes {n}")
-        if args.data_parallel not in (0, n):
-            raise SystemExit(f"--data_parallel {args.data_parallel} with "
-                             f"--num_processes {n}: one rank a process, so "
-                             f"the data axis is {n} (or 0)")
-        return n, backend if n > 1 else None, False
-    if args.data_parallel < 0:
-        raise SystemExit(f"--data_parallel {args.data_parallel} < 0")
+                             f"--num_processes {hosts}")
+        if dp % hosts:
+            raise SystemExit(f"--data_parallel {dp} with --num_processes "
+                             f"{hosts}: every host runs as many ranks, so "
+                             f"the data axis is a multiple of {hosts} (or "
+                             f"0: every card of every host)")
     if cuda and torch.device(args.device).index is not None:
-        # one named card trains alone: spawned ranks go on cuda:0..N-1
-        if args.data_parallel > 1:
-            raise SystemExit(f"--data_parallel {args.data_parallel} puts "
-                             f"rank r on cuda:r: name --device cuda, not "
+        # one named card trains alone: a host's ranks go on cuda:0..N-1
+        if dp > hosts:
+            raise SystemExit(f"--data_parallel {dp} puts rank r of a host "
+                             f"on cuda:r: name --device cuda, not "
                              f"{args.device}")
-        return 1, None, False
+        return hosts, backend if hosts > 1 else None, False
     cards = torch.cuda.device_count() if cuda else 1
-    n = args.data_parallel or max(cards, 1)
-    if n > 1 and cuda and n > cards:
-        raise SystemExit(f"--data_parallel {n} needs {n} cards, one a rank; "
-                         f"{cards} are visible (--device cpu runs the ranks "
-                         f"over gloo)")
-    return n, backend if n > 1 else None, n > 1
+    local = dp // hosts or max(cards, 1)
+    if local > 1 and cuda and local > cards:
+        over = "" if hosts == 1 else f" over {hosts} hosts"
+        raise SystemExit(f"--data_parallel {dp}{over} needs {local} cards, "
+                         f"one a rank; {cards} are visible (--device cpu "
+                         f"runs the ranks over gloo)")
+    world = hosts * local
+    return world, backend if world > 1 else None, local > 1
 
 
 def run(args):
-    """Train as ``args`` say. -> the final train state (rank 0's)."""
+    """Train as ``args`` say. -> the final train state (this process's
+    rank's)."""
     world, backend, spawn = ranks(args)
+    per_host = args.coordinator is not None
+    local = world // (args.num_processes if per_host else 1)
+    first = (args.process_id or 0) * local   # this process's rank
     if not spawn:
-        rank = args.process_id or 0
-        return run_rank(args, rank, world, args.coordinator, backend,
-                        args.device, per_process=args.coordinator is not None)
-    address = f"127.0.0.1:{multihost.free_port()}"
+        return run_rank(args, first, world, args.coordinator, backend,
+                        args.device, per_process=per_host)
+    # every host's ranks meet at the coordinator; one host alone makes
+    # its own address
+    address = args.coordinator or f"127.0.0.1:{multihost.free_port()}"
     followers = multihost.Followers(_follower, world, address,
-                                    (args, backend))
+                                    (args, backend),
+                                    ranks=range(first + 1, first + local))
     err = None
     try:
-        state = run_rank(args, 0, world, address, backend, args.device)
+        state = run_rank(args, first, world, address, backend, args.device,
+                         per_process=per_host)
     except (Exception, SystemExit) as e:  # reported with the ranks' codes
         err = e
     finally:
         codes = followers.close()
     if err is not None or any(c != 0 for c in codes):
-        raise SystemExit(f"data-parallel training failed: rank 0: "
-                         f"{'ok' if err is None else err}; ranks 1-"
-                         f"{world - 1}: exit codes {codes}") from err
+        raise SystemExit(f"data-parallel training failed: rank {first}: "
+                         f"{'ok' if err is None else err}; ranks "
+                         f"{first + 1}-{first + local - 1}: exit codes "
+                         f"{codes}") from err
     return state
 
 
 def _follower(rank, world, address, conn, args, backend):
-    """Ranks 1.. of a spawned data-parallel run (the pipe stays unread)."""
-    run_rank(args, rank, world, address, backend, args.device)
+    """A host's ranks after its first (the pipe stays unread)."""
+    run_rank(args, rank, world, address, backend, args.device,
+             per_process=args.coordinator is not None)
 
 
-def check_data(examples: int, batch: int, world: int, per_process: bool):
-    """SystemExit where the data set cannot feed ``world`` ranks a batch:
-    a global batch the ranks do not divide or larger than the data set,
-    or (``per_process``) a process's stride shorter than its batch."""
-    if per_process:
-        if examples // world < batch:
-            raise SystemExit(f"{examples} examples over {world} ranks "
-                             f"leave {examples // world} a rank, fewer than "
-                             f"--batch_size {batch}")
+def check_data(examples: int, batch: int, local: int, hosts: int = 1,
+               per_host: bool = False):
+    """SystemExit where the data set cannot feed a batch to the ``local``
+    ranks of each of ``hosts`` hosts: a batch that a host's ranks do not
+    divide; without ``per_host`` (one host, --batch_size the global batch)
+    a batch larger than the data set; with it (the --coordinator form,
+    where each host reads its stride of the data set) a stride shorter
+    than a host's batch."""
+    if per_host:
+        if examples // hosts < batch:
+            raise SystemExit(f"{examples} examples over {hosts} hosts "
+                             f"leave {examples // hosts} a host, fewer "
+                             f"than --batch_size {batch}")
+        if batch % local:
+            raise SystemExit(f"--batch_size {batch} is each host's batch: "
+                             f"its {local} ranks do not divide it")
         return
-    if batch % world:
+    if batch % local:
         raise SystemExit(f"--batch_size {batch} is the global batch: "
-                         f"{world} ranks do not divide it")
+                         f"{local} ranks do not divide it")
     if examples < batch:   # the loader's own message
         raise SystemExit(f"dataset has {examples} examples but batch_size "
                          f"is {batch}; the loader would yield zero batches")
@@ -302,37 +331,49 @@ def check_resumed(state, schedule, args, cfg, pipe):
 def run_rank(args, rank: int, world: int, address, backend, device,
              per_process: bool = False):
     """Rank ``rank`` of ``world`` data-parallel ranks, the whole run when
-    world is 1 (no group). per_process: the --coordinator form
-    (--batch_size per process, this process's stride of the data set);
-    otherwise --batch_size is the global batch and this rank trains its
-    rows of it. -> the final train state."""
+    world is 1 (no group). per_process: the --coordinator form, where
+    each of the --num_processes hosts runs N = world / --num_processes
+    ranks (rank ``rank`` is local rank ``rank % N`` of host
+    ``rank // N``), reads its stride of the data set and loads
+    --batch_size rows a step; otherwise one host, whose --batch_size is
+    the global batch. Either way the rank trains its rows of its host's
+    batch. -> the final train state."""
+    hosts = args.num_processes if per_process else 1
+    local = world // hosts
+    host, index = divmod(rank, local)
+    if backend == "nccl":
+        device = multihost.nccl_card(device, index)   # a card of its host
     resolve_device(device)   # no CUDA: refused before the data is read
     images, masks, prompt_texts = load_dataset(args.data_root, args.size)
     # every rank refuses alike, before the group: a rank that cannot fill
     # its rows would leave the others waiting in a collective
-    check_data(len(images), args.batch_size, world, per_process)
+    check_data(len(images), args.batch_size, local, hosts, per_process)
     if per_process:
-        images, masks, prompt_texts = (x[rank::world] for x in (
+        images, masks, prompt_texts = (x[host::hosts] for x in (
             images, masks, prompt_texts))
-    global_batch = args.batch_size * (world if per_process else 1)
+    # its rows of the host's batch, and where JAX's global batch (the
+    # hosts' batches in order) holds them
+    rows = (multihost.local_rows(args.batch_size, local, index),
+            multihost.host_rows(args.batch_size, local, index, host))
     if world == 1:
         return _train(args, 0, 1, device, images, masks, prompt_texts,
-                      global_batch, per_process)
+                      hosts, rows)
     device = multihost.initialize(address, world, rank, device=device,
                                   backend=backend)
     try:
         log_event("multihost", process=rank, processes=world,
                   local_examples=len(images))
         return _train(args, rank, world, device, images, masks,
-                      prompt_texts, global_batch, per_process)
+                      prompt_texts, hosts, rows)
     finally:
         multihost.shutdown()
 
 
-def _train(args, rank, world, device, images, masks, prompt_texts,
-           global_batch, per_process):
-    """The training of one rank on its examples, its rows of each global
-    batch; rank 0 narrates, writes and exports."""
+def _train(args, rank, world, device, images, masks, prompt_texts, hosts,
+           rows):
+    """The training of one rank of ``hosts`` hosts on its examples:
+    ``rows`` are its rows of its host's batch and the same rows in the
+    global batch; rank 0 narrates, writes and exports."""
     from blobctrl_torch.models import lora as lora_lib
     from blobctrl_torch.params import io as params_io
     from blobctrl_torch.train import checkpoint as ckpt_lib
@@ -340,6 +381,7 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
     from blobctrl_torch.train import train_step as ts
 
     lead = rank == 0
+    global_batch = args.batch_size * hosts
     pipe = params_io.load_pipeline(args.models_root, dtype=torch.bfloat16,
                                    device=device)
     dev = pipe.device
@@ -347,11 +389,9 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
     with torch.no_grad():
         pes = [pipe.encode_prompt(t, None, 1, do_cfg=False)[0].float()
                .cpu().numpy() for t in prompt_texts]
-    rows = multihost.local_rows(global_batch, world, rank)
-    # the --coordinator form's loader yields this process's rows already
     loader = data_lib.BlobDataLoader(
         pipe, images, masks, pes, batch_size=args.batch_size,
-        size=args.size, rows=None if per_process else rows)
+        size=args.size, rows=rows[0])
 
     cfg = ts.TrainConfig(learning_rate=args.learning_rate,
                          train_unet_full=args.full_finetune,
@@ -403,7 +443,7 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
             t, noise = ts.draw_t_noise(
                 threefry.key(step), global_batch,
                 batch["x0_latents"].shape[1:], cfg.num_train_timesteps, dev,
-                rows=rows)
+                rows=rows[1])
             state, metrics = step_fn(state, pipe.unet_params, batch, t,
                                      noise)
             step += 1
@@ -417,7 +457,8 @@ def _train(args, rank, world, device, images, masks, prompt_texts,
                           img_per_sec=round(global_batch / dt, 2))
             if step % args.ckpt_every == 0 or step == args.steps:
                 if lead:
-                    ckpt_lib.save(args.ckpt_dir, state, cfg)
+                    ckpt_lib.save(args.ckpt_dir, state, cfg,
+                                  devices=world if hosts > 1 else None)
                     log_event("checkpoint", step=step)
                 multihost.barrier(f"checkpoint {step}")
 

@@ -7,8 +7,8 @@ picked for it:
 
   * ``"nccl"``: one card a rank: the card the device names
     (``cuda:K``), or, for bare ``cuda``, ``cuda:r`` for rank r, refused
-    when r is not a card of this host (ranks on several hosts name their
-    card).
+    when r is not a card of this host (ranks that span several hosts
+    each name a card of their host: ``nccl_card``).
   * ``"gloo"``: the CPU, or every rank on the one card the caller names
     (``device="cuda:0"``): the form a one-card machine can run, which
     exercises the local-shard kernels and the collectives (through host
@@ -19,8 +19,10 @@ next collective instead of hanging it.
 
 ``host_local_batch`` of the JAX package has no counterpart: there is no
 global array to assemble, each rank simply keeps its own rows
-(``local_rows``). ``replicate`` and ``fetch`` keep their roles: a broadcast
-from rank 0, and tensors to host numpy.
+(``local_rows``; ``host_rows`` where several hosts each load their own
+batch, the rows JAX's global array gives their devices). ``replicate``
+and ``fetch`` keep their roles: a broadcast from rank 0, and tensors to
+host numpy.
 
 ``Followers`` runs ranks 1.. of an entry point (the CLI, the server) as
 spawned processes fed commands over pipes by rank 0, the process that owns
@@ -83,8 +85,9 @@ def initialize(coordinator_address: str, num_processes: int,
 def nccl_card(device, process_id: int) -> torch.device:
     """The card rank ``process_id`` runs on over nccl: the one ``device``
     names (``cuda:K``), or for bare ``cuda`` ``cuda:process_id``, which
-    must be a card of this host. Ranks spread over several hosts each
-    name their card."""
+    must be a card of this host. Where the ranks span several hosts, the
+    caller passes a rank's index among its host's ranks (as the training
+    CLI does) or names its card."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("nccl runs on the card: device must be cuda")
@@ -146,6 +149,17 @@ def local_rows(global_batch: int, count: Optional[int] = None,
     return range(i * per, (i + 1) * per)
 
 
+def host_rows(batch: int, local: int, index: int, host: int) -> range:
+    """The global rows that local rank ``index`` of the ``local`` ranks of
+    host ``host`` trains, where every host loads ``batch`` rows of its own:
+    ``host * batch + local_rows(batch, local, index)``. This is where JAX's
+    ``host_local_batch`` puts them: ``make_mesh`` takes ``jax.devices()``,
+    process by process, as the data axis, so process p's rows land at
+    global rows [p * batch, (p + 1) * batch), over its devices in order."""
+    rows = local_rows(batch, local, index)
+    return range(host * batch + rows.start, host * batch + rows.stop)
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
@@ -192,19 +206,23 @@ def free_port() -> int:
 # ---------------------------------------------------------------------------
 
 class Followers:
-    """Ranks 1..world-1 as spawned processes (CUDA cannot fork), each
-    running ``target(rank, world, address, conn, *args)`` with ``conn`` the
-    read end of its command pipe. Rank 0, the caller, sends commands with
-    ``send``; a follower that reads None ends. ``close`` sends None, joins
-    and, after ``join_timeout_s``, kills the stragglers."""
+    """Ranks 1..world-1 (or the ``ranks`` given: a host's ranks after its
+    first) as spawned processes (CUDA cannot fork), each running
+    ``target(rank, world, address, conn, *args)`` with ``conn`` the read
+    end of its command pipe. The caller, the rank before them, sends
+    commands with ``send``; a follower that reads None ends. ``close``
+    sends None, joins and, after ``join_timeout_s``, kills the
+    stragglers."""
 
     def __init__(self, target: Callable, world: int, address: str,
-                 args: Sequence = (), join_timeout_s: float = 60.0):
+                 args: Sequence = (), join_timeout_s: float = 60.0,
+                 ranks: Optional[Sequence[int]] = None):
         ctx = multiprocessing.get_context("spawn")
         self.join_timeout_s = join_timeout_s
+        self.ranks = list(range(1, world) if ranks is None else ranks)
         self.procs: List = []
         self.conns: List = []
-        for rank in range(1, world):
+        for rank in self.ranks:
             r, w = ctx.Pipe(duplex=False)
             p = ctx.Process(target=target,
                             args=(rank, world, address, r) + tuple(args),
@@ -217,7 +235,7 @@ class Followers:
     def send(self, cmd):
         """The same command to every follower; RuntimeError when one has
         died (its pipe is closed)."""
-        for rank, (p, c) in enumerate(zip(self.procs, self.conns), 1):
+        for rank, p, c in zip(self.ranks, self.procs, self.conns):
             if not p.is_alive():
                 raise RuntimeError(f"rank {rank} of the mesh has died "
                                    f"(exit code {p.exitcode})")

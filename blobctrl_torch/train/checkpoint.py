@@ -5,7 +5,8 @@ A save is a ``step_NNNNNNNN`` directory, written under a temporary name
 and renamed into place, that the JAX package's ``restore`` (orbax,
 ``blobctrl_tpu/train/checkpoint.py``) reads with JAX's abstract state:
 ``_METADATA`` (the tree, its key tuples and each leaf's shape),
-``_sharding`` (each array on device 0),
+``_sharding`` (each array on device 0, or over the mesh of a run over
+several hosts),
 ``_CHECKPOINT_METADATA`` and an OCDBT database of zarr v2 arrays
 (``params/ocdbt.py``, ``params/zarr.py``), written without orbax or
 tensorstore, which neither machine of the port has. The tree is JAX's:
@@ -56,17 +57,26 @@ METADATA, CHECKPOINT_METADATA, SHARDING = ("_METADATA",
 STATE_FILE, LAYOUT_FILE = "state.safetensors", "state.json"
 _TENSOR = "__tensor__"  # a layout leaf: {"__tensor__": name}
 _DICT, _SEQ = 2, 1      # orbax's key types
-# every array replicated on device 0, as the JAX package's training CLI
-# on one device saves it (its mesh of data x model = 1 x 1), whatever the
-# platform: orbax finds the device by its id
-_ON_DEVICE_0 = json.dumps({
-    "sharding_type": "NamedSharding", "shape": [1, 1],
-    "axis_names": ["data", "model"],
-    "axis_types": ["AxisType.Auto", "AxisType.Auto"], "partition_spec": [],
-    "device_mesh": {"mesh": [[{"id": 0}]]}})
 _HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
             "StandardCheckpointHandler")
 READ_THREADS = 8
+
+
+def _replicated(devices: Optional[int]) -> str:
+    """An array's sharding as the JAX package's training CLI saves it:
+    replicated over its mesh of data x model. One process (``devices``
+    None): the mesh 1 x 1 of device 0, whatever the platform (orbax finds
+    the device by its id). Several processes: ``devices`` x 1, its devices
+    left unnamed, so that orbax lays the resuming run's ``jax.devices()``
+    over it, as that CLI's mesh does (device ids differ by platform)."""
+    sharding = {"sharding_type": "NamedSharding",
+                "shape": [1 if devices is None else devices, 1],
+                "axis_names": ["data", "model"],
+                "axis_types": ["AxisType.Auto", "AxisType.Auto"],
+                "partition_spec": []}
+    if devices is None:
+        sharding["device_mesh"] = {"mesh": [[{"id": 0}]]}
+    return json.dumps(sharding)
 
 
 def _step_dir(ckpt_dir: str, step: int) -> str:
@@ -117,12 +127,15 @@ def _jax_leaves(state, cfg):
     return tree
 
 
-def save(ckpt_dir: str, state, cfg, step: Optional[int] = None) -> str:
+def save(ckpt_dir: str, state, cfg, step: Optional[int] = None,
+         devices: Optional[int] = None) -> str:
     """Write the train state of a run under ``cfg`` (a TrainConfig: the
     schedule's count is saved exactly when it has a schedule) in the JAX
     package's format as ``step_NNNNNNNN`` under ckpt_dir
-    (``state["step"]`` unless given); an existing one is replaced. -> its
-    path."""
+    (``state["step"]`` unless given); an existing one is replaced.
+    devices: the data axis of a run over several hosts, which JAX's CLI
+    resumes in as many processes over as many devices; None for one
+    host. -> its path."""
     s = int(state["step"]) if step is None else int(step)
     final = _step_dir(ckpt_dir, s)
     tmp = final + ".tmp"
@@ -130,6 +143,7 @@ def save(ckpt_dir: str, state, cfg, step: Optional[int] = None) -> str:
     os.makedirs(tmp)
     t0 = time.time_ns()
     leaves = _jax_leaves(state, cfg)
+    replicated = _replicated(devices)
     tree_meta, sharding = {}, {}
     # the card's tensors cross through one pinned buffer, each written
     # before the next is copied into it
@@ -150,7 +164,7 @@ def save(ckpt_dir: str, state, cfg, step: Optional[int] = None) -> str:
                                           "write_shape": list(arr.shape)}
                 name = ".".join(names)
                 sharding[base64.b64encode(name.encode()).decode()] = \
-                    _ON_DEVICE_0
+                    replicated
                 yield from zarr.array_items(name, arr, zdtype)
             tree_meta[str(names)] = meta
 

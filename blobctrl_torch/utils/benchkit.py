@@ -136,26 +136,24 @@ def fused_kernels():
         conv3x3.set_winograd(before[3])
 
 
-def write_tiny_training_roots(models_root: str, data_root: str) -> None:
+def write_tiny_training_roots(models_root: str, data_root: str,
+                              scenes: int = 4) -> None:
     """A tiny models root and a data set the training CLI runs on, made
     by the port alone wherever it runs, the same bits each time:
     ``flagship.tiny_configs``' UNet (at 4 input channels, the downloaded
     layout) and BlobNet cut to one level of one layer (attention in the
     UNet's blocks, in the BlobNet's mid block only), ``train/toy``'s VAE,
-    the tiny encoders and a rank-4 LoRA, drawn on the host from fixed
-    keys (JAX's init trees for the same keys) and written in fp32 with
-    ``byte_level_tokenizer``; and four seeded toy scenes
-    (``toy.make_scene``) at 64^2 with their masks and prompts, PNG.
+    ``write_training_root``'s encoders and LoRA; and ``scenes`` seeded
+    toy scenes (``toy.make_scene``) at 64^2 with their masks and prompts,
+    PNG (the first four the same whatever their number).
     ``tests/data/orbax`` holds JAX's run
     on them (``scripts/torch_orbax_fixtures.py``)."""
     import dataclasses
     import json
     import os
-    from blobctrl_torch.models import blobnet, clip_text, dinov2, lora
-    from blobctrl_torch.models import unet, vae
-    from blobctrl_torch.params import export
+    from blobctrl_torch.models import blobnet, unet, vae
     from blobctrl_torch.train import toy
-    from blobctrl_torch.utils import png, threefry
+    from blobctrl_torch.utils import png
     ucfg, bcfg = flagship.tiny_configs()
     one = dict(block_out_channels=(8,), layers_per_block=1)
     ucfg = dataclasses.replace(ucfg, in_channels=4, down_block_has_attn=(
@@ -163,26 +161,15 @@ def write_tiny_training_roots(models_root: str, data_root: str) -> None:
     bcfg = dataclasses.replace(bcfg, down_block_has_attn=(False,),
                                up_block_has_attn=(False,), **one)
     vcfg = toy.toy_configs()[2]
-    ccfg, dcfg = flagship.tiny_encoder_configs()
     cpu = torch.device("cpu")
-    up = unet.init_unet(ucfg, 1, cpu)
-    adapter = lora.init_lora(threefry.key(5), up, rank=4, device=cpu)
-    for i, ab in enumerate(adapter.values()):
-        ab["B"] = 0.05 * threefry.normal(threefry.key(100 + i),
-                                         tuple(ab["B"].shape), device=cpu)
-    export.write_models_root(
-        models_root, unet=up, unet_cfg=ucfg,
-        blobnet=blobnet.init_blobnet(bcfg, 2, cpu), blobnet_cfg=bcfg,
-        vae=vae.init_vae(vcfg, 3, cpu), vae_cfg=vcfg,
-        clip=clip_text.init(ccfg, 4, cpu), clip_cfg=ccfg,
-        dino=dinov2.init(dcfg, 6, cpu), dino_cfg=dcfg, lora=adapter,
-        lora_alpha=8.0, tokenizer=byte_level_tokenizer(),
-        dino_image_size=28, float_dtype=None)
+    write_training_root(models_root, unet.init_unet(ucfg, 1, cpu), ucfg,
+                        blobnet.init_blobnet(bcfg, 2, cpu), bcfg,
+                        vae.init_vae(vcfg, 3, cpu), vcfg)
     for sub in ("images", "masks"):
         os.makedirs(os.path.join(data_root, sub), exist_ok=True)
     rng = np.random.RandomState(13)
     prompts = {}
-    for i in range(4):
+    for i in range(scenes):
         scene = toy.make_scene(rng, 64)
         for sub, arr in (("images", scene["image"]),
                          ("masks", scene["mask"])):
@@ -192,3 +179,30 @@ def write_tiny_training_roots(models_root: str, data_root: str) -> None:
         prompts[f"scene{i}"] = f"a {toy.COLORS[scene['cls']][0]} ball"
     with open(os.path.join(data_root, "prompts.json"), "w") as f:
         json.dump(prompts, f)
+
+
+def write_training_root(models_root: str, unet_tree, unet_cfg,
+                        blobnet_tree, blobnet_cfg, vae_tree,
+                        vae_cfg) -> None:
+    """A models root the training CLI loads, around the given UNet,
+    BlobNet and VAE (trees on the host): ``flagship.tiny_encoder_configs``'
+    CLIP text and DINOv2 (as wide as the toys' context and appearance
+    channels) and a rank-4 LoRA over the UNet, drawn on the host from
+    fixed keys (JAX's init trees for the same keys), all written in fp32,
+    with ``byte_level_tokenizer``."""
+    from blobctrl_torch.models import clip_text, dinov2, lora
+    from blobctrl_torch.params import export
+    from blobctrl_torch.utils import threefry
+    ccfg, dcfg = flagship.tiny_encoder_configs()
+    cpu = torch.device("cpu")
+    adapter = lora.init_lora(threefry.key(5), unet_tree, rank=4, device=cpu)
+    for i, ab in enumerate(adapter.values()):
+        ab["B"] = 0.05 * threefry.normal(threefry.key(100 + i),
+                                         tuple(ab["B"].shape), device=cpu)
+    export.write_models_root(
+        models_root, unet=unet_tree, unet_cfg=unet_cfg,
+        blobnet=blobnet_tree, blobnet_cfg=blobnet_cfg, vae=vae_tree,
+        vae_cfg=vae_cfg, clip=clip_text.init(ccfg, 4, cpu), clip_cfg=ccfg,
+        dino=dinov2.init(dcfg, 6, cpu), dino_cfg=dcfg, lora=adapter,
+        lora_alpha=8.0, tokenizer=byte_level_tokenizer(),
+        dino_image_size=28, float_dtype=None)

@@ -301,6 +301,22 @@ script exits non-zero:
         the peak rise of its resident memory while its loader is built,
         against the same examples held as ``build_example`` returns them
         (with their DINOv2 splat).
+     d. The --coordinator form (``train_cli.run_rank(..., per_process=
+        True)``) over DP_HOSTS hosts of DP_HOST_RANKS ranks, all on this
+        card over gloo, and meanwhile the same on the CPU, both in fp32
+        (TF32 off) on the trained 256^2 toy as a models root
+        (``write_hosts_roots``): DP_HOST_STEPS steps at --batch_size
+        DP_HOST_BATCH a host, a checkpoint at the last. Each rank's loader
+        examples (its host's stride) and global rows (``multihost.
+        host_rows``) and its t equal to the CPU's rank's, its noise within
+        1e-6, its losses within 1e-4 relative (the kernels' fp32 bar) and
+        first gradients within 1e-3 of each leaf's max; global rank 0
+        alone narrates, img_per_sec over the global batch; the collective
+        log equal to the derived count; every card rank's final state
+        bit-equal and equal to global rank 0's checkpoint, which lies
+        within ``hosts_state_check``'s bar of the CPU run's; K1 and K6
+        launched on every rank. Printed: each rank's seconds, rows,
+        losses and launches, and 10d's seconds.
  11. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those
@@ -312,8 +328,9 @@ fused-kernel edit's four from the fused one), ``served_launches`` phase
 7's, ``train_launches`` phase 8c's (K1 and K6; their
 ``train_max_abs_err`` is 8a's worst forward or gradient error),
 ``parallel_launches`` phase 9's (9a, 9b and 9c's one-step edits in
-every mode), ``dp_train_launches`` phase 10's (K1 and K6; the others
-refuse under grad or have no training path), each summed over the ranks;
+every mode), ``dp_train_launches`` phase 10's, 10d's included (K1 and
+K6; the others refuse under grad or have no training path), each summed
+over the ranks;
 the splat's from phase 5 (its views), with ``device_ms`` beside its wall
 ``ms``;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the time of all of
@@ -3550,44 +3567,6 @@ DECODE_THREADS = 8             # as train/checkpoint.READ_THREADS
 JAX_STATE_BYTES = 10.18e9      # 8c's state (params, mu, nu) in JAX's layout
 
 
-@contextlib.contextmanager
-def fp32_cli(rec: dict):
-    """The training CLI in fp32 (pipeline and compute), TF32 off; each
-    step's loss and applied gradients recorded in ``rec``."""
-    import functools
-    from blobctrl_torch.params import io
-    from blobctrl_torch.train import train_step as ts
-    real = (ts.TrainConfig, ts.make_train_step, ts.apply_optimizer,
-            io.load_pipeline, torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    rec.update(loss=[], grads=[])
-
-    def make(*a, **k):
-        step = real[1](*a, **k)
-
-        def run(*args):
-            state, m = step(*args)
-            rec["loss"].append(float(m["loss"]))
-            return state, m
-        return run
-
-    def apply(cfg, trainable, opt_state, grads):
-        rec["grads"].append([g.detach().cpu().numpy().copy() for g in grads])
-        return real[2](cfg, trainable, opt_state, grads)
-    ts.TrainConfig = functools.partial(real[0], compute_dtype=torch.float32)
-    ts.make_train_step, ts.apply_optimizer = make, apply
-    io.load_pipeline = lambda *a, **k: real[3](*a, **dict(
-        k, dtype=torch.float32))
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield rec
-    finally:
-        (ts.TrainConfig, ts.make_train_step, ts.apply_optimizer,
-         io.load_pipeline, torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = real
-
-
 def leaf_record(tree) -> dict:
     """{dotted name: [dtype, shape, sha256[:16] of its bytes, float64 sum,
     first 2 elements]} of a tree's tensors, as
@@ -3696,8 +3675,7 @@ def orbax_fixture_phase(work: str, device="cuda"):
             "*.json", "*.zst"))
         argv = [a.replace("MODELS", models).replace("DATA", data)
                 .replace("CKPTS", ckpts) for a in record["argv"]]
-        rec = {}
-        with fp32_cli(rec):
+        with tests_module("torch_ranks").fp32_train_steps() as rec:
             state, secs = timed(lambda: train_cli.main(
                 argv + ["--device", str(dev)]))
         runs[dev] = (rec, ts.tree_map(lambda t: t.cpu() if torch.is_tensor(
@@ -3713,16 +3691,7 @@ def orbax_fixture_phase(work: str, device="cuda"):
     grad = max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
                for gs, ws in zip(card_rec["grads"], cpu_rec["grads"])
                for g, w in zip(gs, ws))
-    lr, wd = 1e-3, ts.TrainConfig().weight_decay
-    far = total = 0
-    worst = 0.0
-    for g, w in zip(ts.tree_leaves(card_state["params"]),
-                    ts.tree_leaves(cpu_state["params"])):
-        err = (g - w).abs()
-        worst = max(worst, float(err.max() / (4 * (1 + wd * w.abs().max())
-                                              * lr)))
-        far += int((err > 1e-3 * lr).sum())
-        total += err.numel()
+    worst, far, total = state_distance(card_state, cpu_state, 4, 1e-3)
     log(f"  the CLI resumed the fixture to step 4: {device} {card_s:.2f} s,"
         f" cpu {cpu_s:.2f} s; losses {card_rec['loss']} / {cpu_rec['loss']}"
         f" (rel {max(rel):.2e}, tol 1e-05), JAX's {want} (rel "
@@ -3942,15 +3911,15 @@ def _rank_job(job):
                         one_step_each_mode)
 
 
-def _rank_main(rank, world, port, jobs, out):
-    """One rank of a phase-9 or phase-10 group: every rank on cuda:0, over
-    gloo."""
+def _rank_main(rank, world, port, jobs, out, device):
+    """One rank of a phase-9 or phase-10 group: every rank on ``device``
+    (cuda:0, or the CPU for 10d's reference), over gloo."""
     import traceback
     try:
         sys.path.insert(0, ROOT)
         from blobctrl_torch.parallel import multihost
         multihost.initialize(f"127.0.0.1:{port}", world, rank,
-                             device="cuda:0", backend="gloo",
+                             device=device, backend="gloo",
                              timeout_s=PARALLEL_TIMEOUT_S)
         try:
             out.put((rank, "ok", {_job_name(job): _rank_job(job)
@@ -3961,18 +3930,19 @@ def _rank_main(rank, world, port, jobs, out):
         out.put((rank, "error", traceback.format_exc()))
 
 
-def spawn_ranks(world: int, jobs, meanwhile=None):
-    """Run ``jobs`` on ``world`` spawned ranks, and ``meanwhile()`` here
-    while they start and run; -> their results in rank order. A rank that
-    fails or dies fails the phase; every process is joined, or killed,
-    before this returns."""
+def spawn_ranks(world: int, jobs, meanwhile=None, device="cuda:0"):
+    """Run ``jobs`` on ``world`` spawned ranks on ``device``, and
+    ``meanwhile()`` here while they start and run; -> their results in
+    rank order. A rank that fails or dies fails the phase; every process
+    is joined, or killed, before this returns."""
     import multiprocessing
     import queue
     from blobctrl_torch.parallel import multihost
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
     port = multihost.free_port()
-    procs = [ctx.Process(target=_rank_main, args=(r, world, port, jobs, out))
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, port, jobs, out, device))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4172,6 +4142,12 @@ DP_CLI_BATCH = 2          # 10c's --batch_size, the global batch
 DP_CLI_STEPS = (1, 2)     # 10c: steps with a checkpoint, then --resume to
 DP_CLI_CKPT_EVERY = 1     # 10c: a checkpoint before the last step too
 DP_SEED = 8
+DP_HOSTS = 2              # 10d: hosts of the --coordinator form
+DP_HOST_RANKS = 2         # 10d: ranks a host, every one on cuda:0
+DP_HOST_BATCH = 2         # 10d's --batch_size, a host's (1 row a rank)
+DP_HOST_STEPS = 2         # 10d's steps, a checkpoint at the last
+DP_HOST_SIZE = 256        # 10d's image side, the trained toy's
+DP_HOST_LR = 1e-3
 DP_FULL_GRAD_BYTES = 3_392_833_024   # 4 bytes of each of 8c's trainables
 TOY_256 = os.path.join(ROOT, "assets", "toy_ckpt_256")
 
@@ -4495,7 +4471,293 @@ def check_dp_cli(cli):
     return launched
 
 
-DP_JOBS = {"dp_toy": _dp_toy, "dp_full": _dp_full, "dp_cli": _dp_cli}
+def tests_module(name: str):
+    """A helper module of the repository's tests/ (no test in it),
+    imported from its file: tests/ is no package, and one named ``tests``
+    elsewhere on the path may come first."""
+    import importlib.util
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "tests", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def _dp_hosts(job):
+    """10d on a rank: ``train_cli.run_rank``, the --coordinator form's
+    rank body, as global rank g, local rank g % DP_HOST_RANKS of host
+    g // DP_HOST_RANKS, in a group of its own, in fp32 on the device the
+    job names (the card, or the CPU for the reference), recorded by
+    ``tests/torch_ranks.recorded_cli`` as the CPU tests record it. -> its
+    seconds, its loader's start-up, its loader's example indices, each
+    step's draws (the global batch, the rows drawn, t, noise), losses and
+    first gradients, log events, launches, collective log and the one it
+    should be, and the final state's digest."""
+    from blobctrl_torch import ops
+    from blobctrl_torch.apps import train_cli
+    from blobctrl_torch.parallel import collectives, multihost
+    from blobctrl_torch.train import data as data_lib
+    from blobctrl_torch.train import train_step as ts
+    argv, device, port = job
+    rank = multihost.process_index()
+    multihost.shutdown()   # the CLI's rank body joins a group of its own
+    if device == "cpu":
+        torch.set_num_threads(1)
+    world = DP_HOSTS * DP_HOST_RANKS
+    address = f"127.0.0.1:{port}"
+    args = train_cli.build_parser().parse_args(argv + [
+        "--coordinator", address, "--num_processes", str(DP_HOSTS),
+        "--process_id", str(rank // DP_HOST_RANKS), "--data_parallel",
+        str(world), "--device", device])
+    built, real = [], data_lib.BlobDataLoader.__init__
+
+    def init(self, *a, **k):   # encodes the host's stride: start-up time
+        t0 = time.perf_counter()
+        real(self, *a, **k)
+        built.append((len(self.examples), time.perf_counter() - t0))
+    data_lib.BlobDataLoader.__init__ = init
+    try:
+        with tests_module("torch_ranks").recorded_cli() as rec:
+            ops.reset_counts()
+            collectives.reset()
+            t0 = time.perf_counter()
+            state = train_cli.run_rank(args, rank, world, address, "gloo",
+                                       device, per_process=True)
+            if device != "cpu":   # the CPU's ranks never touch the card
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = launch_counts()
+    finally:
+        data_lib.BlobDataLoader.__init__ = real
+    return {"secs": secs, "built": built[0], "seen": rec["seen"],
+            "draws": rec["draws"], "loss": rec["steps"]["loss"],
+            "grads": rec["steps"]["grads"], "events": rec["events"],
+            "launches": launches, "sizes": collectives.sizes(),
+            "want": ts.training_counts(state["params"], world,
+                                       steps=DP_HOST_STEPS,
+                                       replicated=state, checkpoints=1),
+            "digest": digest(state["params"])}
+
+
+def write_hosts_roots(root: str):
+    """10d's models root under ``root``/models, the trained 256^2 toy with
+    ``benchkit.write_training_root``'s encoders and LoRA, and its data
+    under ``root``/data: CLI_SCENES scenes at DP_HOST_SIZE."""
+    from blobctrl_torch.train import toy
+    from blobctrl_torch.utils import benchkit
+    pipe, _ = toy.load_toy(TOY_256, device="cpu")
+    benchkit.write_training_root(
+        os.path.join(root, "models"), pipe.unet_params, pipe.unet_cfg,
+        pipe.blobnet_params, pipe.blobnet_cfg, pipe.vae_params,
+        pipe.vae_cfg)
+    write_scenes(os.path.join(root, "data"), DP_HOST_SIZE)
+
+
+def hosts_argv(root: str, ckpt_dir: str):
+    """10d's training flags on ``write_hosts_roots``' roots, save the
+    ranks' layout and device."""
+    return ["--models_root", os.path.join(root, "models"), "--data_root",
+            os.path.join(root, "data"), "--size", str(DP_HOST_SIZE),
+            "--batch_size", str(DP_HOST_BATCH), "--steps",
+            str(DP_HOST_STEPS), "--ckpt_every", str(DP_HOST_STEPS),
+            "--log_every", "1", "--lora_rank", "4", "--learning_rate",
+            str(DP_HOST_LR), "--ckpt_dir", ckpt_dir]
+
+
+def state_distance(got, want, steps: int, lr: float):
+    """Two final train states of fp32 runs on different devices: ->
+    (the largest parameter difference over the step bound, steps (1 +
+    wd |p|) lr; the elements past 1e-3 lr; all elements)."""
+    from blobctrl_torch.train import train_step as ts
+    wd = ts.TrainConfig().weight_decay
+    far = total = 0
+    worst = 0.0
+    for a, b in zip(ts.tree_leaves(got["params"]),
+                    ts.tree_leaves(want["params"]), strict=True):
+        err = (a - b).abs()
+        worst = max(worst, float(err.max() / (
+            steps * (1 + wd * b.abs().max()) * lr)))
+        far += int((err > 1e-3 * lr).sum())
+        total += err.numel()
+    return worst, far, total
+
+
+def adam_moves(steps_grads, lr: float):
+    """The parameter moves that clip + Adam (``train_step.
+    apply_optimizer``, its weight decay left out) make from zero moments
+    out of each step's applied gradients, in float64: -> per leaf, the
+    sum over the steps of -lr m^/(sqrt(v^) + eps)."""
+    from blobctrl_torch.train import train_step as ts
+    b1, b2, eps = ts.ADAM_B1, ts.ADAM_B2, ts.ADAM_EPS
+    clip = ts.TrainConfig().max_grad_norm
+    m = v = moves = None
+    for t, grads in enumerate(steps_grads, 1):
+        g = [np.asarray(x, np.float64) for x in grads]
+        norm = float(np.sqrt(sum(float((x * x).sum()) for x in g)))
+        if norm >= clip:
+            g = [x / norm * clip for x in g]
+        m = [b1 * a + (1 - b1) * x for a, x in zip(m or [0.0] * len(g), g)]
+        v = [b2 * a + (1 - b2) * x * x
+             for a, x in zip(v or [0.0] * len(g), g)]
+        step = [-lr * (a / (1 - b1 ** t)) / (np.sqrt(c / (1 - b2 ** t)) + eps)
+                for a, c in zip(m, v)]
+        moves = step if moves is None else [a + b for a, b in
+                                            zip(moves, step)]
+    return moves
+
+
+def hosts_state_check(got, want, got_grads, want_grads):
+    """10d's final-state bar: two final states of DP_HOST_STEPS steps at
+    DP_HOST_LR from one start, ``got_grads`` / ``want_grads`` the
+    gradients each run applied at each step. No element past the step
+    bound, and every element's difference the one those gradients make
+    (``adam_moves``), within 1e-3 lr: what the runs' devices computed
+    differently shows in their gradients alone, and a fault in the update,
+    the broadcast or the checkpoint shows here. Its control: the leaf of
+    the largest first gradient moved 2e-3 lr in ``got`` must fail. ->
+    (held, the readings)."""
+    from blobctrl_torch.train import train_step as ts
+    worst, far, total = state_distance(got, want, DP_HOST_STEPS, DP_HOST_LR)
+    made = [a - b for a, b in zip(adam_moves(got_grads, DP_HOST_LR),
+                                  adam_moves(want_grads, DP_HOST_LR))]
+    leaves = list(zip(ts.tree_leaves(got["params"]),
+                      ts.tree_leaves(want["params"]), made, strict=True))
+
+    def residual(shift=None):
+        """-> (the largest |difference - its gradients' share| over lr,
+        the elements past 1e-3 lr), leaf ``shift`` moved 2e-3 lr."""
+        top, over = 0.0, 0
+        for i, (a, b, d) in enumerate(leaves):
+            r = np.abs((a - b).numpy().astype(np.float64)
+                       + (2e-3 * DP_HOST_LR if i == shift else 0.0)
+                       - d.reshape(a.shape)) / DP_HOST_LR
+            top, over = max(top, float(r.max())), over + int(
+                (r > 1e-3).sum())
+        return top, over
+    top, over = residual()
+    i = max(range(len(leaves)), key=lambda i: float(np.abs(
+        np.asarray(want_grads[0][i])).max()))
+    c_top, c_over = residual(i)
+    d = {"worst": worst, "far": far, "total": total, "residual": top,
+         "over": over, "control": {"leaf": i,
+                                   "elements": leaves[i][0].numel(),
+                                   "residual": c_top, "over": c_over}}
+    return worst <= 1 and over == 0 and c_over > 0, d
+
+
+def hosts_state_reading(d) -> str:
+    """``hosts_state_check``'s readings, for the log."""
+    c = d["control"]
+    return (f"{d['worst']:.3f} of the step bound, {d['far']} of "
+            f"{d['total']} elements past 1e-3 lr; less the share the "
+            f"runs' gradients make, at most {d['residual']:.2e} lr, "
+            f"{d['over']} elements past 1e-3 lr (tol 0); control: leaf "
+            f"{c['leaf']} ({c['elements']} elements, the largest first "
+            f"gradient) moved 2e-3 lr: {c['over']} past, at most "
+            f"{c['residual']:.2e} lr (must fail)")
+
+
+def dp_hosts_phase(work: str):
+    """10d: the --coordinator form over DP_HOSTS hosts of DP_HOST_RANKS
+    ranks, its rank bodies on cuda:0 over gloo and, meanwhile, on the CPU
+    (the reference), both in fp32 on the trained 256^2 toy's models root.
+    -> the K1/K6 launches over the card's ranks."""
+    from blobctrl_torch.parallel import multihost
+    from blobctrl_torch.train import checkpoint as ckpt_lib
+    t0 = time.perf_counter()
+    root = os.path.join(work, "dp_hosts")
+    write_hosts_roots(root)
+    world = DP_HOSTS * DP_HOST_RANKS
+    ports = set()
+    while len(ports) < 2:
+        ports.add(multihost.free_port())
+    jobs = {where: [("dp_hosts", (hosts_argv(root, os.path.join(
+        root, where)), "cuda:0" if where == "card" else "cpu", port))]
+        for where, port in zip(("card", "cpu"), sorted(ports))}
+    ref = []
+    card = [r["dp_hosts"] for r in spawn_ranks(
+        world, jobs["card"], meanwhile=lambda: ref.extend(
+            r["dp_hosts"] for r in spawn_ranks(world, jobs["cpu"],
+                                               device="cpu")))]
+    launched = collections.Counter()
+    for g, (c, r) in enumerate(zip(card, ref)):
+        host, index = divmod(g, DP_HOST_RANKS)
+        rows = multihost.host_rows(DP_HOST_BATCH, DP_HOST_RANKS, index, host)
+        per = DP_HOST_BATCH // DP_HOST_RANKS
+        rel = [abs(a - b) / abs(b) for a, b in zip(c["loss"], r["loss"])]
+        grads = worst_leaf(c["grads"][0], r["grads"][0])
+        later = [worst_leaf(a, b) for a, b in zip(c["grads"][1:],
+                                                  r["grads"][1:])]
+        drawn = [d[1] for d in c["draws"]]
+        noise = max(float(np.abs(a[3] - b[3]).max())
+                    for a, b in zip(c["draws"], r["draws"]))
+        ran = {k: c["launches"][k] for k in EXACT}
+        events = {}
+        for e in c["events"]:
+            if e.get("event") in ("train", "checkpoint"):
+                events.setdefault(e["event"], []).append(e["step"])
+        rates = [(e["step"], e["img_per_sec"], e["sec_per_step"])
+                 for e in c["events"] if e.get("event") == "train"]
+        log(f"  10d rank {g} (host {host}, local rank {index}): "
+            f"{c['secs']:.2f} s on the card, {r['secs']:.2f} s on the CPU; "
+            f"its loader encoded its host's {c['built'][0]} examples in "
+            f"{c['built'][1]:.2f} s on the card; "
+            f"examples {c['seen'][:DP_HOST_STEPS]} of its host's stride, "
+            f"global rows {drawn} of {DP_HOSTS * DP_HOST_BATCH}; losses "
+            f"{[f'{x:.7f}' for x in c['loss']]} against the CPU's (rel "
+            f"{max(rel):.2e}, tol {TOL[torch.float32]:.0e}, the kernels' "
+            f"fp32 bar), first gradients {grads:.2e} of each leaf's max "
+            f"(tol 1e-03, 8e's; later steps' {later}), "
+            f"noise {noise:.1e} from the CPU's; img_per_sec (step, img/s, "
+            f"s) {rates}; collectives "
+            f"{ {op: x['count'] for op, x in c['sizes'].get('pipeline', {}).items()} }"
+            f"; launches {ran}")
+        if (c["seen"][:DP_HOST_STEPS] != r["seen"][:DP_HOST_STEPS]
+                or any(len(s) != per for s in c["seen"][:DP_HOST_STEPS])
+                or drawn != [rows] * DP_HOST_STEPS
+                or drawn != [d[1] for d in r["draws"]]
+                or any(d[0] != DP_HOSTS * DP_HOST_BATCH for d in c["draws"])
+                or any(not np.array_equal(a[2], b[2])
+                       for a, b in zip(c["draws"], r["draws"]))
+                or noise > 1e-6):
+            raise AssertionError(f"10d rank {g}: rows or draws")
+        if len(c["loss"]) != DP_HOST_STEPS or max(rel) > TOL[torch.float32] \
+                or grads > 1e-3 or c["loss"] != card[0]["loss"]:
+            raise AssertionError(f"10d rank {g}: losses {c['loss']} / "
+                                 f"{r['loss']}")
+        if events != ({"train": list(range(1, DP_HOST_STEPS + 1)),
+                       "checkpoint": [DP_HOST_STEPS]} if g == 0 else {}):
+            raise AssertionError(f"10d rank {g}: events {events}")
+        if any(abs(x - DP_HOSTS * DP_HOST_BATCH / dt) > 0.005 + DP_HOSTS
+               * DP_HOST_BATCH * 5e-4 / (dt * (dt - 5e-4))
+               for _, x, dt in rates):
+            raise AssertionError(f"10d rank {g}: img_per_sec {rates}")
+        if c["sizes"] != c["want"] or r["sizes"] != r["want"]:
+            raise AssertionError(f"10d rank {g}: collectives {c['sizes']} "
+                                 f"!= {c['want']}")
+        if min(ran.values()) == 0:
+            raise AssertionError(f"10d rank {g}: launches {ran}")
+        launched.update(ran)
+    if any(c["digest"] != card[0]["digest"] for c in card):
+        raise AssertionError("10d: the card's ranks' final states differ")
+    got, want = (ckpt_lib.restore(os.path.join(root, where), device="cpu")
+                 for where in ("card", "cpu"))
+    same = digest(got["params"]) == card[0]["digest"]
+    ok, d = hosts_state_check(got, want, card[0]["grads"], ref[0]["grads"])
+    log(f"  10d: global rank 0's checkpoint on the card (bit-equal to "
+        f"every card rank's final state: {same}) against the CPU run's: "
+        f"{hosts_state_reading(d)}; 10d took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if got["step"] != DP_HOST_STEPS or not same or not ok:
+        raise AssertionError("10d: the final state on the card")
+    shutil.rmtree(root)
+    return launched
+
+
+DP_JOBS = {"dp_toy": _dp_toy, "dp_full": _dp_full, "dp_cli": _dp_cli,
+           "dp_hosts": _dp_hosts}
 
 
 def dp_training_phase(models_root: str, work: str, train_shapes):
@@ -4678,6 +4940,7 @@ def dp_training_phase(models_root: str, work: str, train_shapes):
     shutil.rmtree(ckpt_dir)
     gc.collect()
     torch.cuda.empty_cache()
+    launched.update(dp_hosts_phase(work))
     log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s; launches "
         f"over every rank {dict(launched)}")
     return dict(launched)
@@ -4894,7 +5157,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 10: data-parallel training on {DP_WORLD} ranks that share "
-        f"this card over gloo: the toy, full width, the training CLI")
+        f"this card over gloo: the toy, full width, the training CLI; "
+        f"then {DP_HOSTS} hosts of {DP_HOST_RANKS} ranks (10d)")
     log_elapsed()
     dp_trained = dp_training_phase(models_root, work.name,
                                    {k: set(v) for k, v in train_errs.items()})

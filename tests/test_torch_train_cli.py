@@ -556,7 +556,7 @@ def test_a_stride_short_of_a_batch_is_refused_on_every_rank(
     before the group forms (so nobody waits for the group's timeout)."""
     argv = _argv(models_root, data_root, tmp_path, "--steps", "2")
     argv[argv.index("--batch_size") + 1] = "3"
-    msg = "4 examples over 2 ranks leave 2 a rank, fewer than --batch_size 3"
+    msg = "4 examples over 2 hosts leave 2 a host, fewer than --batch_size 3"
     port = multihost.free_port()
     t0 = time.monotonic()
     res = _wait([_cli(argv + ["--coordinator", f"127.0.0.1:{port}",
@@ -603,7 +603,8 @@ def test_an_indivisible_batch_is_refused_on_every_rank(
       "--process_id", "2"], "not a rank of --num_processes 2"),
     (["--coordinator", "127.0.0.1:1234", "--num_processes", "2",
       "--process_id", "0", "--data_parallel", "3"],
-     "--data_parallel 3 with --num_processes 2"),
+     "--data_parallel 3 with --num_processes 2: every host runs as many "
+     "ranks, so the data axis is a multiple of 2"),
     (["--data_parallel", "-1", "--device", "cpu"], "< 0"),
 ])
 def test_inconsistent_rank_flags_refused(flags, match, tmp_path):
@@ -645,6 +646,9 @@ def test_a_named_card_trains_one_rank(device, tmp_path, monkeypatch):
 
 
 def test_data_parallel_zero_means_every_card(monkeypatch):
+    """--data_parallel 0 is every visible card (1 on the CPU); with
+    --coordinator, every card of every host: 8 hosts of 1 card are 8
+    ranks, of 4 cards 32, each process spawning its host's other 3."""
     args = tcli.build_parser().parse_args(["--data_root", "x", "--device",
                                            "cpu"])
     assert tcli.ranks(args) == (1, None, False)
@@ -655,3 +659,61 @@ def test_data_parallel_zero_means_every_card(monkeypatch):
     assert tcli.ranks(args) == (1, None, False)
     args.coordinator, args.num_processes, args.process_id = "h:1", 8, 5
     assert tcli.ranks(args) == (8, "nccl", False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tcli.ranks(args) == (32, "nccl", True)
+    args.device = "cpu"
+    assert tcli.ranks(args) == (8, "gloo", False)
+    args.data_parallel = 16
+    assert tcli.ranks(args) == (16, "gloo", True)
+
+
+def test_a_coordinator_host_runs_its_share_of_the_data_axis(monkeypatch):
+    """With --coordinator a process is a host that runs --data_parallel /
+    --num_processes ranks, local rank r on its card r over NCCL: more than
+    its cards is refused before anything loads. ``--device cuda:K`` is
+    one rank a host on card K (faked cards), which refuses more."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(multihost, "resolve_device", torch.device)
+    args = tcli.build_parser().parse_args([
+        "--data_root", "x", "--coordinator", "h:1", "--num_processes", "2",
+        "--process_id", "1", "--data_parallel", "4"])
+    assert tcli.ranks(args) == (4, "nccl", True)
+    assert [multihost.nccl_card(args.device, r) for r in range(2)] == [
+        torch.device("cuda", r) for r in range(2)]
+    args.data_parallel = 8
+    with pytest.raises(SystemExit, match="--data_parallel 8 over 2 hosts "
+                       "needs 4 cards, one a rank; 2 are visible"):
+        tcli.ranks(args)
+    for device in ("cuda:0", "cuda:1"):
+        args.device = device
+        for dp in (0, 2):
+            args.data_parallel = dp
+            assert tcli.ranks(args) == (2, "nccl", False)
+            assert multihost.nccl_card(device, 0) == torch.device(device)
+        args.data_parallel = 4
+        with pytest.raises(SystemExit, match=f"name --device cuda, not "
+                           f"{device}"):
+            tcli.ranks(args)
+
+
+def test_a_host_batch_its_ranks_do_not_divide_is_refused_on_every_rank(
+        models_root, data_root, tmp_path):
+    """``--coordinator`` over 2 hosts of 2 gloo ranks: --batch_size 1 is
+    each host's batch, which its 2 ranks cannot split. Every rank of both
+    hosts refuses with one message before the group forms, and each host
+    exits non-zero with its ranks' codes."""
+    argv = _argv(models_root, data_root, tmp_path, "--steps", "2",
+                 "--data_parallel", "4")
+    argv[argv.index("--batch_size") + 1] = "1"
+    msg = "--batch_size 1 is each host's batch: its 2 ranks do not divide it"
+    port = multihost.free_port()
+    t0 = time.monotonic()
+    res = _wait([_cli(argv + ["--coordinator", f"127.0.0.1:{port}",
+                              "--num_processes", "2", "--process_id", str(i)])
+                 for i in range(2)], timeout=120)
+    assert time.monotonic() - t0 < 60
+    for h, (rc, err) in enumerate(res):
+        assert rc != 0 and err.count(msg) == 2, err
+        assert (f"data-parallel training failed: rank {2 * h}: {msg}; "
+                f"ranks {2 * h + 1}-{2 * h + 1}: exit codes [1]") in err, err
+    assert not os.path.exists(tmp_path / "ckpts")

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import multiprocessing
+import os
 import queue
 import time
 import traceback
@@ -26,6 +27,8 @@ import traceback
 import numpy as np
 
 GROUP_TIMEOUT_S = 120.0
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
 
 
 def _rank_main(rank, world, port, target, args, out):
@@ -320,13 +323,14 @@ def fp32_train_steps():
     {"loss": [float], "grads": [[numpy]]}, a step each. The CLI trains in
     bf16, whose rounding depends on the rows a call holds and would hide
     the data-parallel arithmetic that the CLI tests compare at fp32
-    bars."""
+    bars. On the card TF32 is off."""
     import functools
     import torch
     from blobctrl_torch.params import io
     from blobctrl_torch.train import train_step as ts
     real = (ts.TrainConfig, ts.make_train_step, ts.apply_optimizer,
-            io.load_pipeline)
+            io.load_pipeline, torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     rec = {"loss": [], "grads": []}
 
     def make(*a, **k):
@@ -339,7 +343,8 @@ def fp32_train_steps():
         return run
 
     def apply(cfg, trainable, opt_state, grads):
-        rec["grads"].append([g.detach().numpy().copy() for g in grads])
+        rec["grads"].append([g.detach().cpu().numpy().copy()
+                             for g in grads])
         return real[2](cfg, trainable, opt_state, grads)
 
     def load(*a, **k):
@@ -347,49 +352,74 @@ def fp32_train_steps():
     ts.TrainConfig = functools.partial(real[0], compute_dtype=torch.float32)
     ts.make_train_step, ts.apply_optimizer, io.load_pipeline = (
         make, apply, load)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield rec
     finally:
         (ts.TrainConfig, ts.make_train_step, ts.apply_optimizer,
-         io.load_pipeline) = real
+         io.load_pipeline, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = real
 
 
-def train_cli_rank(argv, port, coordinator=False):
-    """The training CLI on ``argv`` (each ``{rank}`` in it this rank) in
-    a group of its own (the group ``run_ranks`` made is left first), its
-    steps in fp32 (``fp32_train_steps``), with a spy on its loader: the
-    spawned form's rank body ``train_cli.run_rank``, or with
-    ``coordinator`` ``train_cli.main`` as one ``--coordinator`` process.
-    -> (the example indices of each batch the loader gave this rank, in
-    order, the last one possibly drawn after the final step; the steps'
-    record of ``fp32_train_steps``; the log events, which rank 0 alone
-    narrates)."""
+@contextlib.contextmanager
+def recorded_cli():
+    """The training CLI's steps in fp32 (``fp32_train_steps``), with spies
+    on its loader, its draws and its log: yields {"seen": the example
+    indices of each batch the loader gave this rank, in order, the last
+    one possibly drawn after the final step; "steps": the record of
+    ``fp32_train_steps``; "draws": (the global batch, the rows drawn, t,
+    noise) of each step; "events": the log events, which rank 0 alone
+    narrates}."""
     import json
     import logging
-    from blobctrl_torch.apps import train_cli
-    from blobctrl_torch.parallel import multihost
     from blobctrl_torch.train import data
-    rank, world = multihost.process_index(), multihost.process_count()
-    multihost.shutdown()
-    argv = [a.format(rank=rank) for a in argv]
-    address = f"127.0.0.1:{port}"
-    seen, events = [], []
-    real = data.BlobDataLoader.index_batches
+    from blobctrl_torch.train import train_step as ts
+    out = {"seen": [], "draws": [], "events": []}
+    real = data.BlobDataLoader.index_batches, ts.draw_t_noise
 
     def spy(self):
-        for idx in real(self):
-            seen.append([int(i) for i in idx])
+        for idx in real[0](self):
+            out["seen"].append([int(i) for i in idx])
             yield idx
-    data.BlobDataLoader.index_batches = spy
+
+    def draw(key, batch, shape, *a, rows=None, **k):
+        t, noise = real[1](key, batch, shape, *a, rows=rows, **k)
+        out["draws"].append((batch, rows, t.cpu().numpy(),
+                             noise.cpu().numpy()))
+        return t, noise
 
     class Events(logging.Handler):
         def emit(self, record):
             try:
-                events.append(json.loads(record.getMessage()))
+                out["events"].append(json.loads(record.getMessage()))
             except ValueError:
                 pass
-    logging.getLogger("blobctrl_torch").addHandler(Events())
-    with fp32_train_steps() as rec:
+    handler = Events()
+    logging.getLogger("blobctrl_torch").addHandler(handler)
+    data.BlobDataLoader.index_batches, ts.draw_t_noise = spy, draw
+    try:
+        with fp32_train_steps() as out["steps"]:
+            yield out
+    finally:
+        data.BlobDataLoader.index_batches, ts.draw_t_noise = real
+        logging.getLogger("blobctrl_torch").removeHandler(handler)
+
+
+def train_cli_rank(argv, port, coordinator=False):
+    """The training CLI on ``argv`` (each ``{rank}`` in it this rank) in
+    a group of its own (the group ``run_ranks`` made is left first),
+    under ``recorded_cli``: the spawned form's rank body
+    ``train_cli.run_rank``, or with ``coordinator`` ``train_cli.main`` as
+    one ``--coordinator`` process. -> (the loader's example indices,
+    the steps' record, the log events: ``recorded_cli``'s)."""
+    from blobctrl_torch.apps import train_cli
+    from blobctrl_torch.parallel import multihost
+    rank, world = multihost.process_index(), multihost.process_count()
+    multihost.shutdown()
+    argv = [a.format(rank=rank) for a in argv]
+    address = f"127.0.0.1:{port}"
+    with recorded_cli() as rec:
         if coordinator:
             train_cli.main(argv + ["--coordinator", address,
                                    "--num_processes", str(world),
@@ -397,4 +427,89 @@ def train_cli_rank(argv, port, coordinator=False):
         else:
             train_cli.run_rank(train_cli.build_parser().parse_args(argv),
                                rank, world, address, "gloo", "cpu")
-    return seen, rec, events
+    return rec["seen"], rec["steps"], rec["events"]
+
+
+# one process of the CLI's --coordinator form (a host), started by
+# start_hosts: each of its ranks pickles its record into the directory
+# this names
+RANK_OUT = "BLOBCTRL_TEST_RANK_OUT"
+
+
+def _save_rank(rank, rec):
+    import pickle
+    from blobctrl_torch.parallel import collectives
+    rec["sizes"] = collectives.sizes()
+    with open(os.path.join(os.environ[RANK_OUT], f"rank{rank}.pkl"),
+              "wb") as f:
+        pickle.dump(rec, f)
+
+
+def host_follower(rank, world, address, conn, args, backend):
+    """``train_cli._follower`` under ``recorded_cli``, its record saved."""
+    import torch
+    from blobctrl_torch.apps import train_cli
+    torch.set_num_threads(1)
+    with recorded_cli() as rec:
+        train_cli._follower(rank, world, address, conn, args, backend)
+    _save_rank(rank, rec)
+
+
+def host_main():
+    """A host process's body, its argv ``OUT -- ARGV``: ``train_cli.main``
+    on ARGV (the --coordinator form, which names the host) under
+    ``recorded_cli``, its followers ``host_follower``; every rank of the
+    host pickles its record to OUT/rank{rank}.pkl."""
+    import sys
+    import torch
+    from blobctrl_torch.apps import train_cli
+    out, sep, *argv = sys.argv[1:]
+    assert sep == "--", sys.argv
+    os.environ[RANK_OUT] = out
+    torch.set_num_threads(1)
+    train_cli._follower = host_follower
+    with recorded_cli() as rec:
+        train_cli.main(argv)
+    (rank,) = [e["process"] for e in rec["events"]
+               if e.get("event") == "multihost"]
+    _save_rank(rank, rec)
+
+
+def start_hosts(argv, out, hosts, data_parallel, port, tree=ROOT,
+                env=None):
+    """The training CLI on ``argv`` as ``hosts`` --coordinator processes
+    (``host_main``) meeting at 127.0.0.1:``port`` with --data_parallel
+    ``data_parallel``, each spawning its host's other ranks: -> the
+    processes (output piped); every rank pickles its record to
+    out/rank{g}.pkl. tree: the checkout whose ``blobctrl_torch`` runs
+    (this one by default; this module is always this checkout's, imported
+    from its own directory, where no other package named ``tests`` can
+    shadow it); env(h): more of host h's environment."""
+    import subprocess
+    import sys
+    boot = (f"import sys; sys.path[:0] = [{tree!r}, {HERE!r}]; "
+            f"import torch_ranks; torch_ranks.host_main()")
+    return [subprocess.Popen(
+        [sys.executable, "-c", boot, out, "--", *argv, "--coordinator",
+         f"127.0.0.1:{port}", "--num_processes", str(hosts), "--process_id",
+         str(h), "--data_parallel", str(data_parallel)], cwd=tree,
+        env=dict(os.environ, OMP_NUM_THREADS="1", **(env(h) if env else {})),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for h in range(hosts)]
+
+
+def wait_processes(procs, timeout):
+    """-> [(exit code, output)] of ``procs``, all within ``timeout``
+    seconds; any still running then is killed, and every one reaped."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
