@@ -13,9 +13,10 @@ Usage:
 
 With ``--mesh data=N,model=M`` (and/or ``--hybrid_cfg_data``) the edit is
 sharded over N x M ranks (``parallel/``): this process is rank 0 and spawns
-the others. On the card that is one card a rank over NCCL (refused when
-the ranks outnumber the cards); with ``--device cpu``, gloo. Rank 0 writes
-the outputs.
+the others. On the card that is one card a rank over NCCL, rank r on
+``cuda:r`` (``--device cuda``; a named card ``cuda:K``, and more ranks
+than cards, are refused); with ``--device cpu``, gloo. Rank 0 writes the
+outputs.
 """
 
 from __future__ import annotations
@@ -133,19 +134,15 @@ def _follower(rank, world, address, conn, args, spec):
 def _run_sharded(args) -> list:
     shape = mesh_lib.resolve_mesh_shape(args.mesh, args.hybrid_cfg_data,
                                         args.device)
+    mesh_lib.check_mesh_device(args.device, shape)
     world = shape["data"] * shape["model"]
-    if torch.device(args.device).type == "cuda" and \
-            world > torch.cuda.device_count():
-        raise SystemExit(f"--mesh {shape} needs {world} cards, one a rank; "
-                         f"{torch.cuda.device_count()} are visible")
     spec = f"data={shape['data']},model={shape['model']}"
     address = f"127.0.0.1:{multihost.free_port()}"
     followers = multihost.Followers(_follower, world, address, (args, spec))
     try:
         paths = _edit(_rank_pipeline(args, 0, world, address, spec), args)
     finally:
-        codes = followers.close()
-        multihost.shutdown()
+        codes = followers.close()   # leaves the group, then joins them
     if any(c != 0 for c in codes):
         raise SystemExit(f"a rank of the mesh failed: exit codes {codes}")
     return paths

@@ -726,14 +726,12 @@ def start_mesh(models_root: str, device: str, mesh_spec: Optional[str],
                ) -> multihost.LeaderPipeline:
     """Spawn the follower ranks, load and shard the pipeline as rank 0,
     and return it wrapped so that every edit runs on all ranks. On the
-    card one card a rank: more ranks than cards are refused."""
+    card one card a rank, rank r on cuda:r (device ``cuda``): a named
+    card and more ranks than cards are refused."""
     from blobctrl_torch.parallel import mesh as mesh_lib
     shape = mesh_lib.resolve_mesh_shape(mesh_spec, hybrid_cfg_data, device)
+    mesh_lib.check_mesh_device(device, shape)
     world = shape["data"] * shape["model"]
-    if torch.device(device).type == "cuda" and \
-            world > torch.cuda.device_count():
-        raise SystemExit(f"mesh {shape} needs {world} cards, one a rank; "
-                         f"{torch.cuda.device_count()} are visible")
     spec = f"data={shape['data']},model={shape['model']}"
     address = f"127.0.0.1:{multihost.free_port()}"
     load_args = (models_root, device, spec, hybrid_cfg_data, dtype,
@@ -742,8 +740,7 @@ def start_mesh(models_root: str, device: str, mesh_spec: Optional[str],
     try:
         pipe = _load_sharded(0, world, address, *load_args)
     except BaseException:
-        followers.close()
-        multihost.shutdown()
+        followers.close()   # leaves the group, then joins them
         raise
     return multihost.LeaderPipeline(pipe, followers)
 

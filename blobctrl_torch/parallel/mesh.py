@@ -168,6 +168,27 @@ def resolve_mesh_shape(mesh_spec: Optional[str], hybrid_cfg_data: bool,
     return kw
 
 
+def check_mesh_device(device, shape: Dict[str, int]):
+    """SystemExit, before any rank is spawned or anything loads, where the
+    ranks of a mesh of ``shape`` cannot have a card each over nccl: a card
+    named by index (``cuda:K``), which every rank would take (nccl refuses
+    one card twice in a group, at the first collective, after every rank
+    has loaded), or more ranks than visible cards. ``--device cuda`` puts
+    rank r on cuda:r (``multihost.nccl_card``); ``--device cpu`` runs the
+    ranks over gloo."""
+    dev = torch.device(device)
+    world = shape["data"] * shape["model"]
+    if dev.type != "cuda":
+        return
+    if dev.index is not None and world > 1:
+        raise SystemExit(f"--mesh {shape} puts rank r on cuda:r, one card "
+                         f"a rank: name --device cuda, not {device} "
+                         f"(--device cpu runs the ranks over gloo)")
+    if world > torch.cuda.device_count():
+        raise SystemExit(f"--mesh {shape} needs {world} cards, one a rank; "
+                         f"{torch.cuda.device_count()} are visible")
+
+
 def shard_pipeline_from_flags(pipe, mesh_spec: Optional[str] = None,
                               hybrid_cfg_data: bool = False):
     """Build the mesh from ``--mesh data=N,model=M`` over the initialized

@@ -76,9 +76,11 @@ def initialize(coordinator_address: str, num_processes: int,
         addr = "tcp://" + addr
     global _timeout
     _timeout = datetime.timedelta(seconds=timeout_s)
+    # nccl is told the rank's card, or it guesses it for a barrier
+    card = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=addr,
                             world_size=num_processes, rank=process_id,
-                            timeout=_timeout)
+                            timeout=_timeout, **card)
     return dev
 
 
@@ -211,8 +213,8 @@ class Followers:
     ``target(rank, world, address, conn, *args)`` with ``conn`` the read
     end of its command pipe. The caller, the rank before them, sends
     commands with ``send``; a follower that reads None ends. ``close``
-    sends None, joins and, after ``join_timeout_s``, kills the
-    stragglers."""
+    sends None, leaves the group, joins and, after ``join_timeout_s``,
+    kills the stragglers."""
 
     def __init__(self, target: Callable, world: int, address: str,
                  args: Sequence = (), join_timeout_s: float = 60.0,
@@ -246,13 +248,18 @@ class Followers:
                                    f"{e}") from e
 
     def close(self) -> List[Optional[int]]:
-        """Stop and join every follower; -> their exit codes."""
+        """Stop every follower, leave the process group, then join them;
+        -> their exit codes. nccl tears a group down with all of its
+        ranks at once: a follower leaving the group waits for this rank
+        to leave it too, so this rank must not wait for the followers
+        before it leaves."""
         for c in self.conns:
             try:
                 c.send(None)
             except (BrokenPipeError, OSError):
                 pass
             c.close()
+        shutdown()
         for p in self.procs:
             p.join(self.join_timeout_s)
             if p.is_alive():
@@ -344,11 +351,9 @@ class LeaderPipeline:
         return self._run("edit_batch", (requests,), kwargs)
 
     def close(self) -> List[Optional[int]]:
-        """Stop and join the followers, leave the process group; -> the
-        followers' exit codes."""
-        codes = self.followers.close()
-        shutdown()
-        return codes
+        """Stop the followers, leave the process group, join the
+        followers; -> their exit codes."""
+        return self.followers.close()
 
 
 def run_followed(pipeline, cmd):

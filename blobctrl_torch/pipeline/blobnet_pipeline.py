@@ -352,12 +352,14 @@ class BlobNetPipeline:
 
     def _agreed_seeds(self, seeds: List[Optional[int]]) -> List[int]:
         """Seeds with each None drawn at random, rank 0's draws on every
-        rank (the ranks must run the same rows)."""
+        rank (the ranks must run the same rows). They cross on the
+        pipeline's device: nccl has no CPU tensors."""
         drawn = [int.from_bytes(os.urandom(4), "little") if s is None
                  else int(s) for s in seeds]
         if self.mesh is not None and any(s is None for s in seeds):
-            t = collectives.broadcast(torch.tensor(drawn, dtype=torch.int64),
-                                      0, self._group(("data", "model")))
+            t = collectives.broadcast(
+                torch.tensor(drawn, dtype=torch.int64, device=self.device),
+                0, self._group(("data", "model")))
             drawn = [int(v) for v in t.tolist()]
         return drawn
 

@@ -326,12 +326,105 @@ def test_initialize_takes_the_named_card_before_the_group(monkeypatch):
                                backend="nccl")
     assert dev == torch.device("cuda:3") and seen[0] == dev
     assert seen[1][0] == "nccl" and seen[1][1]["rank"] == 9
+    assert seen[1][1]["device_id"] == dev   # bound: no guess at a barrier
     assert seen[1][1]["init_method"] == "tcp://10.0.0.1:29500"
     seen.clear()
     with pytest.raises(RuntimeError, match="name their card"):
         multihost.initialize("10.0.0.1:29500", 16, 9, device="cuda",
                              backend="nccl")
     assert seen == []
+
+
+class _Spawned(Exception):
+    """Raised where an entry point would spawn its follower ranks."""
+
+
+def _start_cli(flags, device):
+    from blobctrl_torch.apps import cli
+    cli.run(cli.build_parser().parse_args(
+        ["--models_root", "nowhere", "--object_image", "x.png",
+         "--scene_prompt", "x", "--ellipse", "1,2,3,4,5", "--device",
+         device] + flags))
+
+
+def _start_server(flags, device):
+    from blobctrl_torch.apps import server
+    server.start_mesh("nowhere", device, *flags)
+
+
+@pytest.mark.parametrize("device", ["cuda:0", "cuda:1", "cuda"])
+@pytest.mark.parametrize("start, flags, world", [
+    (_start_cli, ["--mesh", "model=2"], 4),      # data fills the cards
+    (_start_cli, ["--hybrid_cfg_data"], 4),      # data=2 x the rest of 4
+    (_start_server, ("data=2", False), 2),
+], ids=["cli-model", "cli-hybrid", "server-data"])
+def test_a_mesh_refuses_a_named_card_before_any_rank(start, flags, world,
+                                                    device, monkeypatch):
+    """``--mesh`` / ``--hybrid_cfg_data`` with ``--device cuda:K`` would
+    put every rank on card K over nccl, which nccl refuses only at the
+    first collective, after every rank has loaded: the CLI and the server
+    refuse it before a follower is spawned or anything loads. Bare
+    ``cuda`` (rank r on cuda:r) gets past the check to the spawn (a host
+    of 4 cards faked)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    spawned = []
+
+    def followers(target, n, address, args=(), **kw):
+        spawned.append(n)
+        raise _Spawned
+
+    def initialize(*a, **k):
+        spawned.append("initialize")
+        raise _Spawned
+    monkeypatch.setattr(multihost, "Followers", followers)
+    monkeypatch.setattr(multihost, "initialize", initialize)
+    if device == "cuda":
+        with pytest.raises(_Spawned):
+            start(flags, device)
+        assert spawned == [world]
+    else:
+        with pytest.raises(SystemExit, match=f"name --device cuda, not "
+                                             f"{device}"):
+            start(flags, device)
+        assert spawned == []
+
+
+def test_the_leader_leaves_the_group_before_joining_its_followers(
+        tmp_path, monkeypatch):
+    """nccl tears a group down with all of its ranks: a follower that
+    leaves the group waits for the leader to leave it too. ``close`` must
+    leave before it joins, or it kills followers that wait on it (the
+    CLI's and the server's followers over nccl)."""
+    from tests import torch_ranks
+    flag = str(tmp_path / "left")
+    monkeypatch.setattr(multihost, "shutdown",
+                        lambda: open(flag, "w").close())
+    followers = multihost.Followers(torch_ranks.teardown_follower, 3,
+                                    "127.0.0.1:1", (flag,),
+                                    join_timeout_s=10.0)
+    assert followers.close() == [0, 0]
+
+
+def test_agreed_seeds_cross_on_the_pipelines_device(monkeypatch):
+    """A request without a seed on a mesh: rank 0's draw is broadcast on
+    the pipeline's device, since nccl takes no CPU tensor (a pipeline on
+    a device other than the CPU stood in by ``meta``)."""
+    from blobctrl_torch.pipeline.blobnet_pipeline import BlobNetPipeline
+    seen = []
+
+    def broadcast(t, src, group):
+        seen.append((t.device, src, group))
+        return torch.tensor([7, 5], dtype=torch.int64)
+    monkeypatch.setattr(collectives, "broadcast", broadcast)
+
+    class Ranks:
+        mesh, device = object(), torch.device("meta")
+
+        def _group(self, axes):
+            return axes
+    assert BlobNetPipeline._agreed_seeds(Ranks(), [None, 5]) == [7, 5]
+    assert seen == [(torch.device("meta"), 0, ("data", "model"))]
 
 
 def test_mesh_flags_on_the_cpu():

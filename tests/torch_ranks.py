@@ -430,6 +430,43 @@ def train_cli_rank(argv, port, coordinator=False):
     return rec["seen"], rec["steps"], rec["events"]
 
 
+def staging_rank():
+    """``scripts/torch_nccl_mesh.py``'s staging counter on a rank: ->
+    [collectives, staged through host memory] after an all-reduce, an
+    all-gather and a broadcast of CPU tensors and a barrier."""
+    import sys
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_nccl_mesh
+    from blobctrl_torch.parallel import collectives, multihost
+    seen = torch_nccl_mesh._count_staging()
+    group = multihost.world_group()
+    collectives.all_reduce(torch.ones(3), group)
+    collectives.all_gather(torch.ones(2), group)
+    collectives.broadcast(torch.ones(1))
+    collectives.barrier()
+    return list(seen)
+
+
+def teardown_follower(rank, world, address, conn, flag):
+    """A ``multihost.Followers`` target that ends, once told to, only
+    after its leader has left the process group (``flag`` exists), as an
+    nccl rank's teardown waits for every rank of its group."""
+    while conn.recv() is not None:
+        pass
+    deadline = time.monotonic() + 30.0
+    while not os.path.exists(flag):
+        if time.monotonic() > deadline:
+            raise SystemExit(3)
+        time.sleep(0.02)
+
+
+def spawned_rank(rank, world, port, fail, out):
+    """A target of ``scripts/torch_nccl_mesh.spawn``: 10 x its rank, or
+    rank ``fail``'s error."""
+    out.put((rank, "error" if rank == fail else "ok", 10 * rank))
+
+
 # one process of the CLI's --coordinator form (a host), started by
 # start_hosts: each of its ranks pickles its record into the directory
 # this names
@@ -475,26 +512,35 @@ def host_main():
     _save_rank(rank, rec)
 
 
-def start_hosts(argv, out, hosts, data_parallel, port, tree=ROOT,
-                env=None):
-    """The training CLI on ``argv`` as ``hosts`` --coordinator processes
-    (``host_main``) meeting at 127.0.0.1:``port`` with --data_parallel
-    ``data_parallel``, each spawning its host's other ranks: -> the
-    processes (output piped); every rank pickles its record to
-    out/rank{g}.pkl. tree: the checkout whose ``blobctrl_torch`` runs
-    (this one by default; this module is always this checkout's, imported
-    from its own directory, where no other package named ``tests`` can
-    shadow it); env(h): more of host h's environment."""
+def start_host(argv, out, tree=ROOT, env=None):
+    """One process of the training CLI on ``argv`` (``host_main``), which
+    spawns its host's other ranks: -> the process (output piped); every
+    rank pickles its record to out/rank{g}.pkl. tree: the checkout whose
+    ``blobctrl_torch`` runs (this one by default; this module is always
+    this checkout's, imported from its own directory, where no other
+    package named ``tests`` can shadow it); env: more of its
+    environment. Without --coordinator in argv this is the spawned form
+    (one host, ``--data_parallel`` ranks)."""
     import subprocess
     import sys
     boot = (f"import sys; sys.path[:0] = [{tree!r}, {HERE!r}]; "
             f"import torch_ranks; torch_ranks.host_main()")
-    return [subprocess.Popen(
-        [sys.executable, "-c", boot, out, "--", *argv, "--coordinator",
-         f"127.0.0.1:{port}", "--num_processes", str(hosts), "--process_id",
-         str(h), "--data_parallel", str(data_parallel)], cwd=tree,
-        env=dict(os.environ, OMP_NUM_THREADS="1", **(env(h) if env else {})),
+    return subprocess.Popen(
+        [sys.executable, "-c", boot, out, "--", *argv], cwd=tree,
+        env=dict(os.environ, OMP_NUM_THREADS="1", **(env or {})),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def start_hosts(argv, out, hosts, data_parallel, port, tree=ROOT,
+                env=None):
+    """The training CLI on ``argv`` as ``hosts`` --coordinator processes
+    (``start_host``) meeting at 127.0.0.1:``port`` with --data_parallel
+    ``data_parallel``: -> the processes; env(h): more of host h's
+    environment."""
+    return [start_host(
+        [*argv, "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+         str(hosts), "--process_id", str(h), "--data_parallel",
+         str(data_parallel)], out, tree, env(h) if env else None)
         for h in range(hosts)]
 
 
