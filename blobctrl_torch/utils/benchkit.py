@@ -65,31 +65,36 @@ def make_flagship_session_pipe(seed: int = 0, device="cuda",
     return add_encoders(make_flagship_pipe(seed, device, dtype), seed + 3)
 
 
-def make_edit_inputs(size: int = 512, seed: int = 0, ellipse=None):
+def make_edit_inputs(height: int = 512, seed: int = 0, ellipse=None,
+                     width: int = None):
     """Random fg/bg images, one blob score, CLIP-shaped prompt embeds,
-    DINOv2-shaped appearance feats and fixed initial latents; the same
-    numbers as the JAX package's ``make_edit_inputs`` for the same seed."""
+    DINOv2-shaped appearance feats and fixed initial latents, ``height``
+    by ``width`` (square where ``width`` is None, then the same numbers as
+    the JAX package's ``make_edit_inputs`` for the same seed)."""
+    h, w = height, height if width is None else width
     rng = np.random.RandomState(seed)
     if ellipse is None:
-        ellipse = ((size * 0.55, size * 0.5), (size * 0.25, size * 0.4), 30.0)
+        ellipse = ((w * 0.55, h * 0.5), (w * 0.25, h * 0.4), 30.0)
     return dict(
-        fg_image=rng.randint(0, 255, (size, size, 3)).astype(np.uint8),
-        bg_image=rng.randint(0, 255, (size, size, 3)).astype(np.uint8),
+        fg_image=rng.randint(0, 255, (h, w, 3)).astype(np.uint8),
+        bg_image=rng.randint(0, 255, (h, w, 3)).astype(np.uint8),
         gs_score=blob_math.blob_score_from_ellipse(
-            ellipse, size, size, (size // 8, size // 8)).numpy(),
+            ellipse, w, h, (h // 8, w // 8)).numpy(),
         prompt_embeds=rng.randn(1, 77, 768).astype(np.float32) * 0.02,
         negative_prompt_embeds=rng.randn(1, 77, 768).astype(np.float32) * 0.02,
         fg_dino_feats=rng.randn(1, 1024).astype(np.float32) * 0.1,
-        latents=rng.randn(1, size // 8, size // 8, 4).astype(np.float32),
+        latents=rng.randn(1, h // 8, w // 8, 4).astype(np.float32),
     )
 
 
-def standard_edit_kwargs(size: int = 512, steps: int = 50, seed: int = 0,
-                         ellipse=None):
+def standard_edit_kwargs(height: int = 512, steps: int = 50, seed: int = 0,
+                         ellipse=None, width: int = None):
     """Full kwargs for one production edit (unipc, CFG 7.5, control
-    strength 1.6, control window end 0.9)."""
-    kw = make_edit_inputs(size, seed, ellipse)
-    kw.update(height=size, width=size, num_inference_steps=steps,
+    strength 1.6, control window end 0.9), ``height`` by ``width``
+    (square where ``width`` is None)."""
+    width = height if width is None else width
+    kw = make_edit_inputs(height, seed, ellipse, width)
+    kw.update(height=height, width=width, num_inference_steps=steps,
               guidance_scale=7.5, blobnet_conditioning_scale=1.6,
               blobnet_control_guidance_end=0.9, scheduler="unipc")
     return kw

@@ -41,6 +41,13 @@ script exits non-zero:
      same function where there is one (none computes either int8 function;
      the fused GEMMs and the Winograd conv are set against the library's
      product or conv without their prologue).
+     Then a photo's own size: one-step full-width edits at each W x H of
+     PHOTO_SIZES (768x512, 512x768, 576x512, 520x512, 640x480: levels
+     that are no powers of two, widths no multiple of 8, odd widths, h % 8
+     != 0) in every mode, and every launch key they make that the 512^2
+     and batched edits did not, checked under the same bars without
+     timing; each kernel's count of such shapes and its worst relative
+     error in each dtype printed, and the part's seconds.
   3. The trained 256^2 toy checkpoint: a move and a remove edit
      (TOY_CPU_STEPS steps, fp32; the CPU reference is the phase's cost),
      exact, in the int8-everything mode and as the fused-kernel
@@ -50,7 +57,9 @@ script exits non-zero:
      Then this slice's samplers and options on the exact path, fp32, at
      the same bar: DDIM with eta 0.5 and DPM-Solver++ 2M SDE Karras (their
      variance noise drawn on the CPU generator, so both sides see the same
-     numbers) and the encoder cache (interval 3).
+     numbers) and the encoder cache (interval 3). Then the move and remove
+     edits at W x H 192x256 and 320x256 (TOY_PHOTO_SIZES), every mode, at
+     the same bars, the outputs at the photo's size.
      Then the quality gate (``train/toy.py``'s evaluation half) on the
      card, fp32, GATE_STEPS steps, the held-out scenes and bars of
      ``tests/test_toy_quality_gate_256.py``: the move edit's colour at the
@@ -83,7 +92,10 @@ script exits non-zero:
      TENSOR_CORE``), and of the int8 path's int8 flash and int8 conv, must
      have run on its tensor-core kernel, as the C entry point reports it.
      The int8 edit also logs its K-major int8 weight copies and its largest
-     int32 split workspace.
+     int32 split workspace. Then the standard edit at 768x512 (PHOTO, W x
+     H), exact, STEPS steps: its output (1, 512, 768, 3) and finite, every
+     launch on the tensor cores at a shape phase 2 checked; its seconds,
+     peak memory and launches printed beside the 512^2 edit's.
   5. The interactive session at full width, bf16: CLIP ViT-L/14 text and
      DINOv2-large added to phase 4's pipeline (random weights drawn on the
      card, a byte-level vocabulary built in code), ``BlobCtrlSession``:
@@ -147,7 +159,12 @@ script exits non-zero:
      with the latents as output. Counters zeroed before
      each request and read after it: flash and conv3x3 launch in each, all
      on the tensor cores, and no other kernel; seconds, launches, VAE
-     encodes and peak memory are printed for each.
+     encodes and peak memory are printed for each. Then ``python -m
+     blobctrl_torch.apps.cli --device cuda`` as a process on the root, on
+     a seeded 768x512 object image and background written as PNGs
+     (CLI_PHOTO_STEPS steps): its PNG 768x512, within 1 uint8 level of
+     the pipeline loaded from the root here and called with the same
+     arguments.
   7. Serving, on phase 6's loaded pipeline: ``edit_batch`` of 1, 2 and 4
      distinct 512^2 requests (text prompts, own images, ellipses and
      seeds; STEPS steps), warm, with seconds a batch and an image, peak
@@ -241,8 +258,10 @@ script exits non-zero:
         thread and on DECODE_THREADS, and the read of 8c's 10.18 GB state,
         written by JAX, projected from them.
   9. Parallel (``blobctrl_torch/parallel``), after phase 8: ranks spawned
-     on this one card (``cuda:0``), over gloo by explicit argument (NCCL
-     refuses two ranks on one device), a group of 2 and then one of 4;
+     on this one card (``cuda:0``, ``spawn_ranks``), over gloo by explicit
+     argument (NCCL refuses two ranks on one device; ``scripts/
+     torch_nccl_mesh.py`` spawns the same ranks over nccl, a card a rank),
+     a group of 2 and then one of 4;
      each rank zeroes its launch counters and collective log just before
      each run and reads them just after. The ranks share one card and
      their collectives go through host memory: the seconds are for
@@ -320,7 +339,8 @@ script exits non-zero:
  11. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those
-     shapes, and the whole run's seconds.
+     shapes, the photo sizes' seconds in phases 2, 3, 4 and 6, and the
+     whole run's seconds, with the card's name and power limit.
 
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
 kernels' from the exact requests, the int8 kernels' from the int8 one, the
@@ -348,7 +368,9 @@ output pixel (the direct conv's 9*C*Co is logged beside it). The splat's
 operations are fp32 arithmetic (about 20 per pixel and blob, and in the
 view mode 6 per pixel and channel for the colours) at 67 TFLOP/s; its
 bytes, the raw blob inputs read and the N*H*W*(M+1) fp32 output (the
-view: H*W*3 uint8) written, bound it.
+view: H*W*3 uint8) written, bound it. ``photo_shapes``,
+``photo_rel_bf16`` and ``photo_rel_fp32`` are phase 2's count of the
+shapes only the photo sizes launched, and the worst relative error there.
 """
 
 from __future__ import annotations
@@ -672,7 +694,7 @@ def check_kernels(shapes, timing: bool = True):
     results = {name: {} for name in shapes}
     for name, keys in shapes.items():
         for key in sorted(keys, key=repr):
-            row = {"max_abs_err": 0.0}
+            row = {"max_abs_err": 0.0, "rel_bf16": 0.0, "rel_fp32": 0.0}
             for dtype in (torch.bfloat16, torch.float32):
                 case = CASES[name](key, dtype, gen)
                 for i, mode in enumerate(case["modes"]):
@@ -697,6 +719,8 @@ def check_kernels(shapes, timing: bool = True):
                     if not ok:
                         raise AssertionError(f"{tag}: rel {rel}")
                     row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+                    worst = "rel_bf16" if dtype == torch.bfloat16 else "rel_fp32"
+                    row[worst] = max(row[worst], rel)
                     if dtype == torch.bfloat16 and timing:
                         pre = f"{case['labels'][i]}:" if i else ""
                         row[pre + "ms"] = time_ms(
@@ -957,55 +981,59 @@ def jpeg_phase():
 # phase 3: trained toy checkpoint, card against CPU
 # ---------------------------------------------------------------------------
 
-def ellipse_mask(ellipse, size: int) -> np.ndarray:
+def ellipse_mask(ellipse, height: int, width: int = None) -> np.ndarray:
     """Filled ellipse ((xc, yc), (d1, d2), angle_deg), 4x4 supersampled ->
-    (size, size) uint8 coverage."""
+    (height, width) uint8 coverage (square where ``width`` is None)."""
+    width = height if width is None else width
     (xc, yc), (d1, d2), ang = ellipse
     ss = 4
-    c = (np.arange(size * ss) + 0.5) / ss
-    x, y = np.meshgrid(c - xc, c - yc)
+    x, y = np.meshgrid((np.arange(width * ss) + 0.5) / ss - xc,
+                       (np.arange(height * ss) + 0.5) / ss - yc)
     t = np.deg2rad(ang)
     u = x * np.cos(t) + y * np.sin(t)
     v = -x * np.sin(t) + y * np.cos(t)
     inside = (u / (d1 / 2)) ** 2 + (v / (d2 / 2)) ** 2 <= 1.0
-    cover = inside.reshape(size, ss, size, ss).mean(axis=(1, 3))
+    cover = inside.reshape(height, ss, width, ss).mean(axis=(1, 3))
     return np.round(cover * 255).astype(np.uint8)
 
 
-def toy_edits(size: int, steps: int):
+def toy_edits(height: int, steps: int, width: int = None):
     """A move and a remove edit on a synthetic toy scene: a colored ellipse
-    on a gradient background, with the toy's class embeddings."""
+    on a gradient background, with the toy's class embeddings; ``height``
+    by ``width`` (square where ``width`` is None). Any size goes: the
+    pipeline floors the output to multiples of 8."""
     from blobctrl_torch.blob import math as blob_math
     from blobctrl_torch.train import toy
+    h, w = height, height if width is None else width
     rng = np.random.RandomState(4)
     cls = 0
     emb = toy.class_embeddings()
-    t = np.linspace(0.0, 1.0, size)[:, None, None]
+    t = np.linspace(0.0, 1.0, h)[:, None, None]
     img = (1 - t) * np.array([120.0, 130, 140]) + t * np.array([160.0, 150,
                                                                  120])
-    img = np.broadcast_to(img, (size, size, 3)).copy()
-    src = ((size * 0.35, size * 0.45), (size * 0.3, size * 0.4), 20.0)
-    dst = ((size * 0.65, size * 0.55), (size * 0.3, size * 0.4), 20.0)
-    m = ellipse_mask(src, size)[..., None] / 255.0
+    img = np.broadcast_to(img, (h, w, 3)).copy()
+    src = ((w * 0.35, h * 0.45), (w * 0.3, h * 0.4), 20.0)
+    dst = ((w * 0.65, h * 0.55), (w * 0.3, h * 0.4), 20.0)
+    m = ellipse_mask(src, h, w)[..., None] / 255.0
     img = np.clip((1 - m) * img + m * np.array(toy.COLORS[cls][1]), 0,
                   255).astype(np.uint8)
     fg = np.where(m > 0.5, img, 255).astype(np.uint8)
     bg = np.where(m > 0, 255, img).astype(np.uint8)
-    bg_move = np.where(ellipse_mask(dst, size)[..., None] > 0, 0,
+    bg_move = np.where(ellipse_mask(dst, h, w)[..., None] > 0, 0,
                        bg).astype(np.uint8)
-    lat = rng.randn(1, size // 8, size // 8, 4).astype(np.float32)
-    common = dict(height=size, width=size, num_inference_steps=steps,
+    lh, lw = h // 8, w // 8
+    lat = rng.randn(1, lh, lw, 4).astype(np.float32)
+    common = dict(height=h, width=w, num_inference_steps=steps,
                   guidance_scale=4.0, latents=lat)
     move = dict(common, fg_image=fg, bg_image=bg_move,
                 gs_score=blob_math.blob_score_from_ellipse(
-                    dst, size, size, (size // 8, size // 8)).numpy(),
+                    dst, w, h, (lh, lw)).numpy(),
                 prompt_embeds=emb["text"][cls][None],
                 negative_prompt_embeds=np.zeros_like(emb["text"][cls])[None],
                 fg_dino_feats=emb["appearance"][cls][None])
-    lh = size // 8
     remove = dict(common, fg_image=np.full_like(img, 255), bg_image=bg,
-                  gs_score=np.stack([np.ones((1, lh, lh)),
-                                     np.zeros((1, lh, lh))], -1).astype(
+                  gs_score=np.stack([np.ones((1, lh, lw)),
+                                     np.zeros((1, lh, lw))], -1).astype(
                                          np.float32),
                   prompt_embeds=np.zeros((1, 7, 16), np.float32),
                   negative_prompt_embeds=np.zeros((1, 7, 16), np.float32),
@@ -1175,36 +1203,92 @@ def quality_gate(pipe, size: int = 256, steps: int = GATE_STEPS):
         raise AssertionError(f"quality gate: {fails}")
 
 
+# a photo-size CPU worker's threads: 3 workers beside this process, 8 cores
+TOY_CPU_THREADS = 2
+
+
+def toy_card_edit(card, mode, kw):
+    """-> (images, launches, seconds, tensor-core launches) of one toy
+    edit on the card in ``mode``."""
+    from blobctrl_torch import ops
+    with mode_context(mode):
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        got = card(**kw).images
+        t_card = time.perf_counter() - t0
+        return got, launch_counts(), t_card, tensor_core_counts()
+
+
+def hold_toy(w, h, mode, name, card_run, want, t_cpu):
+    """Phase 3's bars on one toy edit at W x H: the card's ``card_run``
+    (``toy_card_edit``) of the photo's shape, >= 40 dB against the CPU's
+    ``want``, every kernel of ``mode`` launched."""
+    got, counts, t_card, tc = card_run
+    p = psnr(got, want)
+    ran = {k: counts[k] for k in MODES[mode]}
+    tag = f"toy {w}x{h} (W x H) {mode} {name}"
+    log(f"  {tag}: card {t_card:.2f} s, cpu {t_cpu:.2f} s, PSNR "
+        f"card vs cpu {p:.2f} dB, launches {ran}")
+    if not (got.shape == (1, h, w, 3) and p >= 40.0
+            and min(ran.values()) > 0 and np.isfinite(got).all()):
+        raise AssertionError(f"{tag}: {got.shape}, PSNR {p}, "
+                             f"launches {counts}")
+    if mode == "int8":  # the int8 conv: tensor cores in fp32 too
+        check_tensor_cores(f"{tag}, fp32", counts, ("conv3x3_int8",), tc)
+
+
+def _toy_cpu_rank(rank, world, port, sizes, out):
+    """Phase 3's fp32 CPU edits at ``sizes`` in the rank-th of MODES, on
+    TOY_CPU_THREADS threads: -> {(W, H, mode, edit): (images, seconds)}."""
+    import traceback
+    try:
+        sys.path.insert(0, ROOT)
+        from blobctrl_torch.train import toy
+        torch.set_num_threads(TOY_CPU_THREADS)
+        mode = list(MODES)[rank]
+        cpu, _ = toy.load_toy(os.path.join(ROOT, "assets", "toy_ckpt_256"),
+                              device="cpu", dtype=torch.float32)
+        got = {}
+        for w, h in sizes:
+            for name, kw in toy_edits(h, TOY_CPU_STEPS, width=w).items():
+                t0 = time.perf_counter()
+                with mode_context(mode):
+                    images = cpu(**kw).images
+                got[w, h, mode, name] = (images, time.perf_counter() - t0)
+        out.put((rank, "ok", got))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        out.put((rank, "error", traceback.format_exc()))
+
+
 def toy_phase():
     from blobctrl_torch import ops
     from blobctrl_torch.train import toy
     ckpt = os.path.join(ROOT, "assets", "toy_ckpt_256")
     card, _ = toy.load_toy(ckpt, device="cuda", dtype=torch.float32)
     cpu, _ = toy.load_toy(ckpt, device="cpu", dtype=torch.float32)
-    edits = toy_edits(256, TOY_CPU_STEPS)
     cpu_fp32 = {}
-    for mode, kernels in MODES.items():
-        for name, kw in edits.items():
+    for mode in MODES:
+        for name, kw in toy_edits(256, TOY_CPU_STEPS).items():
+            got = toy_card_edit(card, mode, kw)
+            t0 = time.perf_counter()
             with mode_context(mode):
-                ops.reset_counts()
-                t0 = time.perf_counter()
-                got = card(**kw).images
-                t_card = time.perf_counter() - t0
-                counts = launch_counts()
-                t0 = time.perf_counter()
-                want = cpu_fp32[mode, name] = cpu(**kw).images
-                t_cpu = time.perf_counter() - t0
-            p = psnr(got, want)
-            ran = {k: counts[k] for k in kernels}
-            log(f"  toy 256^2 {mode} {name}: card {t_card:.2f} s, cpu "
-                f"{t_cpu:.2f} s, PSNR card vs cpu {p:.2f} dB, launches {ran}")
-            if not (p >= 40.0 and min(ran.values()) > 0
-                    and np.isfinite(got).all()):
-                raise AssertionError(f"toy {mode} {name}: PSNR {p}, "
-                                     f"launches {counts}")
-            if mode == "int8":  # the int8 conv: tensor cores in fp32 too
-                check_tensor_cores(f"toy 256^2 fp32 int8 {name}", counts,
-                                   ("conv3x3_int8",))
+                want = cpu_fp32[256, 256, mode, name] = cpu(**kw).images
+            hold_toy(256, 256, mode, name, got, want, time.perf_counter() - t0)
+    # the photo sizes: their CPU edits in a process a mode, the card's here
+    t0, card_runs = time.perf_counter(), {}
+
+    def on_the_card():
+        for w, h in TOY_PHOTO_SIZES:
+            for name, kw in toy_edits(h, TOY_CPU_STEPS, width=w).items():
+                for mode in MODES:
+                    card_runs[w, h, mode, name] = toy_card_edit(card, mode,
+                                                                kw)
+    for refs in spawn(_toy_cpu_rank, len(MODES), (TOY_PHOTO_SIZES,),
+                      meanwhile=on_the_card):
+        for key, (want, t_cpu) in refs.items():
+            hold_toy(*key, card_runs[key], want, t_cpu)
+    PHOTO_SECONDS["phase 3"] = time.perf_counter() - t0
+    edits = toy_edits(256, TOY_CPU_STEPS)
     # this slice's samplers and options; the stochastic ones draw their
     # variance noise from the seed's keys, the same bits on both sides
     for name, extra in (("ddim eta 0.5", dict(scheduler="ddim", eta=0.5,
@@ -1237,7 +1321,7 @@ def toy_phase():
             check_tensor_cores(f"toy 256^2 bf16 {mode} move", counts,
                                MODES[mode])
             want = cpu(**edits["move"]).images
-        want32 = cpu_fp32[mode, "move"]
+        want32 = cpu_fp32[256, 256, mode, "move"]
         floor, p32, p16 = (psnr(want, want32), psnr(got, want32),
                            psnr(got, want))
         ran = {k: counts[k] for k in MODES[mode]}
@@ -1293,10 +1377,187 @@ def run_request(pipe, kw):
     out = pipe(**kw).images
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    if out.shape != (1, 512, 512, 3) or not np.isfinite(out).all():
+    want = (1, kw["height"] // 8 * 8, kw["width"] // 8 * 8, 3)
+    if out.shape != want or not np.isfinite(out).all():
         raise AssertionError(f"bad output {out.shape}")
     launches = {k: n - before[k] for k, n in launch_counts().items()}
     return out, secs, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+# ---------------------------------------------------------------------------
+# a photo's own size (phases 2, 3, 4 and 6): edits that are not 512^2
+# ---------------------------------------------------------------------------
+
+# W x H of phase 2's one-step edits, each a user's photo: 3:2, 2:3, rows of
+# 36 and 18 at the deepest levels (no multiple of 8), odd W at every level,
+# 4:3 (h % 8 != 0 below level 0, and odd-size upsampling)
+PHOTO_SIZES = ((768, 512), (512, 768), (576, 512), (520, 512), (640, 480))
+TOY_PHOTO_SIZES = ((192, 256), (320, 256))  # phase 3's, W x H
+PHOTO = (768, 512)    # phase 4's full-width request and the CLI's photo
+CLI_PHOTO_STEPS = 4   # the CLI's edit at PHOTO
+CLI_PHOTO_ELLIPSE = (430.0, 260.0, 180.0, 240.0, 30.0)  # xc, yc, d1, d2, deg
+PHOTO_SECONDS = {}    # the photo checks' own seconds, by part
+
+
+def photo_edit_kwargs(wh, steps: int, **extra):
+    """The standard edit at W x H ``wh``, with ``extra`` kwargs."""
+    from blobctrl_torch.utils import benchkit
+    w, h = wh
+    return dict(benchkit.standard_edit_kwargs(h, steps, width=w), **extra)
+
+
+def record_photo_shapes(pipe, checked):
+    """Phase 2's photo sizes: a one-step full-width edit at each W x H of
+    PHOTO_SIZES in every mode (a mode's derived weights made once for its
+    five edits). -> ({kernel: launch keys not in ``checked``}, {(W, H):
+    {kernel: launches}})."""
+    from blobctrl_torch import ops
+    new = {name: set() for name in checked}
+    per_size = {wh: {} for wh in PHOTO_SIZES}
+    for mode, names in MODES.items():
+        with mode_context(mode):
+            for wh in PHOTO_SIZES:
+                ops.reset_counts()
+                out = pipe(**photo_edit_kwargs(
+                    wh, 1, blobnet_control_guidance_end=1.0)).images
+                want = (1, wh[1] // 8 * 8, wh[0] // 8 * 8, 3)
+                if out.shape != want or not np.isfinite(out).all():
+                    raise AssertionError(f"{mode} {wh}: {out.shape}")
+                counts = launch_counts()
+                per_size[wh].update({k: counts[k] for k in names})
+                for name, keys in launch_shapes().items():
+                    if name in new:
+                        new[name] |= set(keys) - checked[name]
+        pipe._param_cache.clear()  # the mode's int8 or Winograd weights
+    torch.cuda.synchronize()
+    return new, per_size
+
+
+def photo_kernel_checks(pipe, results, checked):
+    """Phase 2's photo part: record PHOTO_SIZES' launch keys and check each
+    one the 512^2 edits (``checked``) never launched, under phase 2's
+    bars, without timing; ``results`` gains their rows. -> {kernel: (new
+    shapes, worst rel bf16, worst rel fp32)}."""
+    t0 = time.perf_counter()
+    new, per_size = record_photo_shapes(pipe, checked)
+    for wh, counts in per_size.items():
+        log(f"  one-step edits at {wh[0]}x{wh[1]} (W x H), every mode: "
+            f"launches {counts}")
+    t_rec = time.perf_counter() - t0
+    rows = check_kernels(new, timing=False)
+    summary = {}
+    for name in checked:
+        got = rows.get(name, {})
+        results[name].update(got)
+        summary[name] = (len(got),
+                         max((r["rel_bf16"] for r in got.values()),
+                             default=0.0),
+                         max((r["rel_fp32"] for r in got.values()),
+                             default=0.0))
+        log(f"  {name}: {summary[name][0]} shapes new at the photo sizes, "
+            f"worst rel err bf16 {summary[name][1]:.3e} (bar "
+            f"{TOL[torch.bfloat16]:.0e}), fp32 {summary[name][2]:.3e} "
+            f"(bar {TOL[torch.float32]:.0e})")
+    never = [k for k in checked
+             if not any(c.get(k) for c in per_size.values())]
+    if never:
+        raise AssertionError(f"never launched at the photo sizes: {never}")
+    PHOTO_SECONDS["phase 2"] = time.perf_counter() - t0
+    log(f"  the photo sizes' part of phase 2: {PHOTO_SECONDS['phase 2']:.1f}"
+        f" s ({t_rec:.1f} s of edits)")
+    return summary
+
+
+def photo_request(pipe, square, card: str):
+    """Phase 4's photo request: the standard edit at PHOTO (W x H), bf16,
+    STEPS steps, exact; its seconds, peak memory and launches beside
+    ``square``, the 512^2 edit's (secs, launches, mem). -> its launch
+    keys."""
+    from blobctrl_torch import ops
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    out, secs, launches, mem = run_request(pipe, photo_edit_kwargs(PHOTO,
+                                                                   STEPS))
+    shapes = launch_shapes()
+    check_tensor_cores(f"edit at {PHOTO[0]}x{PHOTO[1]}", launch_counts(),
+                       EXACT)
+    if min(launches[k] for k in EXACT) == 0:
+        raise AssertionError(f"photo edit: launches {launches}")
+    ran = {k: n for k, n in launches.items() if n}
+    log(f"  edit at {PHOTO[0]}x{PHOTO[1]} (W x H), {STEPS} steps: output "
+        f"{out.shape}, {secs:.3f} s, launches {ran}, peak memory {mem:.2f} "
+        f"GiB; the 512^2 edit: {square[0]:.3f} s, launches "
+        f"{({k: n for k, n in square[1].items() if n})}, {square[2]:.2f} "
+        f"GiB ({card})")
+    PHOTO_SECONDS["phase 4"] = time.perf_counter() - t0
+    return shapes
+
+
+def cli_photo_phase(models_root: str, device="cuda", steps: int =
+                    CLI_PHOTO_STEPS, wh=PHOTO):
+    """``python -m blobctrl_torch.apps.cli --device cuda`` on the models
+    root at a photo's size: a seeded W x H object image and background,
+    written as PNGs here; its PNG must be W x H and within 1 uint8 level
+    of the pipeline loaded from the same root and called directly with the
+    same arguments (``tests/test_torch_cli.py``'s check)."""
+    from blobctrl_torch.blob import math as blob_math
+    from blobctrl_torch.params import io
+    from blobctrl_torch.utils import png
+    t0 = time.perf_counter()
+    w, h = wh
+    work = tempfile.mkdtemp(prefix="cli_photo_")
+    try:
+        rng = np.random.RandomState(21)
+        arrays = {name: rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+                  for name in ("object", "background")}
+        paths = {}
+        for name, arr in arrays.items():
+            paths[name] = os.path.join(work, f"{name}.png")
+            with open(paths[name], "wb") as f:
+                f.write(png.encode_png(arr))
+        ellipse = ",".join(str(v) for v in CLI_PHOTO_ELLIPSE)
+        out_dir = os.path.join(work, "out")
+        argv = [sys.executable, "-m", "blobctrl_torch.apps.cli",
+                "--models_root", models_root, "--device", device,
+                "--object_image", paths["object"],
+                "--edited_background", paths["background"],
+                "--scene_prompt", PROMPT, "--ellipse", ellipse,
+                "--num_inference_steps", str(steps), "--output_dir", out_dir]
+        t1 = time.perf_counter()
+        run = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        t_cli = time.perf_counter() - t1
+        if run.returncode != 0:
+            raise AssertionError(f"cli exited {run.returncode}:\n"
+                                 f"{run.stderr[-4000:]}")
+        with open(os.path.join(out_dir, "edit_0.png"), "rb") as f:
+            got = png.decode_png(f.read())
+        pipe = io.load_pipeline(models_root, dtype=torch.bfloat16,
+                                device=device)
+        xc, yc, d1, d2, ang = CLI_PHOTO_ELLIPSE
+        want = pipe(prompt=[PROMPT], negative_prompt=None,
+                    fg_image=arrays["object"], bg_image=arrays["background"],
+                    gs_score=blob_math.blob_score_from_ellipse(
+                        ((xc, yc), (d1, d2), ang), w, h,
+                        (h // 8, w // 8)).numpy(),
+                    height=h, width=w, num_inference_steps=steps,
+                    guidance_scale=7.5, seed=1248464818,
+                    blobnet_conditioning_scale=1.2,
+                    blobnet_control_guidance_start=0.0,
+                    blobnet_control_guidance_end=0.9,
+                    scheduler="unipc").images
+        del pipe
+        want = (want[0] * 255).astype(np.uint8)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    log(f"  the CLI at {w}x{h} (W x H), {steps} steps, bf16: "
+        f"{t_cli:.1f} s as a process; its PNG {got.shape}, against the "
+        f"pipeline called here: max {int(diff.max())} uint8 levels, "
+        f"{100 * float((diff == 0).mean()):.3f} % of values equal")
+    if got.shape != (h, w, 3) or diff.max() > 1:
+        raise AssertionError(f"cli photo: {got.shape}, {int(diff.max())}")
+    PHOTO_SECONDS["phase 6"] = time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -3911,67 +4172,111 @@ def _rank_job(job):
                         one_step_each_mode)
 
 
-def _rank_main(rank, world, port, jobs, out, device):
-    """One rank of a phase-9 or phase-10 group: every rank on ``device``
-    (cuda:0, or the CPU for 10d's reference), over gloo."""
+STAGING = "_staging"   # a rank's [collectives, staged through host memory]
+
+
+def count_staging():
+    """Count this process's collectives and those staged through host
+    memory: -> the [calls, staged] list the wrapper keeps."""
+    from blobctrl_torch.parallel import collectives
+    real, seen = collectives._staged, [0, 0]
+
+    def staged(t, group):
+        s = real(t, group)
+        seen[0] += 1
+        seen[1] += int(s)
+        return s
+    collectives._staged = staged
+    return seen
+
+
+def _rank_main(rank, world, port, jobs, device, backend, out):
+    """One rank of a phase-9 or phase-10 group, over ``backend``: gloo
+    with every rank on ``device`` (cuda:0, or the CPU for 10d's
+    reference), or nccl with ``device`` "cuda", rank r on cuda:r. ->
+    {job: its result, STAGING: this rank's collectives}."""
     import traceback
     try:
         sys.path.insert(0, ROOT)
         from blobctrl_torch.parallel import multihost
+        seen = count_staging()
         multihost.initialize(f"127.0.0.1:{port}", world, rank,
-                             device=device, backend="gloo",
+                             device=device, backend=backend,
                              timeout_s=PARALLEL_TIMEOUT_S)
         try:
-            out.put((rank, "ok", {_job_name(job): _rank_job(job)
-                                  for job in jobs}))
+            got = {_job_name(job): _rank_job(job) for job in jobs}
+            got[STAGING] = list(seen)
+            out.put((rank, "ok", got))
         finally:
             multihost.shutdown()
     except BaseException:  # noqa: BLE001 — reported to the parent
         out.put((rank, "error", traceback.format_exc()))
 
 
-def spawn_ranks(world: int, jobs, meanwhile=None, device="cuda:0"):
-    """Run ``jobs`` on ``world`` spawned ranks on ``device``, and
-    ``meanwhile()`` here while they start and run; -> their results in
-    rank order. A rank that fails or dies fails the phase; every process
-    is joined, or killed, before this returns."""
-    import multiprocessing
+def collect(out, procs, deadline_s):
+    """The next (rank, "ok" | "error", value) of every process in
+    ``procs`` from ``out`` -> their values in rank order. A rank that
+    fails, dies or is late raises AssertionError."""
     import queue
+    got, deadline = {}, time.monotonic() + deadline_s
+    while len(got) < len(procs):
+        try:
+            rank, status, value = out.get(timeout=5.0)
+        except queue.Empty:
+            if time.monotonic() > deadline or any(
+                    p.exitcode not in (None, 0) for p in procs):
+                raise AssertionError(
+                    f"ranks {sorted(set(range(len(procs))) - set(got))} "
+                    f"gave no result (exit codes "
+                    f"{[p.exitcode for p in procs]})")
+            continue
+        if status != "ok":
+            raise AssertionError(f"rank {rank} failed:\n{value}")
+        got[rank] = value
+    return [got[r] for r in range(len(procs))]
+
+
+def join(procs):
+    """Join every process, killing any still alive after 30 s."""
+    for p in procs:
+        p.join(30.0)
+        if p.is_alive():
+            p.kill()
+            p.join(10.0)
+
+
+def spawn(target, world: int, args, meanwhile=None):
+    """``target(rank, world, port, *args, out)`` on ``world`` spawned
+    processes, each putting (rank, "ok" | "error", value) on ``out``, and
+    ``meanwhile()`` here while they start and run; -> their values in rank
+    order (``collect``, within PARALLEL_TIMEOUT_S). Every process is
+    joined, or killed, before this returns."""
+    import multiprocessing
     from blobctrl_torch.parallel import multihost
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
     port = multihost.free_port()
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, port, jobs, out, device))
+    procs = [ctx.Process(target=target, args=(r, world, port, *args, out))
              for r in range(world)]
     for p in procs:
         p.start()
-    got = {}
     try:
         deadline = time.monotonic() + PARALLEL_TIMEOUT_S
         if meanwhile is not None:
             meanwhile()
-        while len(got) < world:
-            try:
-                rank, status, value = out.get(timeout=5.0)
-            except queue.Empty:
-                if time.monotonic() > deadline or any(
-                        p.exitcode not in (None, 0) for p in procs):
-                    raise AssertionError(
-                        f"ranks {sorted(set(range(world)) - set(got))} "
-                        f"gave no result (exit codes "
-                        f"{[p.exitcode for p in procs]})")
-                continue
-            if status != "ok":
-                raise AssertionError(f"rank {rank} failed:\n{value}")
-            got[rank] = value
+        return collect(out, procs, deadline - time.monotonic())
     finally:
-        for p in procs:
-            p.join(30.0)
-            if p.is_alive():
-                p.kill()
-                p.join(10.0)
-    return [got[r] for r in range(world)]
+        join(procs)
+
+
+def spawn_ranks(world: int, jobs, meanwhile=None, device="cuda:0",
+                backend="gloo"):
+    """Run ``jobs`` on ``world`` spawned ranks (``_rank_main``: gloo on
+    ``device``, or nccl a card a rank with ``device`` "cuda"), and
+    ``meanwhile()`` here; -> their results in rank order. A rank that
+    fails or dies fails the phase."""
+    return spawn(_rank_main, world, (jobs, device, backend),
+                 meanwhile=meanwhile)
 
 
 def _local(run, name, reference_keys):
@@ -5019,6 +5324,13 @@ def main() -> int:
     log("  phase 7's batched shapes, checked without timing:")
     for name, rows in check_kernels(batch_shapes, timing=False).items():
         results[name].update(rows)
+    log(f"  the photo sizes {', '.join(f'{w}x{h}' for w, h in PHOTO_SIZES)}"
+        f" (W x H): one-step edits in every mode, and every kernel shape "
+        f"they launch that the 512^2 and batched edits did not, checked "
+        f"without timing:")
+    photo = photo_kernel_checks(pipe, results, {
+        name: shapes[name] | batch_shapes.get(name, set())
+        for name in EXACT + INT8 + FUSED})
     results["blob_splat"], splat_calls = check_splat()
 
     # -- phase 3 ------------------------------------------------------------
@@ -5034,7 +5346,7 @@ def main() -> int:
     for name, kw in requests:
         out, secs, launches, mem = run_request(pipe, kw)
         if name == "edit":
-            exact_edit = out
+            exact_edit, square = out, (secs, launches, mem)
         log(f"  {name}: {secs:.3f} s, launches {launches}, peak memory "
             f"{mem:.2f} GiB")
     counts, totals = launch_shapes(), launch_counts()
@@ -5079,6 +5391,12 @@ def main() -> int:
             or any(strays.values()):
         raise AssertionError(f"a kernel never ran on its path, or a path ran "
                              f"another path's kernel: {totals}, {strays}")
+    photo_shapes = photo_request(pipe, square, smi.splitlines()[0])
+    for name in EXACT:
+        missing = set(photo_shapes[name]) - set(results[name])
+        if missing:
+            raise AssertionError(f"{name}: the photo request's shapes not "
+                                 f"checked in phase 2: {missing}")
 
     # -- phase 5 ------------------------------------------------------------
     log(f"phase 5: the interactive session at full width, bf16, {STEPS} "
@@ -5115,6 +5433,9 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     _, pipe = checkpoint_phase(models_root, smi.splitlines()[0])
+    log(f"  the CLI as a process at {PHOTO[0]}x{PHOTO[1]} (W x H), "
+        f"{CLI_PHOTO_STEPS} steps, on this models root")
+    cli_photo_phase(models_root)
 
     # -- phase 7 ------------------------------------------------------------
     log(f"phase 7: serving on phase 6's loaded pipeline: edit_batch at B = "
@@ -5203,6 +5524,9 @@ def main() -> int:
                  "dp_train_launches": dp_trained.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"]
                                     for r in results[name].values())}
+        if name in photo:  # the shapes only the photo sizes launched
+            entry["photo_shapes"], entry["photo_rel_bf16"], \
+                entry["photo_rel_fp32"] = photo[name]
         if name in train_errs:  # the Function's forward and gradients
             entry["train_max_abs_err"] = max(train_errs[name].values())
         for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
@@ -5246,7 +5570,11 @@ def main() -> int:
                 f"{weighted(label + ':plain_ms'):.1f} bound "
                 f"{weighted('bound_ms'):.2f} library "
                 f"{'none' if lib is None else f'{lib:.1f}'}")
-    log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s")
+    log(f"the photo sizes' checks: {sum(PHOTO_SECONDS.values()):.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHOTO_SECONDS.items())
+        + f") on {smi.splitlines()[0]}")
+    log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s on "
+        f"{smi.splitlines()[0]}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,7 +55,6 @@ import json
 import multiprocessing
 import os
 import pickle
-import queue
 import shutil
 import statistics
 import subprocess
@@ -90,27 +89,10 @@ LAYOUTS = (("1 card", 1, None, None),
            ("model=2", 2, {"data": 1, "model": 2}, "model"),
            ("model=4", 4, {"data": 1, "model": 4}, "model"),
            ("hybrid 2x2", 4, {"data": 2, "model": 2}, "hybrid"))
-STAGING = "_staging"       # a rank's [collective calls, staged calls]
-TIMEOUT_S = 300.0          # the groups' collective timeout, every wait
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def _count_staging():
-    """Count this process's collectives and those staged through host
-    memory: -> the [calls, staged] list the wrapper keeps."""
-    from blobctrl_torch.parallel import collectives
-    real, seen = collectives._staged, [0, 0]
-
-    def staged(t, group):
-        s = real(t, group)
-        seen[0] += 1
-        seen[1] += int(s)
-        return s
-    collectives._staged = staged
-    return seen
 
 
 def _join_group(rank, world, port):
@@ -118,90 +100,22 @@ def _join_group(rank, world, port):
     from blobctrl_torch.parallel import multihost
     return multihost.initialize(f"127.0.0.1:{port}", world, rank,
                                 device=CARD, backend="nccl",
-                                timeout_s=TIMEOUT_S)
-
-
-def collect(out, procs, deadline_s):
-    """The next (rank, "ok" | "error", value) of every process in
-    ``procs`` from ``out`` -> their values in rank order. A rank that
-    fails, dies or is late raises AssertionError."""
-    got, deadline = {}, time.monotonic() + deadline_s
-    while len(got) < len(procs):
-        try:
-            rank, status, value = out.get(timeout=5.0)
-        except queue.Empty:
-            if time.monotonic() > deadline or any(
-                    p.exitcode not in (None, 0) for p in procs):
-                raise AssertionError(
-                    f"ranks {sorted(set(range(len(procs))) - set(got))} "
-                    f"gave no result (exit codes "
-                    f"{[p.exitcode for p in procs]})")
-            continue
-        if status != "ok":
-            raise AssertionError(f"rank {rank} failed:\n{value}")
-        got[rank] = value
-    return [got[r] for r in range(len(procs))]
-
-
-def join(procs):
-    """Join every process, killing any still alive after 30 s."""
-    for p in procs:
-        p.join(30.0)
-        if p.is_alive():
-            p.kill()
-            p.join(10.0)
-
-
-def spawn(target, world, args, deadline_s=TIMEOUT_S):
-    """``target(rank, world, port, *args, out)`` on ``world`` spawned
-    processes, each putting (rank, "ok" | "error", value) on ``out``;
-    -> their values in rank order (``collect``); every process is joined
-    or killed first."""
-    from blobctrl_torch.parallel import multihost
-    ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    port = multihost.free_port()
-    procs = [ctx.Process(target=target,
-                         args=(r, world, port, *args, out))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    try:
-        return collect(out, procs, deadline_s)
-    finally:
-        join(procs)
+                                timeout_s=cs.PARALLEL_TIMEOUT_S)
 
 
 # ---------------------------------------------------------------------------
 # part 1: phase 9's sharded edits over nccl
 # ---------------------------------------------------------------------------
 
-def _edit_rank(rank, world, port, jobs, out):
-    """``chip_smoke._rank_main``'s jobs over nccl, this rank's collectives
-    counted (``STAGING``)."""
-    try:
-        from blobctrl_torch.parallel import multihost
-        seen = _count_staging()
-        _join_group(rank, world, port)
-        try:
-            got = {cs._job_name(job): cs._rank_job(job) for job in jobs}
-            got[STAGING] = list(seen)
-            out.put((rank, "ok", got))
-        finally:
-            multihost.shutdown()
-    except BaseException:  # noqa: BLE001 — reported to the parent
-        out.put((rank, "error", traceback.format_exc()))
-
-
 def sharded_edits():
     """Part 1. -> its report; AssertionError where a bar fails."""
     nccl, staging, real = {}, [], cs.spawn_ranks
 
     def over_nccl(world, jobs, meanwhile=None, device=None):
-        ranks = spawn(_edit_rank, world, (jobs,))
+        ranks = real(world, jobs, device=CARD, backend="nccl")
         for job in jobs:
             nccl[job] = [r[job] for r in ranks]
-        staging.extend(r[STAGING] for r in ranks)
+        staging.extend(r[cs.STAGING] for r in ranks)
         return ranks
 
     log("  phase 9 below runs its ranks over NCCL, rank r on cuda:r, where "
@@ -349,7 +263,7 @@ def serve_requests(models, paths, device):
     t0 = time.perf_counter()
     pipe = server.start_mesh(models, device, SERVE_MESH, False,
                              dtype=torch.float32,
-                             timeout_s=TIMEOUT_S)
+                             timeout_s=cs.PARALLEL_TIMEOUT_S)
     start = time.perf_counter() - t0
     svc, httpd = server.serve(pipe, "127.0.0.1", 0, size=cs.DP_HOST_SIZE,
                               warmup_steps=None, max_batch=APP_BATCH,
@@ -585,7 +499,7 @@ class Layout:
     def results(self, deadline_s):
         """Every rank's next result, in rank order."""
         try:
-            return collect(self.out, self.procs, deadline_s)
+            return cs.collect(self.out, self.procs, deadline_s)
         except AssertionError as e:
             raise AssertionError(f"{self.name}: {e}") from None
 
@@ -597,7 +511,7 @@ class Layout:
     def close(self):
         for q in self.cmds:
             q.put(None)
-        join(self.procs)
+        cs.join(self.procs)
 
 
 def _train_rank(rank, world, port, out):
@@ -642,14 +556,14 @@ def measure():
     report = {"edit": {}, "train": None}
     try:
         for lay in layouts:
-            lay.results(TIMEOUT_S)
+            lay.results(cs.PARALLEL_TIMEOUT_S)
         log(f"  {len(layouts)} layouts ({sum(x.world for x in layouts)} "
             f"processes) drew and sharded their weights in "
             f"{time.perf_counter() - t0:.1f} s")
         images = {}
         for rep in range(1 + EDIT_REPS):    # the first edit is cold
             for lay in layouts:
-                res = lay.edit(TIMEOUT_S)
+                res = lay.edit(cs.PARALLEL_TIMEOUT_S)
                 times[lay.name].append(res)
                 if res[0]["images"] is not None:
                     images[lay.name] = res[0]["images"]
@@ -672,7 +586,7 @@ def measure():
             f"{[round(x, 2) for x in cell['peak_gib']]} GiB, PSNR against "
             f"the 1-card edit {cell['psnr_vs_1_card']:.2f} dB")
     t0 = time.perf_counter()
-    ranks = spawn(_train_rank, WORLD, ())
+    ranks = cs.spawn(_train_rank, WORLD, ())
     train = {"seconds": time.perf_counter() - t0, "ranks": ranks,
              "same_state": len({r["digest"] for r in ranks}) == 1}
     report["train"] = train
@@ -712,7 +626,6 @@ def main():
 
 def run(a, card, work):
     from blobctrl_torch.ops import _build
-    cs.PARALLEL_TIMEOUT_S = TIMEOUT_S   # phase 9's waits for its ranks
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True,

@@ -158,3 +158,16 @@ def test_cli_refuses_mesh_and_needs_the_card(models_root, inputs):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(base)
+
+
+def test_chip_smokes_photo_check_of_the_cli_runs_on_the_cpu(models_root,
+                                                           monkeypatch):
+    """``chip_smoke.py`` phase 6's CLI check at a photo's size (the CLI as
+    a process against the pipeline called directly, <= 1 uint8 level), on
+    this root and the CPU at 96 x 72 (W x H); the CLI's process on two
+    threads, as this one."""
+    import chip_smoke
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    chip_smoke.cli_photo_phase(models_root, device="cpu", steps=2,
+                               wh=(96, 72))
+    assert chip_smoke.PHOTO_SECONDS["phase 6"] > 0

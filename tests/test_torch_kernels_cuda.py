@@ -400,6 +400,9 @@ FLASH_TC_SHAPES = [
     (3, 200, 333, 40), (2, 130, 1000, 80), (1, 129, 65, 40),
     # D in {16, 40, 80, 160}, and D not a multiple of 8 (masked loads)
     (2, 100, 256, 16), (1, 64, 70, 160), (2, 96, 200, 41), (1, 77, 90, 20),
+    # a photo's own size (W x H), double width: 640 x 480's top level, 520 x
+    # 512's (BlobNet; an odd latent width), 576 x 512's second level
+    (16, 9600, 9600, 40), (8, 8320, 8320, 40), (16, 2304, 2304, 80),
 ]
 
 
@@ -469,6 +472,8 @@ WINOGRAD_TC_SHAPES = [
     (1, 8, 16, 1280, 1280),
     # the VAE's 512 x 512 x 128 convs
     (1, 512, 512, 128, 128),
+    # a photo's own size: 576 x 512's deepest levels, W = 36 and 18
+    (1, 16, 36, 1280, 1280), (1, 8, 18, 2560, 1280),
 ]
 
 
@@ -505,6 +510,10 @@ CONV_TC_SHAPES = [
     (2, 13, 21, 72, 130), (1, 16, 8, 37, 40), (2, 9, 17, 40, 3),
     # the VAE's 512 x 512 x 128 convs
     (1, 512, 512, 128, 128),
+    # a photo's own size: 520 x 512's odd widths (the BlobNet conv_in, a
+    # level-2 conv with C split, the VAE's), 576 x 512's W = 18
+    (1, 64, 130, 1029, 320), (1, 16, 33, 1280, 1280), (1, 128, 130, 512, 512),
+    (1, 8, 18, 2560, 1280),
 ]
 
 
@@ -539,6 +548,8 @@ AFFINE_TC_SHAPES = [
     (1, 8, 16, 1280, 1280), (2, 64, 128, 320, 320), (1, 32, 32, 1280, 2560),
     # h*w = 9 and 63, no multiple of 8; C and N ragged, N % 8 != 0
     (2, 3, 3, 37, 40), (2, 7, 9, 320, 130), (1, 64, 2, 1029, 3),
+    # a photo's own size: 520 x 512's h*w = 136 and 2080 (odd W)
+    (2, 8, 17, 1280, 1280), (1, 32, 65, 640, 640),
 ]
 
 
@@ -577,6 +588,9 @@ LN_TC_SHAPES = [
     ((4096, 640), 1920), ((16384, 320), 320),
     # ragged M, C and N; a batched (B, S, C) input
     ((300, 320), 960), ((33, 37), 3), ((2, 77, 64), 130),
+    # a photo's own size: 520 x 512's M = 136 (GEGLU) and 16640 (QKV), 576
+    # x 512's M = 1152 (QKV)
+    ((136, 1280), 10240), ((16640, 320), 960), ((1152, 1280), 3840),
 ]
 
 
@@ -617,6 +631,8 @@ FLASH_INT8_TC_SHAPES = [
     # D in {16, 41, 160, 20}: every specialisation, rows padded to 16 bytes,
     # D not a multiple of 8 (masked v loads)
     (2, 100, 256, 16), (1, 64, 70, 160), (2, 96, 200, 41), (1, 77, 90, 20),
+    # a photo's own size: 640 x 480's top level, 576 x 512's second
+    (16, 9600, 9600, 40), (8, 2304, 2304, 80),
 ]
 
 
@@ -652,6 +668,8 @@ CONV_INT8_TC_SHAPES = [
     (2, 13, 21, 72, 130), (1, 16, 8, 37, 40), (2, 9, 17, 40, 3),
     # the VAE's 512 x 512 x 128 convs
     (1, 512, 512, 128, 128),
+    # a photo's own size: 520 x 512's odd widths
+    (1, 64, 130, 1029, 320), (1, 16, 33, 1280, 1280),
 ]
 
 

@@ -2,7 +2,7 @@
 (``chip_smoke.py``'s phase 9 and 10d, ``tests/torch_ranks.py``), on the
 CPU: the uint8 bar it holds the apps' images to, its count of the
 collectives staged through host memory (on 2 gloo ranks: CPU tensors are
-never staged), its spawner's results and refusal of a failed rank, and
+never staged), the spawner's results and refusal of a failed rank, and
 the training flags of its spawned form. About 10 s."""
 
 import os
@@ -35,11 +35,14 @@ def test_staging_is_counted_on_gloo_ranks():
     assert torch_ranks.run_ranks(torch_ranks.staging_rank, 2) == [[3, 0]] * 2
 
 
-def test_spawn_returns_rank_order_and_refuses_a_failed_rank():
-    assert nccl_mesh.spawn(torch_ranks.spawned_rank, 2, (None,), 60) == [
+def test_spawn_returns_rank_order_and_refuses_a_failed_rank(monkeypatch):
+    """The one spawner, ``chip_smoke.spawn``, which the script's parts
+    call."""
+    monkeypatch.setattr(nccl_mesh.cs, "PARALLEL_TIMEOUT_S", 60.0)
+    assert nccl_mesh.cs.spawn(torch_ranks.spawned_rank, 2, (None,)) == [
         0, 10]
     with pytest.raises(AssertionError, match="rank 1 failed"):
-        nccl_mesh.spawn(torch_ranks.spawned_rank, 2, (1,), 60)
+        nccl_mesh.cs.spawn(torch_ranks.spawned_rank, 2, (1,))
 
 
 def test_the_spawned_training_flags():

@@ -431,15 +431,14 @@ def train_cli_rank(argv, port, coordinator=False):
 
 
 def staging_rank():
-    """``scripts/torch_nccl_mesh.py``'s staging counter on a rank: ->
-    [collectives, staged through host memory] after an all-reduce, an
-    all-gather and a broadcast of CPU tensors and a barrier."""
-    import sys
+    """``chip_smoke.py``'s staging counter on a rank (what its ranks
+    report to ``scripts/torch_nccl_mesh.py``): -> [collectives, staged
+    through host memory] after an all-reduce, an all-gather and a
+    broadcast of CPU tensors and a barrier."""
     import torch
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    import torch_nccl_mesh
+    import chip_smoke
     from blobctrl_torch.parallel import collectives, multihost
-    seen = torch_nccl_mesh._count_staging()
+    seen = chip_smoke.count_staging()
     group = multihost.world_group()
     collectives.all_reduce(torch.ones(3), group)
     collectives.all_gather(torch.ones(2), group)
@@ -462,8 +461,8 @@ def teardown_follower(rank, world, address, conn, flag):
 
 
 def spawned_rank(rank, world, port, fail, out):
-    """A target of ``scripts/torch_nccl_mesh.spawn``: 10 x its rank, or
-    rank ``fail``'s error."""
+    """A target of ``chip_smoke.spawn``: 10 x its rank, or rank
+    ``fail``'s error."""
     out.put((rank, "error" if rank == fail else "ok", 10 * rank))
 
 
