@@ -62,10 +62,14 @@ Design notes
   * Request images decode in worker processes (``DecodePool``), never on
     the handler thread: the port's decoders are pure Python and would hold
     the interpreter lock for seconds on a large JPEG while the batcher and
-    the denoise loop wait. The pool starts with the service (its workers
-    come up in the warmup), uses the ``spawn`` start method (the parent
-    holds a CUDA context) and has no in-process fallback: a worker that
-    dies fails its request with a 500 and the pool is replaced.
+    the denoise loop wait. The pool has a worker for each image of a full
+    micro-batch (fg and bg of ``max_batch`` requests), so concurrent
+    requests decode at once, as the JAX package's handler threads decode
+    theirs, and reach the batcher together. The pool starts with the
+    service (its workers come up in the warmup), uses the ``spawn`` start
+    method (the parent holds a CUDA context) and has no in-process
+    fallback: a worker that dies fails its request with a 500 and the pool
+    is replaced.
   * Input validation mirrors the pipeline's own errors; client mistakes are
     400s with the message, not 500s.
   * Sharded serving (--mesh data=N,model=M, --hybrid_cfg_data): this
@@ -198,7 +202,7 @@ class EditService:
     MAX_SAMPLES = 4
     MAX_STEPS = 200
     BATCH_WAIT_TIMEOUT_S = 1800.0       # queued request gives up (500)
-    DECODE_WORKERS = 2                  # a request's fg and bg in parallel
+    IMAGES_PER_REQUEST = 2              # fg and bg, decoded in parallel
 
     def __init__(self, pipeline, size: int = 512, strict_shapes: bool = True,
                  max_body_bytes: Optional[int] = None,
@@ -206,7 +210,8 @@ class EditService:
                  preview_every: int = 0):
         self.pipeline = pipeline
         self.size = size
-        self.decoder = DecodePool(self.DECODE_WORKERS)
+        self.max_batch = max(1, int(max_batch))
+        self.decoder = DecodePool(self.IMAGES_PER_REQUEST * self.max_batch)
         self.decoder_start_s: Optional[float] = None
         # the handler thread's CPU seconds and the wall seconds of the last
         # request's image decode
@@ -224,7 +229,6 @@ class EditService:
         self.warm_steps: Optional[int] = None
         # dynamic micro-batching (off at max_batch=1); batches pad up to
         # the next warm size: powers of two, and max_batch itself
-        self.max_batch = max(1, int(max_batch))
         self.batch_window_s = batch_window_ms / 1000.0
         self.warm_batch_sizes = []
         s = 1

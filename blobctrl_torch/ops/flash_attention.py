@@ -90,6 +90,32 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(p.to(q.dtype), v)
 
 
+# The plain versions hold (BH, Sq, Skv) fp32 scores and their softmax: 68.7 GB
+# each at a 1024^2 edit's 32,768 tokens and BH = 16, 38.7 GB at a batch of
+# four 768x512 edits (BH = 64, 12,288 tokens). A check of more query rows or
+# score elements than these compares ``query_rows``' tiles instead of the
+# whole output (2^32 elements: a batch of four 512^2 edits, 17.2 GB).
+PLAIN_MAX_ROWS = 16384
+PLAIN_MAX_SCORES = 2 ** 32
+CHECK_TILE = 128   # a multiple of every kernel's query block (64 and 128)
+
+
+def query_rows(bh: int, sq: int, skv: int) -> list:
+    """The query-row slices at which to hold a kernel's output to a plain
+    version's: every row, up to ``PLAIN_MAX_ROWS`` rows and
+    ``PLAIN_MAX_SCORES`` score elements; above, the first ``CHECK_TILE``
+    rows, the tile in the middle and the last tile (ragged where CHECK_TILE
+    does not divide sq). A query row's output depends on every key and on
+    no other query row, and the int8 modes' global k scale spans k, which
+    stays whole: ``plain(q[:, rows], k, v, ...)`` is those rows of the
+    whole call, up to the order in which a product sums."""
+    if sq <= PLAIN_MAX_ROWS and bh * sq * skv <= PLAIN_MAX_SCORES:
+        return [slice(0, sq)]
+    starts = sorted({0, sq // 2 // CHECK_TILE * CHECK_TILE,
+                     (sq - 1) // CHECK_TILE * CHECK_TILE})
+    return [slice(a, min(a + CHECK_TILE, sq)) for a in starts]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float,
                     fixed_max: Optional[float] = 20.0) -> torch.Tensor:

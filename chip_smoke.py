@@ -47,7 +47,15 @@ script exits non-zero:
      != 0) in every mode, and every launch key they make that the 512^2
      and batched edits did not, checked under the same bars without
      timing; each kernel's count of such shapes and its worst relative
-     error in each dtype printed, and the part's seconds.
+     error in each dtype printed, and the part's seconds. Then the large
+     photos, LARGE_SIZES (1024x1024, 1024x768), the same way. A flash
+     check over more than ``flash_attention.PLAIN_MAX_ROWS`` query rows or
+     ``PLAIN_MAX_SCORES`` score elements (32,768 rows at 1024^2: its whole
+     plain version would hold 68.7 GB of fp32 scores; the batch of four
+     at 768x512, 38.7 GB) holds three tiles of rows, the first, the
+     middle one and the last, each over every key, to the same rows of
+     the kernel's output (``flash_attention.query_rows``; the same math,
+     since a row depends on no other query row).
   3. The trained 256^2 toy checkpoint: a move and a remove edit
      (TOY_CPU_STEPS steps, fp32; the CPU reference is the phase's cost),
      exact, in the int8-everything mode and as the fused-kernel
@@ -95,7 +103,8 @@ script exits non-zero:
      int32 split workspace. Then the standard edit at 768x512 (PHOTO, W x
      H), exact, STEPS steps: its output (1, 512, 768, 3) and finite, every
      launch on the tensor cores at a shape phase 2 checked; its seconds,
-     peak memory and launches printed beside the 512^2 edit's.
+     peak memory and launches printed beside the 512^2 edit's; then the
+     same at 1024^2 (LARGE_SIZES[0]), its output (1, 1024, 1024, 3).
   5. The interactive session at full width, bf16: CLIP ViT-L/14 text and
      DINOv2-large added to phase 4's pipeline (random weights drawn on the
      card, a byte-level vocabulary built in code), ``BlobCtrlSession``:
@@ -171,7 +180,11 @@ script exits non-zero:
      memory and every K1 and K6 launch on the tensor cores, the first row
      of the batch of four against its solo ``__call__`` (PSNR, for
      information); the toy 256^2 checkpoint in fp32, three batched rows
-     against their solo edits, >= 40 dB; ``apps.server.serve`` with
+     against their solo edits, >= 40 dB, and the same at 320x256
+     (TOY_PHOTO_SIZES[1], W x H); ``edit_batch`` of PHOTO_BATCH distinct
+     requests at PHOTO (768x512), STEPS steps, bf16, warm: its seconds a
+     batch and an image and its peak memory, every launch on the tensor
+     cores, row 0 >= 40 dB from its solo edit; ``apps.server.serve`` with
      ``max_batch=4`` and ``preview_every=10``, its requests at
      CHECK_STEPS steps (they check behaviour, not speed), warmed at them (the
      seconds until ``/healthz`` is 200), then a solo request from PNG
@@ -193,7 +206,7 @@ script exits non-zero:
      CHECK_STEPS steps against the exact edit at as many
      (``matmul_i8`` on the card bit-equal to the CPU's first). Phase 2
      checks every K1 and K6 shape of the batches (one-step batches at B
-     = 2 and 4 record them). Counters zeroed at the start of the phase
+     = 2 and 4, at 512^2 and at PHOTO, record them). Counters zeroed at the start of the phase
      and read at its end; K1, K6, K5 and K8 must each have run.
      After phase 7, the checkpoint day (``apps/checkpoint_day``) on phase
      6's models root, bf16, over phase 5's two states at CKPT_DAY_STEPS
@@ -273,7 +286,10 @@ script exits non-zero:
         launched, at shapes the unsharded edit never launched (local heads
         and channels, local rows); the collective log equals
         ``collectives.expected_counts``; in the hybrid run BlobNet's
-        residuals bit-equal on all four ranks at every step.
+        residuals bit-equal on all four ranks at every step. The move edit
+        at TOY_PHOTO_SIZES[1] (320x256, W x H) at model=2 and hybrid 2 x 2,
+        at the same bars against its unsharded edit, the hybrid run's
+        residuals bit-equal on all four ranks too.
      b. Full width, phase 4's configuration (bf16, random weights):
         model=2 and hybrid 2 x 2, a PARALLEL_FULL_STEPS-step exact edit
         each: every K1 and K6 launch on the tensor cores, the collective
@@ -283,8 +299,9 @@ script exits non-zero:
         peak memory, the collectives a step (calls, bytes, seconds inside
         them) and the seconds an edit.
      c. Every K1/K3/K5/K6/K8/K11/K12 shape that one-step full-width edits
-        at model=2 and model=4 launch in each mode, not already checked in
-        phase 2, checked under phase 2's bars in bf16 and fp32.
+        at model=2 and model=4 launch in each mode, and that 9a's toy edits
+        at 320x256 launch, not already checked in phase 2, checked under
+        phase 2's bars in bf16 and fp32.
  10. Data-parallel training (``TrainStep`` with a group,
      ``apps/train_cli.run_rank``), after phase 9: DP_WORLD ranks spawned on
      this card over gloo, as phase 9's; each rank zeroes its counters and
@@ -339,8 +356,10 @@ script exits non-zero:
  11. One JSON line of per-kernel numbers, then ``{"ok": true, ...}`` last.
      Before it, the direct conv (K6) against Winograd (K12) at the fused
      edit's Winograd launches, both from phase 2's medians at those
-     shapes, the photo sizes' seconds in phases 2, 3, 4 and 6, and the
-     whole run's seconds, with the card's name and power limit.
+     shapes, the photo sizes' seconds in phases 2, 3, 4 and 6, the large
+     photos' and the batched and sharded photo-size edits' seconds in
+     phases 2, 4, 7 and 9 (LARGE_SECONDS), and the whole run's seconds,
+     with the card's name and power limit.
 
 Per-kernel numbers in the JSON line: ``launches`` are phase 4's (the exact
 kernels' from the exact requests, the int8 kernels' from the int8 one, the
@@ -370,7 +389,9 @@ view mode 6 per pixel and channel for the colours) at 67 TFLOP/s; its
 bytes, the raw blob inputs read and the N*H*W*(M+1) fp32 output (the
 view: H*W*3 uint8) written, bound it. ``photo_shapes``,
 ``photo_rel_bf16`` and ``photo_rel_fp32`` are phase 2's count of the
-shapes only the photo sizes launched, and the worst relative error there.
+shapes only the photo sizes launched, and the worst relative error there;
+``large_photo_shapes``, ``large_photo_rel_bf16`` and
+``large_photo_rel_fp32`` the same for the shapes only LARGE_SIZES launched.
 """
 
 from __future__ import annotations
@@ -473,7 +494,9 @@ def flash_case(key, dtype, gen):
     return dict(
         modes=(20.0, None), labels=("fixed-max", "running-max"),
         kernel=lambda fixed: fa.flash_attention(q, k, v, scale, fixed),
-        plain=lambda fixed: fa.flash_attention_reference(q, k, v, scale),
+        plain=lambda fixed, rows=slice(None): fa.flash_attention_reference(
+            q[:, rows], k, v, scale),
+        rows=fa.query_rows(*q.shape[:2], k.shape[1]),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             q[None], k[None], v[None], scale=scale),
         ops_ms=1e3 * 2 * prod / PEAK_BF16_FLOPS, exp_ms=_exp_ms(key),
@@ -490,8 +513,9 @@ def flash_int8_case(key, dtype, gen):
         modes=(True, False), labels=("global-k", "per-row-k"),
         kernel=lambda gk: fa.flash_attention_int8(q, k, v, scale,
                                                   global_k=gk),
-        plain=lambda gk: fa.flash_attention_int8_reference(q, k, v, scale,
-                                                           global_k=gk),
+        plain=lambda gk, rows=slice(None): fa.flash_attention_int8_reference(
+            q[:, rows], k, v, scale, global_k=gk),
+        rows=fa.query_rows(*q.shape[:2], k.shape[1]),
         library=None, prepass=lambda: _int8_prepass(q, k, scale),
         ops_ms=1e3 * (prod / PEAK_INT8_OPS + prod / PEAK_BF16_FLOPS),
         exp_ms=_exp_ms(key), nbytes=nbytes)
@@ -576,7 +600,9 @@ def flash_exp2_case(key, dtype, gen):
     return dict(
         modes=(None,), labels=("",),
         kernel=lambda _: fa.flash_attention_exp2(q, k, v, scale),
-        plain=lambda _: fa.flash_attention_exp2_reference(q, k, v, scale),
+        plain=lambda _, rows=slice(None): fa.flash_attention_exp2_reference(
+            q[:, rows], k, v, scale),
+        rows=fa.query_rows(*q.shape[:2], k.shape[1]),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             q[None], k[None], v[None], scale=scale),
         ops_ms=1e3 * 2 * prod / PEAK_BF16_FLOPS, exp_ms=_exp_ms(key),
@@ -685,6 +711,19 @@ def shape_label(name, key) -> str:
     return label + (f" amax={key[7]}" if name == "conv3x3_int8" else "")
 
 
+def kernel_and_plain(case, mode):
+    """-> (kernel output, plain output) of ``case`` in ``mode``: whole, or,
+    for a flash case, at its query rows (``flash_attention.query_rows``:
+    tiles of the rows where the whole plain version would not fit)."""
+    rows = case.get("rows")
+    if rows is None:
+        ref = case["plain"](mode)
+        return case["kernel"](mode), ref
+    ref = torch.cat([case["plain"](mode, r) for r in rows], dim=1)
+    got = case["kernel"](mode)
+    return torch.cat([got[:, r] for r in rows], dim=1), ref
+
+
 def check_kernels(shapes, timing: bool = True):
     """shapes: {kernel name: recorded keys}. Every key in bf16 and fp32, in
     every mode, kernel against plain; with ``timing``, bf16 timings of each
@@ -698,8 +737,7 @@ def check_kernels(shapes, timing: bool = True):
             for dtype in (torch.bfloat16, torch.float32):
                 case = CASES[name](key, dtype, gen)
                 for i, mode in enumerate(case["modes"]):
-                    ref = case["plain"](mode)
-                    got = case["kernel"](mode)
+                    got, ref = kernel_and_plain(case, mode)
                     torch.cuda.synchronize()
                     abs_err, rel = rel_err(got, ref)
                     differ = (f", {int((got != ref).sum())} of "
@@ -1397,6 +1435,12 @@ PHOTO = (768, 512)    # phase 4's full-width request and the CLI's photo
 CLI_PHOTO_STEPS = 4   # the CLI's edit at PHOTO
 CLI_PHOTO_ELLIPSE = (430.0, 260.0, 180.0, 240.0, 30.0)  # xc, yc, d1, d2, deg
 PHOTO_SECONDS = {}    # the photo checks' own seconds, by part
+# W x H of the large photos: phase 2's one-step edits in every mode, phase
+# 4's edit at the first (32,768 tokens at the top level, BH = 16 under CFG)
+LARGE_SIZES = ((1024, 1024), (1024, 768))
+# the seconds, by part, of the large photos and of the batched (phase 7) and
+# sharded (phase 9) edits at a photo's size
+LARGE_SECONDS = {}
 
 
 def photo_edit_kwargs(wh, steps: int, **extra):
@@ -1406,17 +1450,17 @@ def photo_edit_kwargs(wh, steps: int, **extra):
     return dict(benchkit.standard_edit_kwargs(h, steps, width=w), **extra)
 
 
-def record_photo_shapes(pipe, checked):
+def record_photo_shapes(pipe, checked, sizes):
     """Phase 2's photo sizes: a one-step full-width edit at each W x H of
-    PHOTO_SIZES in every mode (a mode's derived weights made once for its
-    five edits). -> ({kernel: launch keys not in ``checked``}, {(W, H):
+    ``sizes`` in every mode (a mode's derived weights made once for its
+    edits). -> ({kernel: launch keys not in ``checked``}, {(W, H):
     {kernel: launches}})."""
     from blobctrl_torch import ops
     new = {name: set() for name in checked}
-    per_size = {wh: {} for wh in PHOTO_SIZES}
+    per_size = {wh: {} for wh in sizes}
     for mode, names in MODES.items():
         with mode_context(mode):
-            for wh in PHOTO_SIZES:
+            for wh in sizes:
                 ops.reset_counts()
                 out = pipe(**photo_edit_kwargs(
                     wh, 1, blobnet_control_guidance_end=1.0)).images
@@ -1433,13 +1477,14 @@ def record_photo_shapes(pipe, checked):
     return new, per_size
 
 
-def photo_kernel_checks(pipe, results, checked):
-    """Phase 2's photo part: record PHOTO_SIZES' launch keys and check each
-    one the 512^2 edits (``checked``) never launched, under phase 2's
-    bars, without timing; ``results`` gains their rows. -> {kernel: (new
-    shapes, worst rel bf16, worst rel fp32)}."""
+def photo_kernel_checks(pipe, results, checked, sizes=PHOTO_SIZES,
+                        seconds=PHOTO_SECONDS):
+    """Phase 2's photo part: record the launch keys of ``sizes`` and check
+    each one that no earlier edit (``checked``) launched, under phase 2's
+    bars, without timing; ``results`` gains their rows, ``seconds`` this
+    part's. -> {kernel: (new shapes, worst rel bf16, worst rel fp32)}."""
     t0 = time.perf_counter()
-    new, per_size = record_photo_shapes(pipe, checked)
+    new, per_size = record_photo_shapes(pipe, checked, sizes)
     for wh, counts in per_size.items():
         log(f"  one-step edits at {wh[0]}x{wh[1]} (W x H), every mode: "
             f"launches {counts}")
@@ -1454,42 +1499,41 @@ def photo_kernel_checks(pipe, results, checked):
                              default=0.0),
                          max((r["rel_fp32"] for r in got.values()),
                              default=0.0))
-        log(f"  {name}: {summary[name][0]} shapes new at the photo sizes, "
+        log(f"  {name}: {summary[name][0]} shapes new at these sizes, "
             f"worst rel err bf16 {summary[name][1]:.3e} (bar "
             f"{TOL[torch.bfloat16]:.0e}), fp32 {summary[name][2]:.3e} "
             f"(bar {TOL[torch.float32]:.0e})")
     never = [k for k in checked
              if not any(c.get(k) for c in per_size.values())]
     if never:
-        raise AssertionError(f"never launched at the photo sizes: {never}")
-    PHOTO_SECONDS["phase 2"] = time.perf_counter() - t0
-    log(f"  the photo sizes' part of phase 2: {PHOTO_SECONDS['phase 2']:.1f}"
-        f" s ({t_rec:.1f} s of edits)")
+        raise AssertionError(f"never launched at {sizes}: {never}")
+    seconds["phase 2"] = time.perf_counter() - t0
+    log(f"  this part of phase 2: {seconds['phase 2']:.1f} s ({t_rec:.1f} "
+        f"s of edits)")
     return summary
 
 
-def photo_request(pipe, square, card: str):
-    """Phase 4's photo request: the standard edit at PHOTO (W x H), bf16,
+def photo_request(pipe, square, card: str, wh=PHOTO, seconds=PHOTO_SECONDS):
+    """Phase 4's photo request: the standard edit at W x H ``wh``, bf16,
     STEPS steps, exact; its seconds, peak memory and launches beside
-    ``square``, the 512^2 edit's (secs, launches, mem). -> its launch
-    keys."""
+    ``square``, the 512^2 edit's (secs, launches, mem); ``seconds`` gains
+    its own. -> its launch keys."""
     from blobctrl_torch import ops
     t0 = time.perf_counter()
     ops.reset_counts()
-    out, secs, launches, mem = run_request(pipe, photo_edit_kwargs(PHOTO,
+    out, secs, launches, mem = run_request(pipe, photo_edit_kwargs(wh,
                                                                    STEPS))
     shapes = launch_shapes()
-    check_tensor_cores(f"edit at {PHOTO[0]}x{PHOTO[1]}", launch_counts(),
-                       EXACT)
+    check_tensor_cores(f"edit at {wh[0]}x{wh[1]}", launch_counts(), EXACT)
     if min(launches[k] for k in EXACT) == 0:
         raise AssertionError(f"photo edit: launches {launches}")
     ran = {k: n for k, n in launches.items() if n}
-    log(f"  edit at {PHOTO[0]}x{PHOTO[1]} (W x H), {STEPS} steps: output "
+    log(f"  edit at {wh[0]}x{wh[1]} (W x H), {STEPS} steps: output "
         f"{out.shape}, {secs:.3f} s, launches {ran}, peak memory {mem:.2f} "
         f"GiB; the 512^2 edit: {square[0]:.3f} s, launches "
         f"{({k: n for k, n in square[1].items() if n})}, {square[2]:.2f} "
         f"GiB ({card})")
-    PHOTO_SECONDS["phase 4"] = time.perf_counter() - t0
+    seconds["phase 4"] = time.perf_counter() - t0
     return shapes
 
 
@@ -2677,19 +2721,22 @@ TRACE_KINDS = (("hand-written", None),
                ("elementwise", r"elementwise"))
 
 
-def serving_requests(size: int, n: int, text: bool = True):
-    """n distinct edit_batch requests: own images, ellipse and seed, and a
-    text prompt (phase 7's loaded pipeline has CLIP and DINOv2) or the
-    embeddings (phase 2's pipeline has neither)."""
+def serving_requests(size: int, n: int, text: bool = True,
+                     width: int = None):
+    """n distinct edit_batch requests at ``size`` by ``width`` (square where
+    ``width`` is None): own images, ellipse and seed, and a text prompt
+    (phase 7's loaded pipeline has CLIP and DINOv2) or the embeddings
+    (phase 2's pipeline has neither)."""
     from blobctrl_torch.utils import benchkit
     keep = ("fg_image", "bg_image", "gs_score") + (
         () if text else ("prompt_embeds", "negative_prompt_embeds",
                          "fg_dino_feats"))
+    w = size if width is None else width
     reqs = []
     for b in range(n):
         kw = benchkit.make_edit_inputs(size, seed=20 + b, ellipse=(
-            (size * (0.4 + 0.06 * b), size * 0.5),
-            (size * 0.25, size * 0.38), 25.0 * b))
+            (w * (0.4 + 0.06 * b), size * 0.5),
+            (w * 0.25, size * 0.38), 25.0 * b), width=width)
         req = {k: kw[k] for k in keep}
         if text:
             req["prompt"] = SERVE_PROMPTS[b % len(SERVE_PROMPTS)]
@@ -2700,11 +2747,14 @@ def serving_requests(size: int, n: int, text: bool = True):
 
 def record_batch_shapes(pipe):
     """Phase 2's part of phase 7: one-step edit_batch runs at B = 2 and 4
-    (exact), so that phase 2 checks every kernel shape phase 7 launches."""
-    for n in BATCH_SIZES[1:]:
-        pipe.edit_batch(serving_requests(512, n, text=False), height=512,
-                        width=512, num_inference_steps=1,
-                        **dict(SERVE_SHARED, blobnet_control_guidance_end=1.0))
+    (exact) at 512^2 and at PHOTO, so that phase 2 checks every kernel shape
+    phase 7 launches."""
+    for w, h in ((512, 512), PHOTO):
+        for n in BATCH_SIZES[1:]:
+            pipe.edit_batch(serving_requests(h, n, text=False, width=w),
+                            height=h, width=w, num_inference_steps=1,
+                            **dict(SERVE_SHARED,
+                                   blobnet_control_guidance_end=1.0))
 
 
 def hand_kernel_names():
@@ -2758,34 +2808,74 @@ def batch_scaling(pipe, size, steps, tally):
         f"information)")
 
 
-def toy_batch_against_solo():
-    """The trained toy 256^2 checkpoint in fp32 on the card: three
-    requests batched, each row against its solo edit, >= 40 dB."""
+def toy_batch_against_solo(w: int = 256, h: int = 256):
+    """The trained toy 256^2 checkpoint in fp32 on the card at W x H: three
+    distinct requests batched, each row against its solo edit, >= 40 dB."""
     from blobctrl_torch.blob import math as blob_math
     from blobctrl_torch.train import toy
     card, _ = toy.load_toy(os.path.join(ROOT, "assets", "toy_ckpt_256"),
                            device="cuda", dtype=torch.float32)
-    move = toy_edits(256, 20)["move"]
+    move = toy_edits(h, 20, width=w)["move"]
     shared = {k: move[k] for k in ("height", "width", "num_inference_steps",
                                    "guidance_scale")}
     reqs = []
     for b in range(3):
-        dst = ((256 * (0.55 + 0.05 * b), 256 * 0.55), (77.0, 102.0),
-               20.0 + 30 * b)
+        dst = ((w * (0.55 + 0.05 * b), h * 0.55),
+               (77.0 * w / 256, 102.0 * h / 256), 20.0 + 30 * b)
         reqs.append(dict(
             {k: move[k] for k in ("fg_image", "bg_image", "prompt_embeds",
                                   "negative_prompt_embeds",
                                   "fg_dino_feats")},
             gs_score=blob_math.blob_score_from_ellipse(
-                dst, 256, 256, (32, 32)).numpy(), seed=30 + b))
+                dst, w, h, (h // 8, w // 8)).numpy(), seed=30 + b))
     batch = card.edit_batch(reqs, **shared).images
+    if batch.shape != (3, h, w, 3):
+        raise AssertionError(f"toy batch at {w}x{h}: {batch.shape}")
     for b, req in enumerate(reqs):
         p = psnr(batch[b:b + 1], card(**req, **shared).images)
-        log(f"  toy 256^2 fp32 edit_batch row {b} against its solo edit: "
-            f"{p:.2f} dB")
+        log(f"  toy {w}x{h} (W x H) fp32 edit_batch row {b} against its "
+            f"solo edit: {p:.2f} dB")
         if not p >= 40.0:
-            raise AssertionError(f"toy batched row {b}: {p} dB")
+            raise AssertionError(f"toy batched row {b} at {w}x{h}: {p} dB")
     del card
+
+
+PHOTO_BATCH = 4   # 7.2's full-width batch at PHOTO
+
+
+def photo_batch_against_solo(pipe, steps: int, tally):
+    """edit_batch of PHOTO_BATCH distinct requests at PHOTO (W x H), bf16,
+    ``steps`` steps, warm: its seconds a batch and an image and its peak
+    memory, every launch on the tensor cores, row 0 >= 40 dB from its solo
+    edit (a batched row is not bit-equal: the wrappers split K by M =
+    B.H.W). ``tally`` banks the counters and zeroes them."""
+    w, h = PHOTO
+    reqs = serving_requests(h, PHOTO_BATCH, width=w)
+    shared = dict(SERVE_SHARED, height=h, width=w)
+    pipe.edit_batch(reqs, num_inference_steps=1, **shared)   # warm
+    tally()
+    torch.cuda.reset_peak_memory_stats()
+    res, secs = timed(lambda: pipe.edit_batch(
+        reqs, num_inference_steps=steps, **shared))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = launch_counts()
+    check_tensor_cores(f"edit_batch B={PHOTO_BATCH} at {w}x{h}", counts,
+                       EXACT)
+    ran = {k: v for k, v in counts.items() if v}
+    if (set(ran) != set(EXACT) or res.images.shape != (PHOTO_BATCH, h, w, 3)
+            or not np.isfinite(res.images).all()):
+        raise AssertionError(f"edit_batch at {w}x{h}: launches {ran}, "
+                             f"output {res.images.shape}")
+    tally()
+    solo, secs_solo = timed(lambda: pipe(**reqs[0], num_inference_steps=steps,
+                                         **shared))
+    p = psnr(res.images[:1], solo.images)
+    log(f"  edit_batch B={PHOTO_BATCH} at {w}x{h} (W x H), {steps} steps: "
+        f"{secs:.3f} s a batch, {secs / PHOTO_BATCH:.3f} s an image, peak "
+        f"memory {peak:.2f} GiB, launches {ran}; the solo edit of request 0 "
+        f"{secs_solo:.3f} s, its row in the batch {p:.2f} dB from it")
+    if not p >= 40.0:
+        raise AssertionError(f"batched row 0 at {w}x{h}: {p} dB")
 
 
 def _http(url, payload=None, timeout=900):
@@ -2802,38 +2892,71 @@ def _http(url, payload=None, timeout=900):
         return e.code, e.read()
 
 
+def serve_payload(req, b: int, size: int, steps: int,
+                  extra: dict = None) -> dict:
+    """The JSON body of request ``req`` (the b-th of ``serving_requests``)
+    to ``/v1/edit``: its prompt, seed, ellipse and PNG images, at ``size``
+    and ``steps``, then the fields of ``extra`` (which may replace
+    them)."""
+    import base64
+    from blobctrl_torch.utils import png
+    (cx, cy), (d1, d2), ang = ((size * (0.4 + 0.06 * b), size * 0.5),
+                               (size * 0.25, size * 0.38), 25.0 * b)
+    return dict({"prompt": req["prompt"], "seed": req["seed"], "size": size,
+                 "num_inference_steps": steps,
+                 "guidance_scale": SERVE_SHARED["guidance_scale"],
+                 "blobnet_conditioning_scale":
+                     SERVE_SHARED["blobnet_conditioning_scale"],
+                 "blobnet_control_guidance_end":
+                     SERVE_SHARED["blobnet_control_guidance_end"],
+                 "ellipse": [cx, cy, d1, d2, ang],
+                 "fg_image": base64.b64encode(png.encode_png(
+                     req["fg_image"])).decode(),
+                 "bg_image": base64.b64encode(png.encode_png(
+                     req["bg_image"])).decode()}, **(extra or {}))
+
+
+def served_images(body):
+    """-> (the response of ``/v1/edit``, its images as floats in [0, 1])."""
+    import base64
+    from blobctrl_torch.utils import png
+    resp = json.loads(body)
+    return resp, np.stack([png.decode_png(base64.b64decode(b)).astype(
+        np.float32) / 255.0 for b in resp["images"]])
+
+
+def concurrent_edits(base, payloads):
+    """POST every payload to ``base``'s ``/v1/edit`` at once, a thread
+    each. -> for each payload (status, response, its images as floats in
+    [0, 1] or None where the status is not 200, the client's seconds)."""
+    results = [None] * len(payloads)
+
+    def worker(b):
+        t = time.perf_counter()
+        c, bd = _http(base + "/v1/edit", payloads[b])
+        results[b] = (c, bd, time.perf_counter() - t)
+    threads = [threading.Thread(target=worker, args=(b,))
+               for b in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return [(c,) + (served_images(bd) if c == 200
+                    else (json.loads(bd), None)) + (wall,)
+            for c, bd, wall in results]
+
+
 def server_phase(pipe, size, steps):
     """``apps.server.serve`` on the card (max_batch=4, preview_every=10,
     warmup at ``steps``): warmup seconds until /healthz is 200, a solo
     request from a text prompt, an ellipse and PNG images, four concurrent
     requests (one batch of 4), a remove request, a preview request with
     /v1/progress seen mid-edit, a 400 for a cold shape."""
-    import base64
     from blobctrl_torch.apps import server
-    from blobctrl_torch.utils import png
     reqs = serving_requests(size, 4)
 
     def payload(b, **extra):
-        r = reqs[b]
-        (cx, cy), (d1, d2), ang = ((size * (0.4 + 0.06 * b), size * 0.5),
-                                   (size * 0.25, size * 0.38), 25.0 * b)
-        return dict({"prompt": r["prompt"], "seed": r["seed"], "size": size,
-                     "num_inference_steps": steps,
-                     "guidance_scale": SERVE_SHARED["guidance_scale"],
-                     "blobnet_conditioning_scale":
-                         SERVE_SHARED["blobnet_conditioning_scale"],
-                     "blobnet_control_guidance_end":
-                         SERVE_SHARED["blobnet_control_guidance_end"],
-                     "ellipse": [cx, cy, d1, d2, ang],
-                     "fg_image": base64.b64encode(png.encode_png(
-                         r["fg_image"])).decode(),
-                     "bg_image": base64.b64encode(png.encode_png(
-                         r["bg_image"])).decode()}, **extra)
-
-    def images(body):
-        resp = json.loads(body)
-        return resp, np.stack([png.decode_png(base64.b64decode(b)).astype(
-            np.float32) / 255.0 for b in resp["images"]])
+        return serve_payload(reqs[b], b, size, steps, extra)
 
     service, httpd = server.serve(pipe, host="127.0.0.1", port=0, size=size,
                                   warmup_steps=steps, max_batch=4,
@@ -2862,39 +2985,27 @@ def server_phase(pipe, size, steps):
         t0 = time.perf_counter()
         code, body = _http(base + "/v1/edit", payload(0))
         wall = time.perf_counter() - t0
-        resp, img = images(body)
+        resp, img = served_images(body)
         log(f"  solo request (text prompt, ellipse, PNG images): {code}, "
             f"server {resp['seconds']:.3f} s (batch of "
             f"{resp.get('batch_size')}), client {wall:.3f} s with the "
             f"1.5 s batch window")
         if code != 200 or img.shape != (1, size, size, 3):
             raise AssertionError(f"solo request {code}")
-        results = [None] * 4
-
-        def worker(b):
-            t = time.perf_counter()
-            c, bd = _http(base + "/v1/edit", payload(b))
-            results[b] = (c, bd, time.perf_counter() - t)
-        threads = [threading.Thread(target=worker, args=(b,))
-                   for b in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        for b, (c, bd, wall) in enumerate(results):
-            resp, _ = images(bd) if c == 200 else (json.loads(bd), None)
+        for b, (c, resp, _, wall) in enumerate(concurrent_edits(
+                base, [payload(b) for b in range(4)])):
             if c != 200 or resp.get("batch_size") != 4:
                 raise AssertionError(f"concurrent request {b}: {c} {resp}")
             log(f"  concurrent request {b}: batch of {resp['batch_size']}, "
                 f"server {resp['seconds']:.3f} s, client {wall:.3f} s")
         if service.batches_run != 2:   # the solo request's, and this one
             raise AssertionError(f"batches run {service.batches_run}")
-        jpeg_requests(base, payload, images, size)
+        jpeg_requests(base, payload, served_images, size)
         decode_repair(pipe, base, service, size, steps)
         rm = payload(1, remove=True)
         del rm["ellipse"]
         code, body = _http(base + "/v1/edit", rm)
-        resp, img = images(body)
+        resp, img = served_images(body)
         log(f"  remove request: {code}, {resp['seconds']:.3f} s")
         if code != 200 or "batch_size" in resp or not np.isfinite(img).all():
             raise AssertionError(f"remove request {code}")
@@ -2913,7 +3024,7 @@ def server_phase(pipe, size, steps):
         finally:
             done.set()
             poller.join()
-        resp, img = images(body)
+        resp, img = served_images(body)
         log(f"  preview request: {code}, {resp['seconds']:.3f} s, previews "
             f"at steps {resp['preview_steps']}, /v1/progress saw steps "
             f"{sorted(set(seen))}")
@@ -3231,9 +3342,17 @@ def serving_phase(pipe, size: int = 512, steps: int = STEPS):
     tally()
     log("  7.2 batched against solo, toy 256^2 fp32 on the card")
     toy_batch_against_solo()
+    t0 = time.perf_counter()
+    log(f"  7.2 at a photo's size: the toy at {TOY_PHOTO_SIZES[1][0]}x"
+        f"{TOY_PHOTO_SIZES[1][1]} (W x H), then full width at {PHOTO[0]}x"
+        f"{PHOTO[1]}")
+    toy_batch_against_solo(*TOY_PHOTO_SIZES[1])
     # the toy's fp32 launches are off the main path: held batch against solo
     # only, not against the plain versions
     ops.reset_counts()
+    photo_batch_against_solo(pipe, steps, tally)
+    tally()
+    LARGE_SECONDS["phase 7"] = time.perf_counter() - t0
     log("  7.3 (phase 2 checked every kernel shape of this phase)")
     check = min(steps, CHECK_STEPS)
     log(f"  7.4 the HTTP server, {check} steps a request")
@@ -4039,9 +4158,14 @@ PARALLEL_TIMEOUT_S = 600.0  # the ranks' collective timeout and our wait
 PARALLEL_BAR_DB = 40.0
 # rank groups: (world, [job, ...]); every rank of a group runs its jobs
 PARALLEL_GROUPS = ((2, ("toy_model", "toy_data", "full_model",
-                        "shapes_model2")),
-                   (4, ("toy_hybrid", "full_hybrid", "shapes_model4")))
+                        "shapes_model2", "toy_photo_model")),
+                   (4, ("toy_hybrid", "full_hybrid", "shapes_model4",
+                        "toy_photo_hybrid")))
 _RANK = {}  # a rank process's pipelines, loaded once
+# full-width one-step edits at PHOTO, sharded: {job: (mesh shape, recipe)}
+PHOTO_SHARDED = {"photo_model2": ({"data": 1, "model": 2}, "model"),
+                 "photo_model4": ({"data": 1, "model": 4}, "model"),
+                 "photo_hybrid": ({"data": 2, "model": 2}, "hybrid")}
 
 
 def parallel_toy_requests():
@@ -4065,15 +4189,22 @@ def parallel_toy_requests():
 
 
 def parallel_edits():
-    """-> {"toy": the move edit, "full": phase 4's standard edit at
-    PARALLEL_FULL_STEPS steps, "one_step": phase 2's one-step edit}, seeded,
-    so no rank draws a seed of its own."""
+    """-> {"toy": the move edit, "toy_photo": the move edit at
+    TOY_PHOTO_SIZES[1] (W x H), "full": phase 4's standard edit at
+    PARALLEL_FULL_STEPS steps, "one_step": phase 2's one-step edit,
+    "photo_one_step": the same at PHOTO (W x H)}, seeded, so no rank draws
+    a seed of its own."""
     from blobctrl_torch.utils import benchkit
+    w, h = TOY_PHOTO_SIZES[1]
     return {"toy": dict(toy_edits(256, PARALLEL_TOY_STEPS)["move"], seed=0),
+            "toy_photo": dict(toy_edits(h, PARALLEL_TOY_STEPS,
+                                        width=w)["move"], seed=0),
             "full": dict(benchkit.standard_edit_kwargs(
                 512, PARALLEL_FULL_STEPS), seed=0),
             "one_step": dict(benchkit.standard_edit_kwargs(512, 1),
-                             blobnet_control_guidance_end=1.0, seed=0)}
+                             blobnet_control_guidance_end=1.0, seed=0),
+            "photo_one_step": photo_edit_kwargs(
+                PHOTO, 1, blobnet_control_guidance_end=1.0, seed=0)}
 
 
 def _rank_pipe(which):
@@ -4151,6 +4282,12 @@ def _rank_job(job):
     if job == "toy_hybrid":
         return _sharded_run("toy", {"data": 2, "model": 2}, "hybrid",
                             lambda p: p(**edits["toy"]).images, digests=True)
+    if job in ("toy_photo_model", "toy_photo_hybrid"):
+        shape = ({"data": 1, "model": 2} if job == "toy_photo_model"
+                 else {"data": 2, "model": 2})
+        return _sharded_run("toy", shape, job[10:],
+                            lambda p: p(**edits["toy_photo"]).images,
+                            digests=job == "toy_photo_hybrid")
     if job == "toy_data":
         reqs, shared = parallel_toy_requests()
         return _sharded_run("toy", {"data": 2, "model": 1}, "data",
@@ -4160,6 +4297,10 @@ def _rank_job(job):
                  else {"data": 2, "model": 2})
         return _sharded_run("full", shape, job[5:],
                             lambda p: p(**edits["full"]).images)
+    if job in PHOTO_SHARDED:   # scripts/torch_nccl_mesh.py's, a card a rank
+        shape, recipe = PHOTO_SHARDED[job]
+        return _sharded_run("full", shape, recipe,
+                            lambda p: p(**edits["photo_one_step"]).images)
 
     def one_step_each_mode(pipe):
         for mode in MODES:
@@ -4302,6 +4443,9 @@ def parallel_phase(results):
     ref_toy = card(**edits["toy"]).images
     keys_toy = launch_shapes()
     ops.reset_counts()
+    ref_photo, secs_photo = timed(lambda: card(**edits["toy_photo"]).images)
+    keys_photo = launch_shapes()
+    ops.reset_counts()
     reqs, shared = parallel_toy_requests()
     ref_batch = card.edit_batch(reqs, **shared).images
     keys_batch = launch_shapes()
@@ -4349,11 +4493,18 @@ def parallel_phase(results):
             ("toy_data", {"data": 2, "model": 1}, "data", ref_batch,
              keys_batch),
             ("toy_hybrid", {"data": 2, "model": 2}, "hybrid", ref_toy,
-             keys_toy)):
+             keys_toy),
+            ("toy_photo_model", {"data": 1, "model": 2}, "model", ref_photo,
+             keys_photo),
+            ("toy_photo_hybrid", {"data": 2, "model": 2}, "hybrid",
+             ref_photo, keys_photo)):
         expected = collectives.expected_counts(
             ucfg, bcfg, vcfg, shape, recipe, PARALLEL_TOY_STEPS,
             data_split=recipe == "data")
         for rank, run in enumerate(runs[job]):
+            if run["images"].shape != ref.shape:
+                raise AssertionError(f"{job} rank {rank}: "
+                                     f"{run['images'].shape}")
             rows = [psnr(run["images"][b:b + 1], ref[b:b + 1])
                     for b in range(ref.shape[0])]
             local = {k: len(_local(run, k, keys)) for k in EXACT}
@@ -4372,13 +4523,14 @@ def parallel_phase(results):
                 raise AssertionError(f"{job} rank {rank}: collectives "
                                      f"{run['counts']} != {expected}")
             launched.update({k: run["launches"][k] for k in EXACT})
-    digests = [run["digests"] for run in runs["toy_hybrid"]]
-    if len(digests[0]) != PARALLEL_TOY_STEPS or any(
-            d != digests[0] for d in digests):
-        raise AssertionError("hybrid: BlobNet's residuals differ across "
-                             "ranks")
-    log(f"  9a hybrid: BlobNet's residuals bit-equal on all 4 ranks at "
-        f"every one of {PARALLEL_TOY_STEPS} steps")
+    for job in ("toy_hybrid", "toy_photo_hybrid"):
+        digests = [run["digests"] for run in runs[job]]
+        if len(digests[0]) != PARALLEL_TOY_STEPS or any(
+                d != digests[0] for d in digests):
+            raise AssertionError(f"{job}: BlobNet's residuals differ "
+                                 f"across ranks")
+        log(f"  9a {job}: BlobNet's residuals bit-equal on all 4 ranks at "
+            f"every one of {PARALLEL_TOY_STEPS} steps")
     # 9b: full width, bf16, random weights
     for job, shape in (("full_model", {"data": 1, "model": 2}),
                        ("full_hybrid", {"data": 2, "model": 2})):
@@ -4418,19 +4570,30 @@ def parallel_phase(results):
                     f"{job} rank {rank}: peak {run['peak_gib']:.2f} GiB, "
                     f"not below the unsharded edit's {peak_full:.2f} GiB")
             launched.update({k: run["launches"][k] for k in EXACT})
-    # 9c: phase 2's bars at every local shape the one-step edits launched
-    new = collections.defaultdict(set)
-    for job in ("shapes_model2", "shapes_model4"):
-        for run in runs[job]:
-            launched.update(run["launches"])  # every mode's kernels
-            for name, per in run["shapes"].items():
-                if name in results:
-                    new[name] |= set(per) - set(results[name])
-    log("  9c: local shapes of one-step edits at model=2 and model=4, each "
-        "mode, not checked in phase 2: " + ", ".join(
-            f"{k} {len(v)}" for k, v in sorted(new.items())))
-    for name, rows in check_kernels(dict(new), timing=False).items():
-        results[name].update(rows)
+    # 9c: phase 2's bars at every local shape the one-step edits launched,
+    # and the toy's at a photo's size
+    photo_jobs = ("toy_photo_model", "toy_photo_hybrid")
+    for group, jobs in (("one-step edits at model=2 and model=4, each mode",
+                         ("shapes_model2", "shapes_model4")),
+                        (f"the toy at {TOY_PHOTO_SIZES[1][0]}x"
+                         f"{TOY_PHOTO_SIZES[1][1]} (W x H) at model=2 and "
+                         f"hybrid 2 x 2", photo_jobs)):
+        t0, new = time.perf_counter(), collections.defaultdict(set)
+        for job in jobs:
+            for run in runs[job]:
+                if job not in photo_jobs:   # 9a counted the toy's launches
+                    launched.update(run["launches"])  # every mode's kernels
+                for name, per in run["shapes"].items():
+                    if name in results:
+                        new[name] |= set(per) - set(results[name])
+        log(f"  9c: local shapes of {group}, not checked before: "
+            + ", ".join(f"{k} {len(v)}" for k, v in sorted(new.items())))
+        for name, rows in check_kernels(dict(new), timing=False).items():
+            results[name].update(rows)
+    # the sharded photo-size edits' own seconds: the unsharded reference,
+    # each job's slowest rank, their shapes' checks
+    LARGE_SECONDS["phase 9"] = secs_photo + time.perf_counter() - t0 + sum(
+        max(run["secs"] for run in runs[job]) for job in photo_jobs)
     log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return dict(launched)
 
@@ -5265,6 +5428,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from blobctrl_torch import ops
     from blobctrl_torch.ops import _build, conv3x3, winograd
+    from blobctrl_torch.ops import flash_attention as fa
     from blobctrl_torch.utils import benchkit
 
     # -- phase 1 ------------------------------------------------------------
@@ -5331,6 +5495,16 @@ def main() -> int:
     photo = photo_kernel_checks(pipe, results, {
         name: shapes[name] | batch_shapes.get(name, set())
         for name in EXACT + INT8 + FUSED})
+    log(f"  the large photos {', '.join(f'{w}x{h}' for w, h in LARGE_SIZES)}"
+        f" (W x H): one-step edits in every mode, and every kernel shape "
+        f"they launch that no edit above did, checked without timing (flash "
+        f"over more than {fa.PLAIN_MAX_ROWS} query rows or "
+        f"{fa.PLAIN_MAX_SCORES} scores at three tiles of {fa.CHECK_TILE} "
+        f"rows: the first, the middle and the last):")
+    large = photo_kernel_checks(
+        pipe, results, {name: set(results[name])
+                        for name in EXACT + INT8 + FUSED},
+        sizes=LARGE_SIZES, seconds=LARGE_SECONDS)
     results["blob_splat"], splat_calls = check_splat()
 
     # -- phase 3 ------------------------------------------------------------
@@ -5392,10 +5566,13 @@ def main() -> int:
         raise AssertionError(f"a kernel never ran on its path, or a path ran "
                              f"another path's kernel: {totals}, {strays}")
     photo_shapes = photo_request(pipe, square, smi.splitlines()[0])
+    large_shapes = photo_request(pipe, square, smi.splitlines()[0],
+                                 wh=LARGE_SIZES[0], seconds=LARGE_SECONDS)
     for name in EXACT:
-        missing = set(photo_shapes[name]) - set(results[name])
+        missing = (set(photo_shapes[name]) | set(large_shapes[name])) \
+            - set(results[name])
         if missing:
-            raise AssertionError(f"{name}: the photo request's shapes not "
+            raise AssertionError(f"{name}: the photo requests' shapes not "
                                  f"checked in phase 2: {missing}")
 
     # -- phase 5 ------------------------------------------------------------
@@ -5527,6 +5704,8 @@ def main() -> int:
         if name in photo:  # the shapes only the photo sizes launched
             entry["photo_shapes"], entry["photo_rel_bf16"], \
                 entry["photo_rel_fp32"] = photo[name]
+            entry["large_photo_shapes"], entry["large_photo_rel_bf16"], \
+                entry["large_photo_rel_fp32"] = large[name]
         if name in train_errs:  # the Function's forward and gradients
             entry["train_max_abs_err"] = max(train_errs[name].values())
         for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
@@ -5572,6 +5751,10 @@ def main() -> int:
                 f"{'none' if lib is None else f'{lib:.1f}'}")
     log(f"the photo sizes' checks: {sum(PHOTO_SECONDS.values()):.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in PHOTO_SECONDS.items())
+        + f") on {smi.splitlines()[0]}")
+    log(f"the large photos' and the batched and sharded photo-size checks: "
+        f"{sum(LARGE_SECONDS.values()):.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in LARGE_SECONDS.items())
         + f") on {smi.splitlines()[0]}")
     log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s on "
         f"{smi.splitlines()[0]}")

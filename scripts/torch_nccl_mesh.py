@@ -4,8 +4,9 @@ machine of four cards, each held against the same path over gloo.
 Its parts, in this order:
 
   edits    ``chip_smoke.py`` phase 9 as it is (its rank groups and jobs:
-           world 2 with toy_model, toy_data, full_model, shapes_model2;
-           world 4 with toy_hybrid, full_hybrid, shapes_model4), its ranks
+           world 2 with toy_model, toy_data, full_model, shapes_model2,
+           toy_photo_model; world 4 with toy_hybrid, full_hybrid,
+           shapes_model4, toy_photo_hybrid), its ranks
            over NCCL with rank r on cuda:r: its bars (40 dB against the
            unsharded edit on one card, the collective log against
            ``collectives.expected_counts``, K1/K6 at local shapes, every
@@ -32,6 +33,14 @@ Its parts, in this order:
            1e-3 of each leaf's max, the checkpoints through
            ``chip_smoke.hosts_state_check``, the collective log
            ``train_step.training_counts``'.
+  photo    full-width one-step sharded edits at a photo's size, 768x512
+           (``chip_smoke.PHOTO``, W x H; bf16, phase 9b's weights drawn a
+           rank), over NCCL, rank r on cuda:r: model=2, model=4 and hybrid
+           2 x 2 (``chip_smoke.PHOTO_SHARDED``), each rank's image >= 40 dB
+           (phase 9's bar) from the same edit unsharded on one card, its
+           collective log equal to ``collectives.expected_counts``, every
+           bf16 launch on the tensor cores, no collective staged through
+           host memory.
   measure  printed, not held to a bar: seconds per 512^2 standard edit
            (``benchkit.standard_edit_kwargs(512, 10)``, bf16, phase 9b's
            weights drawn once a rank) on 1 card, at model=2, model=4 and
@@ -74,7 +83,7 @@ import chip_smoke as cs  # noqa: E402
 
 WORLD = 4                  # ranks, one card each
 CARD = "cuda"              # the ranks' device: rank r on cuda:r
-PARTS = ("edits", "apps", "train", "measure")   # run in this order
+PARTS = ("edits", "apps", "train", "photo", "measure")   # run in this order
 APP_STEPS = 4              # the apps' toy edits
 APP_BATCH = 4              # the server's batch
 APP_PROMPT = "a red ball"
@@ -155,6 +164,78 @@ def sharded_edits():
                 f"over gloo on one card")
     log("  launches of the sharded runs over NCCL, summed over ranks: "
         + json.dumps(launched))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# part photo: full-width sharded edits at a photo's size
+# ---------------------------------------------------------------------------
+
+def photo_edits():
+    """Part photo. -> its report; AssertionError where a bar fails."""
+    import gc
+    from blobctrl_torch.apps import flagship
+    from blobctrl_torch.parallel import collectives
+    from blobctrl_torch.pipeline.blobnet_pipeline import blobnet_keep_schedule
+    from blobctrl_torch.utils import benchkit
+    kw = cs.parallel_edits()["photo_one_step"]
+    pipe = benchkit.make_flagship_pipe(seed=0, device="cuda:0",
+                                       dtype=torch.bfloat16)
+    ref, secs = cs.timed(lambda: pipe(**kw).images)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  the one-step edit at {cs.PHOTO[0]}x{cs.PHOTO[1]} (W x H) "
+        f"unsharded on cuda:0: {secs:.3f} s")
+    fcfg = (flagship.sd15_unet_config(), flagship.blobctrl_blobnet_config(),
+            flagship.sd15_vae_config())
+    blobnet_steps = int(blobnet_keep_schedule(
+        1, 0.0, kw["blobnet_control_guidance_end"]).sum())
+    report, failed = {}, []
+    for world in (2, 4):
+        jobs = [j for j, (shape, _) in cs.PHOTO_SHARDED.items()
+                if shape["data"] * shape["model"] == world]
+        t0 = time.perf_counter()
+        ranks = cs.spawn_ranks(world, jobs, device=CARD, backend="nccl")
+        log(f"  {world} ranks over NCCL ran {', '.join(jobs)} in "
+            f"{time.perf_counter() - t0:.1f} s (spawn, draws and shard "
+            f"included)")
+        staging = [r[cs.STAGING] for r in ranks]
+        if any(st[1] or not st[0] for st in staging):
+            failed.append(f"world {world}: staged or no collective "
+                          f"{staging}")
+        for job in jobs:
+            shape, recipe = cs.PHOTO_SHARDED[job]
+            expected = collectives.expected_counts(
+                *fcfg, shape, recipe, 1, blobnet_steps=blobnet_steps)
+            cell = report[job] = {"psnr": [], "secs": [], "peak_gib": []}
+            for rank, r in enumerate(ranks):
+                run = r[job]
+                p = cs.psnr(run["images"], ref)
+                cell["psnr"].append(p)
+                cell["secs"].append(run["secs"])
+                cell["peak_gib"].append(run["peak_gib"])
+                log(f"  {job} rank {rank}: PSNR against the unsharded edit "
+                    f"{p:.2f} dB (bar {cs.PARALLEL_BAR_DB:.0f}), "
+                    f"{run['secs']:.3f} s, peak memory "
+                    f"{run['peak_gib']:.2f} GiB, launches "
+                    f"{ {k: run['launches'][k] for k in cs.EXACT} }, "
+                    f"collectives {run['counts']}")
+                try:
+                    cs.check_tensor_cores(f"{job} rank {rank}",
+                                          run["launches"], cs.EXACT,
+                                          run["tc"])
+                except AssertionError as e:
+                    failed.append(str(e))
+                if run["images"].shape != ref.shape \
+                        or not p >= cs.PARALLEL_BAR_DB:
+                    failed.append(f"{job} rank {rank}: "
+                                  f"{run['images'].shape}, {p} dB")
+                if run["counts"] != expected:
+                    failed.append(f"{job} rank {rank}: collectives "
+                                  f"{run['counts']} != {expected}")
+    if failed:
+        raise AssertionError("; ".join(failed))
     return report
 
 
@@ -637,6 +718,7 @@ def run(a, card, work):
     log(f"kernel build {time.perf_counter() - t0:.1f} s")
     cs.write_hosts_roots(os.path.join(work, "roots"))
     steps = {"edits": sharded_edits, "measure": measure,
+             "photo": photo_edits,
              "apps": lambda: apps(work, a.timeout),
              "train": lambda: spawned_training(work, a.timeout)}
     report, failed = {"card": card, "parts": {}}, []

@@ -11,7 +11,9 @@
   truncated JPEG and a decompression bomb are still ValueErrors (400s)
   with the in-process message.
 * A worker that dies fails its request with a 500 over HTTP, the pool is
-  replaced, and the next request decodes; nothing decodes in-process."""
+  replaced, and the next request decodes; nothing decodes in-process.
+* A micro-batching server has a worker for each image of a full batch,
+  all up after its start."""
 
 import base64
 import io
@@ -157,4 +159,21 @@ def test_a_dead_worker_answers_500_and_is_replaced():
     finally:
         httpd.shutdown()
         httpd.server_close()
+        svc.close()
+
+
+@pytest.mark.parametrize("max_batch", [1, 4])
+def test_a_full_batch_decodes_at_once(max_batch):
+    """The fg and bg images of ``max_batch`` concurrent requests decode at
+    once, a worker each, as the JAX package's handler threads decode
+    theirs. With two workers, four concurrent requests of 1024^2 PNGs
+    reached the batcher one decode apart and missed its window."""
+    svc = server.EditService(STUB, size=64, max_batch=max_batch)
+    try:
+        assert svc.decoder.workers == 2 * max_batch
+        svc.decoder.start()
+        procs = list(svc.decoder._pool._processes.values())
+        assert len(procs) == 2 * max_batch
+        assert all(p.is_alive() for p in procs)
+    finally:
         svc.close()

@@ -33,9 +33,9 @@ ELLIPSE = "70,40,30,44,25"
 PROMPT = "a red apple on a table"
 
 
-def test_edit_batch_at_a_photo_size_matches_jax(pipes):  # noqa: F811
-    jpipe, tpipe = pipes
-    w, h = 128, 96
+def photo_batch(w: int = 128, h: int = 96):
+    """-> (two distinct toy requests at W x H, each with its own ellipse
+    and seed; the shared sampler kwargs)."""
     move = chip_smoke.toy_edits(h, STEPS, width=w)["move"]
     shared = {k: move[k] for k in ("height", "width", "num_inference_steps",
                                    "guidance_scale")}
@@ -48,6 +48,13 @@ def test_edit_batch_at_a_photo_size_matches_jax(pipes):  # noqa: F811
                                   "fg_dino_feats")},
             gs_score=tmath.blob_score_from_ellipse(
                 dst, w, h, (h // 8, w // 8)).numpy(), seed=40 + b))
+    return reqs, shared
+
+
+def test_edit_batch_at_a_photo_size_matches_jax(pipes):  # noqa: F811
+    jpipe, tpipe = pipes
+    w, h = 128, 96
+    reqs, shared = photo_batch(w, h)
     want = jpipe.edit_batch([dict(r) for r in reqs], **shared).images
     got = tpipe.edit_batch([dict(r) for r in reqs], **shared).images
     assert got.shape == want.shape == (2, h, w, 3)
